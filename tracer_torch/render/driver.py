@@ -1,0 +1,108 @@
+"""Animation frame driver: camera path, per-frame timing TSV, savers (port
+of tracer.render.driver; reference `gpu_render` / `cpu_render`,
+src/camera.cu:290-394).
+
+A sequential frame loop: camera for frame n, render (the CUDA kernel or
+its plain PyTorch twin), time the frame to the device's completion, print
+the reference's `frame \\t ms \\t total_rays` TSV line (camera.cu:344-346)
+and hand the framebuffer to a background writer.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import torch
+
+from tracer_torch.io import image as image_io
+from tracer_torch.kernels import megakernel
+from tracer_torch.render import camera as camera_mod
+from tracer_torch.render import renderer
+from tracer_torch.scene.params import SceneParams
+from tracer_torch.scene.types import Scene
+
+ENGINES = ("cuda", "torch")
+MAX_RAYS_PER_LAUNCH = 128 * 1024 * 1024
+
+
+def render_animation(
+    scene: Scene,
+    params: SceneParams,
+    saver: str = "bin",
+    out=None,
+    reference_quirk: bool = True,
+    frames=None,
+    engine: str = "cuda",
+    saver_spp_quirk: bool = True,
+    rr_start=None,
+    spp_chunk=None,
+):
+    """Render `params.num_frames` frames (or the indices in `frames`) on the
+    scene's device; returns the last framebuffer as a numpy array. The TSV
+    lines go to `out` (default: the current sys.stdout).
+
+    `engine`: "cuda" renders with the CUDA megakernel and requires a scene
+    on a CUDA device; "torch" renders with the plain PyTorch twin on the
+    scene's device. An unsupported request raises; nothing falls back.
+
+    `spp_chunk`: samples per render call; None bounds each call at
+    ~128M rays. The chunks take disjoint global sample ids (`sample_start`),
+    so their sum is the one-call frame up to float32 addition order.
+
+    `saver_spp_quirk`: the reference drivers build their savers with
+    sqrt_rays_per_pixel while accumulating sqrt_spp^2 samples
+    (camera.cu:300/357 vs :319-320), so reference image bytes are
+    quantize(sum / sqrt_spp). True (default) replicates that for byte
+    parity; False divides by the true sample count.
+    """
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
+    device = scene.device
+    if engine == "cuda":
+        if device.type != "cuda":
+            raise ValueError(f"engine 'cuda' needs a scene on a CUDA device, got {device}")
+        render = megakernel.render_frame_kernel
+    else:
+        render = renderer.render_frame
+    if saver not in image_io.SAVERS:
+        raise ValueError(f"unknown saver {saver!r}")
+
+    sqrt_spp = params.render.sqrt_rays_per_pixel
+    spp = sqrt_spp * sqrt_spp  # camera.cu:319-320
+    saver_divisor = sqrt_spp if saver_spp_quirk else spp
+    width, height = params.width, params.height
+    rays = renderer.total_rays(width, height, sqrt_spp)
+    chunk = spp_chunk or max(1, MAX_RAYS_PER_LAUNCH // (width * height))
+
+    out = sys.stdout if out is None else out
+    writer = image_io.ThreadedWriter()
+    fb = None
+    try:
+        for n in range(params.num_frames) if frames is None else frames:
+            cam = camera_mod.camera_at(
+                params.camera_path, n, params.num_frames, width, height,
+                params.fov_degrees, background=(0.0, 0.0, 0.0), device=device,  # camera.cu:323
+            )
+            t0 = time.perf_counter()
+            fb_dev = None
+            for c0 in range(0, spp, chunk):
+                part = render(scene, cam, width, height, min(chunk, spp - c0),
+                              params.render.max_depth, reference_quirk=reference_quirk,
+                              rr_start=rr_start, sample_start=c0)
+                fb_dev = part if fb_dev is None else fb_dev + part
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            ms = (time.perf_counter() - t0) * 1e3
+            print(f"{n}\t{ms}\t{rays}", file=out)
+
+            fb = fb_dev.cpu().numpy()
+            try:
+                filename = params.output_path % n  # snprintf(path, n), camera.cu:298-300
+            except TypeError:
+                filename = params.output_path
+            writer.submit(filename, fb, saver_divisor, fmt=saver)
+    finally:
+        # drains the queue and re-raises a write error, and always joins
+        writer.close()
+    return fb
