@@ -8,26 +8,59 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. Device: the card's name and power limit.
-2. Build: compiles tracer_torch/csrc/megakernel.cu with nvcc.
-3. Kernel against its plain PyTorch version, on the card, on the same
-   inputs: smoke scene (quirk on and off), a partial tile, an 8x8 texture,
-   the canonical scene with a synthetic 1330x2000 floor texture,
-   rr_start=3, and two sample chunks against one shot. Tolerance: a pixel
-   agrees when its max channel |diff| < 1e-3 (float32 reassociation and FMA
-   contraction flip razor-edge hits, after which a sample takes another
-   valid path); >= 99% of pixels must agree and the frame means must agree
-   to a relative 1e-3.
-4. Main path at real size: render_animation(engine="cuda") on the
+2. Build: compiles every tracer_torch/csrc/*.cu with nvcc, one process per
+   source, all started together (megakernel.cu, bwd.cu, tex_scatter.cu).
+3. Each kernel against its plain PyTorch version, on the card, on the same
+   inputs:
+   - the forward megakernel (K1): smoke scene (quirk on and off), a partial
+     tile, an 8x8 texture, the canonical scene with a synthetic 1330x2000
+     floor texture, rr_start=3, and two sample chunks against one shot. A
+     pixel agrees when its max channel |diff| < 1e-3 (float32
+     reassociation and FMA contraction flip razor-edge hits, after which a
+     sample takes another valid path); >= 99% of pixels must agree and the
+     frame means must agree to a relative 1e-3;
+   - the record mode (K1-rec) against the plain recording renderer: >= 99%
+     of index-tape slots equal, the frame by K1's rule, and on >= 99% of
+     those slots every texture field within 1e-3 of its scale (its max over
+     the tape, at least 1: the derivative fields grow with the texture's
+     size);
+   - the backward kernel (K2) against the plain replay, both fed the same
+     kernel-recorded tape, on the smoke scene and the canonical scene at a
+     small shape: every scene and camera leaf within 1e-4 of its max|g|
+     (atomics add in no fixed order, nvcc contracts to FMA), the replayed
+     frame within 1e-4 of the recorded one relative to its max;
+   - the texture scatter (K3) against the plain index_add_ version, rtol
+     1e-5, atol 1e-5;
+   - render_frame_diff on the card against central finite differences in
+     a sphere's z (rtol 2e-2, tests/test_grad.py's tie-free scene with a
+     ramp texture on that sphere, so that the gradient is not 0).
+4. Main render path at real size: render_animation(engine="cuda") on the
    canonical config (199 primitives, 1080x720, depth 50, synthetic floor
    texture), cut to 2 frames and sqrt_spp 4 for the time limit; checks the
-   saved frames, the launch count, and a sample of pixels against the
+   saved frames, K1's launch count, and a sample of pixels against the
    plain version. Then the CLI once, as a subprocess.
-5. Times: the kernel's Mrays/s at 800x600, spp 32, depth 50, textured
-   (best of 3 frames after a warm-up), and the plain version's at the same
-   shape with spp cut to 2.
+5. K1's times: Mrays/s at 800x600, spp 32, depth 50, textured (best of 3
+   frames after a warm-up), and the plain version's with spp cut to 2.
+6. Main gradient path at full width: opt.fit.fit(engine="cuda") on the
+   canonical textured scene at 800x600, spp 32, depth 8, 3 Adam steps on
+   materials.albedo and spheres.center toward a target rendered from a
+   perturbed scene; the loss must be finite and lower at the end, and K1-rec
+   and K2 must each launch 3 times.
+7. One render_frame_diff(texture_grads=True) backward at that shape: K3
+   launches once; the texture's cotangent is finite and non-zero.
+8. `tracer_torch.cli --gpu --fit` on the default config cut to sqrt_spp 2,
+   depth 8, 2 steps, as a subprocess.
+9. Gradient-path times at the main shape: K1-rec against K1 (depth 8)
+   and the plain recording renderer, K2 against the plain replay, K3
+   against its plain version and one index_add_ of the pre-weighted
+   corners, the fwd+bwd rate of one render_frame_diff step, and each
+   kernel's bound (the larger of its FP32 operations over 67 TFLOP/s and
+   its bytes over 3.35 TB/s, counting the bounces and slots this run's
+   tapes hold).
 
-The line before the last is a JSON object describing the kernel; the last
-is `{"ok": true, "device": {...}}`.
+The line before the last is a JSON object describing the kernels, with the
+card's name and power limit on the line before it; the last is
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -45,7 +78,19 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL_PIXEL, TOL_FRAC, TOL_MEAN = 1e-3, 0.99, 1e-3
+TOL_GRAD = 1e-4  # K2 against the plain replay, relative to each leaf's max|g|
 SKY = (0.05, 0.07, 0.1)  # lights every pixel, so the comparisons see every path
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense, at the 700 W limit)
+PEAK_FP32 = 67e12  # FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12  # bytes/s of HBM
+# FP32 operations a kernel cannot avoid, counted from the sources' formulas
+# as lower bounds: a ray-sphere test (oc, oc.d, oc.oc - r^2, disc, sqrt,
+# t_near), a ray-plane test (n.d, n.o, the root), the shading of a hit
+# bounce (normal, scatter directions, throughput), the adjoint of a hit
+# bounce (its recompute and reverse, twice the forward shading at least),
+# and one texel cotangent scattered to its four corners (weights and 12
+# products).
+OPS_SPHERE, OPS_PLANE, OPS_SHADE, OPS_ADJOINT, OPS_SCATTER = 20, 12, 60, 300, 30
 
 
 def fail(msg: str) -> int:
@@ -108,6 +153,42 @@ def full_scene(device):
     )
 
 
+def ramp_texture():
+    """A 32x32 two-way ramp (tests/test_opt.py's camera-fit texture): texels
+    change smoothly with (u, v), so moving a textured surface changes the
+    image smoothly."""
+    ramp = np.zeros((1, 32, 32, 3), np.float32)
+    ramp[0, :, :, 0] = np.linspace(0.1, 1.0, 32)[None, :]
+    ramp[0, :, :, 1] = np.linspace(1.0, 0.1, 32)[:, None]
+    ramp[0, :, :, 2] = 0.5
+    return ramp
+
+
+def tie_free_scene(device, center_z=1.0, ramp=False):
+    """tests/test_grad.py's scene, built with the port: no discrete decision
+    flips within +-1e-2 of sphere 0's z at 12x8, spp 2, depth 4. With
+    `ramp`, sphere 0 carries ramp_texture(), which gives its z a smooth,
+    non-zero gradient (in the untextured scene it is exactly 0)."""
+    import torch
+
+    from tracer_torch.scene import types as T
+
+    scene = T.Scene(
+        spheres=T.make_spheres([[0.0, 0.0, center_z], [2.2, 0.0, 1.0], [-2.2, 0.0, 1.0],
+                                [0.0, 2.5, 4.0]], [1.0] * 4, [0, 1, 2, 3], device),
+        planes=T.make_planes([T.QUAD], [[-8, -8, 0]], [[16, 0, 0]], [[0, 16, 0]], [4], device),
+        materials=T.make_materials(
+            [T.LAMBERTIAN, T.METAL, T.DIELECTRIC, T.DIFFUSE_LIGHT, T.LAMBERTIAN],
+            [0.0, 0.25, 0.0, 0.0, 0.0], [1.0, 1.0, 1.5, 1.0, 1.0],
+            [[0, 0, 0], [0, 0, 0], [0.3, 0.5, 0.1], [0, 0, 0], [0, 0, 0]],
+            [[0.7, 0.3, 0.3], [0.8, 0.8, 0.9], [1, 1, 1], [0, 0, 0], [0.5, 0.5, 0.5]],
+            [[0, 0, 0], [0, 0, 0], [0, 0, 0], [6, 5, 4], [0, 0, 0]],
+            [0 if ramp else -1, -1, -1, -1, -1], device),
+        textures=torch.tensor(ramp_texture(), device=device) if ramp else None,
+    )
+    return scene
+
+
 def synthetic_floor(_path):
     """Stand-in for floor.jpg at its real size, as bench.py makes it."""
     return np.random.default_rng(0).uniform(0.1, 1.0, size=(1330, 2000, 3)).astype(np.float32)
@@ -128,6 +209,59 @@ def cuda_ms(fn, reps=1):
     return best
 
 
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of ops over the FP32 peak and bytes
+    over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def hit_bounces(idx):
+    """(hit slots, primary misses) of an index tape [spp, D, N]: the bounces
+    its paths executed, at least (a path's miss after a hit is not on the
+    tape, so it is not counted)."""
+    return int((idx >= 0).sum()), int((idx[:, 0] < 0).sum())
+
+
+def leaf_grads(scene, cam, dtable, dcam):
+    """Scene and camera float-leaf gradients from the backward kernel's two
+    outputs, through the packing: [(name, tensor)]."""
+    from tracer_torch.kernels import bwd
+
+    return list(zip(bwd.leaf_names(scene, cam), bwd.leaf_cotangents(scene, cam, dtable, dcam)))
+
+
+def compare_grads(name, scene, cam, got, want, fb_rec, errs):
+    """K2's (dtable, dcam, fb, gtex) against the plain replay's."""
+    import torch
+
+    ok = True
+    worst, worst_abs = 0.0, 0.0
+    for (leaf, a), (_, b) in zip(leaf_grads(scene, cam, got[0], got[1]),
+                                 leaf_grads(scene, cam, want[0], want[1])):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not (torch.isfinite(a).all() and err <= TOL_GRAD * scale + 1e-30):
+            print(f"    {leaf}: max|diff| {err:.3g} vs max|g| {scale:.3g} -> FAIL")
+            ok = False
+        worst = max(worst, err / scale if scale else 0.0)
+        worst_abs = max(worst_abs, err)
+    fb_scale = float(want[2].abs().max())
+    fb_err = float((got[2] - fb_rec.reshape(-1, 3)).abs().max())
+    ok &= fb_err <= TOL_GRAD * fb_scale
+    if got[3] is not None:
+        g_err = float((got[3] - want[3]).abs().max())
+        g_scale = float(want[3].abs().max())
+        ok &= g_err <= TOL_GRAD * g_scale and g_scale > 0
+        print(f"    gtex: max|diff| {g_err:.3g} vs max {g_scale:.3g}")
+    errs.append(worst_abs)
+    print(f"  {name}: worst leaf max|diff|/max|g| {worst:.3g} (<= {TOL_GRAD}), max|diff| "
+          f"{worst_abs:.3g}; replayed fb "
+          f"vs recorded max|diff| {fb_err:.3g} (max {fb_scale:.3g}) -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    return ok
+
+
 def main() -> int:
     import torch
 
@@ -142,7 +276,9 @@ def main() -> int:
     if not os.path.abspath(tracer_torch.__file__).startswith(HERE + os.sep):
         return fail(f"tracer_torch came from {tracer_torch.__file__}, not from {HERE}")
     from tracer_torch.io import image as image_io
+    from tracer_torch.kernels import bwd, diff, nvcc, replay, tex_scatter
     from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.opt import fit as fit_mod
     from tracer_torch.render import camera as C
     from tracer_torch.render import driver, renderer
     from tracer_torch.scene import builders, config
@@ -155,15 +291,19 @@ def main() -> int:
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
-    b = mk.build()
-    print(f"[2] built {os.path.relpath(b.path, HERE)} from tracer_torch/csrc in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {b.seconds:.2f} s)", flush=True)
-    for line in b.log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print(f"    nvcc: {line.strip()}")
+    builds = nvcc.build_all()
+    print(f"[2] built {len(builds)} kernel libraries from tracer_torch/csrc in "
+          f"{time.perf_counter() - t0:.2f} s (parallel nvcc "
+          f"{max(b.seconds for b in builds.values()):.2f} s)", flush=True)
+    for stem, b in builds.items():
+        print(f"    {stem}: {os.path.relpath(b.path, HERE)}")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower() \
+                    or "Compiling entry" in line:
+                print(f"      nvcc: {line.strip()}")
 
-    # ---- 3. kernel against the plain version --------------------------
-    print(f"[3] kernel vs plain on {kind}", flush=True)
+    # ---- 3. kernels against their plain versions ----------------------
+    print(f"[3] kernels vs plain on {kind}", flush=True)
     errs, ok = [], True
     smoke_p = config.read_scene_params(io.StringIO(config.smoke_config_text()))
     smoke = builders.create_scene(smoke_p, texture_loader=lambda _: None, device=dev)
@@ -202,7 +342,99 @@ def main() -> int:
         return fail("kernel and plain version disagree")
     max_abs_err = max(errs)
 
-    # ---- 4. main path at real size ------------------------------------
+    # K1-rec against the plain recording renderer
+    rec_errs = []
+    for name, scene, cm, w, h, spp, depth, kw in (
+            ("all materials, 8x8 texture, 64x48 spp4 d8, 13 fields", full_scene(dev), cam_f,
+             64, 48, 4, 8, dict(tape_fields=13)),
+            ("canonical + texture 96x64 spp4 d50 rr_start=3, 9 fields", canon, cam_c, 96, 64,
+             4, 50, dict(tape_fields=9, rr_start=3))):
+        got = mk.render_frame_kernel_record(scene, cm, w, h, spp, depth, **kw)
+        torch.cuda.synchronize()
+        want = renderer.render_frame_record(scene, cm, w, h, spp, depth, **kw)
+        same = got[1] == want[1]
+        frac = same.double().mean().item()
+        ok &= frac >= TOL_FRAC
+        ok &= compare(f"record {name}: frame", got[0], want[0], rec_errs)
+        t_frac = 1.0
+        if len(got) == 3:
+            # a texture slot agrees when every field is within 1e-3 of the
+            # field's scale (the derivative fields grow with tw and th)
+            gt, wt = got[2][same], want[2][same]
+            scale = wt.abs().amax(dim=0).clamp_min(1.0)
+            t_frac = ((gt - wt).abs() <= 1e-3 * scale).all(dim=1).double().mean().item()
+            ok &= t_frac >= TOL_FRAC
+        print(f"    index tape: {frac:.6f} of {same.numel()} slots equal (>= {TOL_FRAC}); "
+              f"texture tape: {t_frac:.6f} of those slots agree (>= {TOL_FRAC})", flush=True)
+    if not ok:
+        return fail("record kernel and plain record disagree")
+    rec_err = max(rec_errs)
+
+    # K2 against the plain replay, on the same kernel-recorded tape
+    grad_errs = []
+    g = torch.Generator(device=dev).manual_seed(0)
+    for name, scene, cm, w, h, spp, depth, rr in (
+            ("smoke 64x48 spp4 d8", smoke, cam, 64, 48, 4, 8, None),
+            ("canonical + texture 96x64 spp2 d8 rr_start=3, 13 fields", canon, cam_c, 96, 64,
+             2, 8, 3)):
+        out = mk.render_frame_kernel_record(scene, cm, w, h, spp, depth, rr_start=rr,
+                                            tape_fields=13)
+        table, camv = bwd.pack_tables(scene, cm)
+        idx2 = out[1].reshape(spp * depth, -1)
+        g2 = torch.randn((w * h, 3), generator=g, device=dev)
+        t2 = bwd._field_major(out[2], spp, depth, w * h) if len(out) == 3 else None
+        kw = dict(rr_start=rr, t2=t2, want_texgrad=t2 is not None)
+        got = bwd.bwd_kernel(table, camv, idx2, g2, w, spp, depth, **kw)
+        torch.cuda.synchronize()
+        want = replay.replay_cotangents(table, camv, idx2, g2, w, spp, depth, **kw)
+        ok &= compare_grads(f"backward {name}", scene, cm, got, want, out[0], grad_errs)
+    if not ok:
+        return fail("backward kernel and plain replay disagree")
+    grad_err = max(grad_errs)
+
+    # K3 against the plain scatter
+    rng = np.random.default_rng(0)
+    spp_s, d_s, p_s, th_s, tw_s = 2, 3, 4096, 1330, 2000
+    r_s = spp_s * d_s
+    gs = torch.tensor(rng.normal(size=(3 * r_s, p_s)).astype(np.float32), device=dev)
+    t2s = torch.ones((13 * r_s, p_s), device=dev)
+    t2s[9 * r_s:10 * r_s] = torch.tensor(rng.integers(0, tw_s, (r_s, p_s)), device=dev).float()
+    t2s[10 * r_s:11 * r_s] = torch.tensor(rng.integers(0, th_s, (r_s, p_s)), device=dev).float()
+    t2s[9 * r_s, :3], t2s[10 * r_s, :3] = tw_s - 1, th_s - 1  # three wrap corners
+    t2s[11 * r_s:13 * r_s] = torch.rand((2 * r_s, p_s), generator=g, device=dev)
+    got = tex_scatter.texture_image_grads_kernel(gs, t2s, spp_s, d_s, th_s, tw_s)
+    torch.cuda.synchronize()
+    want = bwd.texture_image_grads(gs, t2s, spp_s, d_s, th_s, tw_s)
+    scatter_err = float((got - want).abs().max())
+    s_ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+    print(f"  texture scatter {r_s}x{p_s} slots onto {th_s}x{tw_s}: max|diff| "
+          f"{scatter_err:.3g} -> {'ok' if s_ok else 'FAIL'}", flush=True)
+    if not s_ok:
+        return fail("texture scatter kernel and plain version disagree")
+
+    # finite differences through the kernels
+    cam_t = C.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 12, 8, 55.0,
+                                background=SKY, device=dev)
+
+    def loss_at(cz, grad=False):
+        scene = tie_free_scene(dev, cz, ramp=True)
+        z = scene.spheres.center
+        if grad:
+            z.requires_grad_()
+        fb = diff.render_frame_diff(scene, cam_t, 12, 8, 2, 4).double()
+        loss = torch.sum(fb * fb) / (12 * 8 * 2)
+        return (loss, z) if grad else float(loss)
+
+    loss, z = loss_at(1.0, grad=True)
+    (gz,) = torch.autograd.grad(loss, z)
+    fd = (loss_at(1.0 + 1e-2) - loss_at(1.0 - 1e-2)) / 2e-2
+    fd_ok = abs(float(gz[0, 2]) - fd) <= 2e-2 * abs(fd) and fd != 0.0
+    print(f"  finite differences, sphere z: kernels {float(gz[0, 2]):.6g}, central "
+          f"{fd:.6g} -> {'ok' if fd_ok else 'FAIL'}", flush=True)
+    if not fd_ok:
+        return fail("kernel gradient disagrees with finite differences")
+
+    # ---- 4. main render path at real size ------------------------------
     main_p = config.read_scene_params(io.StringIO(config.default_config_text()))
     main_p.render.sqrt_rays_per_pixel = 4
     frames = range(2)
@@ -249,8 +481,8 @@ def main() -> int:
         return fail("main-path frame disagrees with the plain version")
 
     cfg = config.default_config_text().replace("\n50 50\n", "\n50 2\n")
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
     with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "tracer_torch.cli", "--gpu", "--frames", "1", "--format", "bin"],
@@ -267,15 +499,15 @@ def main() -> int:
         if len(line) != 3 or line[0] != "0" or int(line[2]) != 1080 * 720 * 4 or not img.any():
             return fail("CLI output is not one TSV line and a nonzero frame")
 
-    # ---- 5. times -------------------------------------------------------
+    # ---- 5. K1's times --------------------------------------------------
     W, H, SPP, D = 800, 600, 32, 50
     cams = [C.camera_at(canon_p.camera_path, k, canon_p.num_frames, W, H, canon_p.fov_degrees,
                         device=dev) for k in range(4)]
     rays = W * H * SPP
 
-    def kernel_best(scene, **kw):
-        mk.render_frame_kernel(scene, cams[0], W, H, SPP, D, **kw)  # warm-up
-        return min(cuda_ms(lambda c=c: mk.render_frame_kernel(scene, c, W, H, SPP, D, **kw))
+    def kernel_best(scene, depth=D, **kw):
+        mk.render_frame_kernel(scene, cams[0], W, H, SPP, depth, **kw)  # warm-up
+        return min(cuda_ms(lambda c=c: mk.render_frame_kernel(scene, c, W, H, SPP, depth, **kw))
                    for c in cams[1:])
 
     print(f"[5] times on {kind} ({card}), canonical scene {W}x{H} d{D}, best of 3 frames "
@@ -295,14 +527,191 @@ def main() -> int:
     prays = W * H * PSPP
     print(f"    same shape at spp{PSPP} (camera frame 1): kernel {k_ms:.3f} ms = "
           f"{prays / k_ms / 1e3:.3f} Mrays/s; plain PyTorch {p_ms:.3f} ms = "
-          f"{prays / p_ms / 1e3:.3f} Mrays/s (plain spp cut 32 -> {PSPP} for time)")
+          f"{prays / p_ms / 1e3:.3f} Mrays/s (plain spp cut 32 -> {PSPP} for time)", flush=True)
+    # K1's bound at the spp2 shape: the bounces its paths execute, from the
+    # index tape of the same paths (texture changes no path without roulette)
+    idx_k1 = mk.render_frame_kernel_record(untex, cams[1], W, H, PSPP, D)[1]
+    hits, prim_miss = hit_bounces(idx_k1)
+    del idx_k1
+    n_s, n_p = canon.num_spheres, canon.num_planes
+    k1_ops = (hits + prim_miss) * (n_s * OPS_SPHERE + n_p * OPS_PLANE) + hits * OPS_SHADE
+    k1_bytes = (4 * (n_s + n_p) * 34 + canon.textures.numel() * 4 + 15 * 4 + W * H * 3 * 4)
+    k1_bound, k1_by = bound(k1_ops, k1_bytes)
+    print(f"    bound at spp{PSPP}: {hits} hit bounces + {prim_miss} primary misses -> "
+          f"{k1_ops:.4g} FP32 ops, {k1_bytes} bytes: {k1_bound:.3f} ms ({k1_by})", flush=True)
+
+    # ---- 6. main gradient path at full width -----------------------------
+    GW, GH, GSPP, GD, STEPS = 800, 600, 32, 8, 3
+    paths = ("materials.albedo", "spheres.center")
+    cam_g = C.camera_at(canon_p.camera_path, 0, canon_p.num_frames, GW, GH,
+                        canon_p.fov_degrees, device=dev)
+    true_scene = canon._replace(
+        materials=canon.materials._replace(albedo=canon.materials.albedo * 0.85),
+        spheres=canon.spheres._replace(center=canon.spheres.center + 0.02))
+    target = mk.render_frame_kernel(true_scene, cam_g, GW, GH, GSPP, GD) / GSPP
+    print(f"[6] main gradient path: fit(engine='cuda') on the canonical scene + 1330x2000 "
+          f"texture, {GW}x{GH} spp{GSPP} d{GD}, {STEPS} Adam steps on {','.join(paths)} "
+          f"toward a target from albedo*0.85, centres+0.02; reduced: depth 50 -> {GD} "
+          f"(tape memory: the d50 tapes wait for the chunked backward)", flush=True)
+    mk.LAUNCHES_RECORD = bwd.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fitted, losses = fit_mod.fit(canon, cam_g, target, GW, GH, spp=GSPP, max_depth=GD,
+                                 param_paths=paths, steps=STEPS, learning_rate=1e-2,
+                                 log_every=1, engine="cuda",
+                                 log=lambda m: print(f"    {m}", flush=True))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rec_launches, bwd_launches = mk.LAUNCHES_RECORD, bwd.LAUNCHES
+    print(f"    losses {losses}; {fit_s:.2f} s for {STEPS} steps; launches: record "
+          f"{rec_launches}, backward {bwd_launches}", flush=True)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        return fail(f"fit loss is not finite and falling: {losses}")
+    if rec_launches != STEPS or bwd_launches != STEPS:
+        return fail(f"fit launched record {rec_launches} and backward {bwd_launches} times, "
+                    f"not {STEPS}")
+    for p in paths:
+        if not torch.isfinite(fit_mod.get_path(fitted, p)).all():
+            return fail(f"fitted {p} is not finite")
+
+    # ---- 7. texture-image gradients at that shape -------------------------
+    tex_leaf = canon.textures.detach().clone().requires_grad_()
+    scene_t = canon._replace(textures=tex_leaf)
+    tex_scatter.LAUNCHES = 0
+    fb_t = diff.render_frame_diff(scene_t, cam_g, GW, GH, GSPP, GD, texture_grads=True)
+    (g_tex,) = torch.autograd.grad(torch.mean((fb_t / GSPP - target) ** 2), tex_leaf)
+    torch.cuda.synchronize()
+    scatter_launches = tex_scatter.LAUNCHES
+    nz = float((g_tex != 0).double().mean())
+    print(f"[7] render_frame_diff(texture_grads=True) at {GW}x{GH} spp{GSPP} d{GD}: texture "
+          f"cotangent finite {bool(torch.isfinite(g_tex).all())}, {nz:.4f} of texels touched; "
+          f"scatter launches {scatter_launches}", flush=True)
+    del fb_t, g_tex
+    if scatter_launches != 1 or nz == 0.0:
+        return fail("the texture scatter did not run once at the main shape")
+
+    # ---- 8. the --fit CLI ---------------------------------------------------
+    fit_cfg = config.default_config_text().replace("\n50 50\n", "\n8 2\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run([sys.executable, "-m", "tracer_torch.cli", "--gpu", "--frames", "1"],
+                           input=fit_cfg, capture_output=True, text=True, cwd=tmp, env=env,
+                           timeout=300)
+        target_file = os.path.join(tmp, "images", "render_0.png")
+        if r.returncode != 0 or not os.path.exists(target_file):
+            return fail(f"CLI render of the fit target failed:\n{r.stderr[-3000:]}")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "tracer_torch.cli", "--gpu", "--fit",
+                            target_file, "--fit-steps", "2", "--fit-params", "materials.albedo"],
+                           input=fit_cfg, capture_output=True, text=True, cwd=tmp, env=env,
+                           timeout=300)
+        last = r.stdout.strip().splitlines()[-1:] or [""]
+        print(f"[8] CLI --gpu --fit (default config, sqrt_spp 2, depth 8, 2 steps): rc "
+              f"{r.returncode} in {time.perf_counter() - t0:.1f} s, {last[0]!r}", flush=True)
+        if r.returncode != 0 or not last[0].startswith("final loss: ") \
+                or not math.isfinite(float(last[0].split(": ")[1])):
+            return fail(f"CLI --fit failed:\n{r.stderr[-3000:]}")
+
+    # ---- 9. gradient-path times ---------------------------------------------
+    print(f"[9] gradient-path times on {kind} ({card}), {GW}x{GH} spp{GSPP} d{GD}, canonical "
+          f"+ texture, camera frame 0, CUDA events, best of 3 after a warm-up:", flush=True)
+    grays = GW * GH * GSPP
+    fwd_ms = cuda_ms(lambda: mk.render_frame_kernel(canon, cam_g, GW, GH, GSPP, GD), reps=3)
+    mk.render_frame_kernel_record(canon, cam_g, GW, GH, GSPP, GD)
+    rec_ms = cuda_ms(lambda: mk.render_frame_kernel_record(canon, cam_g, GW, GH, GSPP, GD),
+                     reps=3)
+    out = mk.render_frame_kernel_record(canon, cam_g, GW, GH, GSPP, GD)
+    hits_g, miss_g = hit_bounces(out[1])
+    tape_b = out[1].numel() * 4 + out[2].numel() * 4
+    table, camv = bwd.pack_tables(canon, cam_g)
+    idx2 = out[1].reshape(GSPP * GD, -1)
+    t2 = bwd._field_major(out[2], GSPP, GD, GW * GH)
+    g2 = torch.randn((GW * GH, 3), generator=g, device=dev)
+    bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2)
+    bwd_ms = cuda_ms(lambda: bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2), reps=3)
+    pbwd_ms = cuda_ms(lambda: replay.replay_cotangents(table, camv, idx2, g2, GW, GSPP, GD, t2=t2))
+    del out, idx2, t2
+    prec_ms = cuda_ms(lambda: renderer.render_frame_record(canon, cam_g, GW, GH, GSPP, GD))
+    print(f"    K1 forward {fwd_ms:.3f} ms; K1-rec {rec_ms:.3f} ms (tapes {tape_b} bytes, "
+          f"{hits_g} hit bounces, {miss_g} primary misses), plain record {prec_ms:.3f} ms; "
+          f"K2 {bwd_ms:.3f} ms, plain replay {pbwd_ms:.3f} ms", flush=True)
+    # one fwd+bwd step as the user calls it, host clock to synchronize
+    leaf = canon.materials.albedo.detach().clone().requires_grad_()
+    scene_a = canon._replace(materials=canon.materials._replace(albedo=leaf))
+    step_s = math.inf
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fb_s = diff.render_frame_diff(scene_a, cam_g, GW, GH, GSPP, GD)
+        torch.autograd.grad(torch.mean((fb_s / GSPP - target) ** 2), leaf)
+        torch.cuda.synchronize()
+        step_s = min(step_s, time.perf_counter() - t0)
+    del fb_s
+    print(f"    fwd+bwd step (render_frame_diff + backward): {step_s * 1e3:.3f} ms = "
+          f"{grays / step_s / 1e6:.3f} Mrays/s", flush=True)
+    # K3 at the main shape: the texture-grads tapes of one frame
+    out = mk.render_frame_kernel_record(canon, cam_g, GW, GH, GSPP, GD, tape_fields=13)
+    idx2 = out[1].reshape(GSPP * GD, -1)
+    t2 = bwd._field_major(out[2], GSPP, GD, GW * GH)
+    del out
+    gtex = bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2, want_texgrad=True)[3]
+    th, tw = canon.textures.shape[1:3]
+    tex_scatter.texture_image_grads_kernel(gtex, t2, GSPP, GD, th, tw)
+    k3_ms = cuda_ms(lambda: tex_scatter.texture_image_grads_kernel(gtex, t2, GSPP, GD, th, tw),
+                    reps=3)
+    p3_ms = cuda_ms(lambda: bwd.texture_image_grads(gtex, t2, GSPP, GD, th, tw))
+    live = int((gtex.reshape(3, -1) != 0).any(dim=0).sum())
+    slots = gtex.shape[0] // 3 * gtex.shape[1]
+    # one index_add_ of all four corners' weighted cotangents, inputs built first
+    rows = GSPP * GD
+    gg = gtex.reshape(3, rows, -1).permute(1, 2, 0)
+    x0, y0 = t2[9 * rows:10 * rows].long(), t2[10 * rows:11 * rows].long()
+    fu, fv = t2[11 * rows:12 * rows], t2[12 * rows:13 * rows]
+    x1, y1 = torch.where(x0 + 1 < tw, x0 + 1, 0), torch.where(y0 + 1 < th, y0 + 1, 0)
+    flat_idx = torch.cat([(y0 * tw + x0).reshape(-1), (y0 * tw + x1).reshape(-1),
+                          (y1 * tw + x0).reshape(-1), (y1 * tw + x1).reshape(-1)])
+    vals = torch.cat([(w[..., None] * gg).reshape(-1, 3) for w in
+                      ((1 - fu) * (1 - fv), fu * (1 - fv), (1 - fu) * fv, fu * fv)])
+    del gg, x0, y0, fu, fv, x1, y1
+    acc = torch.zeros((th * tw, 3), device=dev)
+    lib_ms = cuda_ms(lambda: acc.zero_().index_add_(0, flat_idx, vals), reps=3)
+    print(f"    K3 scatter {slots} slots ({live} with a cotangent) onto {th}x{tw}: kernel "
+          f"{k3_ms:.3f} ms, plain {p3_ms:.3f} ms, one index_add_ {lib_ms:.3f} ms", flush=True)
+    del flat_idx, vals, acc, idx2
+
+    # bounds: the record mode writes its whole tapes; the backward reads the
+    # slots its paths reached (index and 9 texture fields each) and writes
+    # dtable, dcam and fb; the scatter reads every cotangent and the
+    # addressing of the slots that have one
+    n_prims = canon.num_spheres + canon.num_planes
+    reached = hits_g + miss_g
+    rec_ops = reached * (n_s * OPS_SPHERE + n_p * OPS_PLANE) + hits_g * OPS_SHADE
+    rec_bound = bound(rec_ops, k1_bytes + tape_b)
+    bwd_bound = bound(hits_g * OPS_ADJOINT, reached * 4 * 10 + 2 * 4 * n_prims * 30
+                      + 2 * GW * GH * 3 * 4 + 2 * 15 * 4)
+    k3_bound = bound(live * OPS_SCATTER, slots * 3 * 4 + live * 4 * 4 + th * tw * 3 * 4)
+    for name, b in (("K1-rec", rec_bound), ("K2", bwd_bound), ("K3", k3_bound)):
+        print(f"    {name} bound: {b[0]:.3f} ms ({b[1]})")
     print(f"    card: {card}", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "megakernel", "route": "cuda", "source": "tracer_torch/csrc/megakernel.cu",
-        "replaces": "tracer/pallas/kernels.py:33", "launches": launches,
-        "max_abs_err": max_abs_err, "ms": k_ms, "plain_ms": p_ms,
-    }]}))
+    kernels = [
+        dict(name="megakernel", route="cuda", source="tracer_torch/csrc/megakernel.cu",
+             replaces="tracer/pallas/kernels.py:33", launches=launches, max_abs_err=max_abs_err,
+             ms=k_ms, plain_ms=p_ms, bound_ms=k1_bound, bound_by=k1_by, library_ms=None),
+        dict(name="megakernel_record", route="cuda", source="tracer_torch/csrc/megakernel.cu",
+             replaces="tracer/pallas/kernels.py:411", launches=rec_launches,
+             max_abs_err=rec_err, ms=rec_ms, plain_ms=prec_ms, bound_ms=rec_bound[0],
+             bound_by=rec_bound[1], library_ms=None),
+        dict(name="bwd", route="cuda", source="tracer_torch/csrc/bwd.cu",
+             replaces="tracer/pallas/bwd.py:194", launches=bwd_launches, max_abs_err=grad_err,
+             ms=bwd_ms, plain_ms=pbwd_ms, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+             library_ms=None),
+        dict(name="tex_scatter", route="cuda", source="tracer_torch/csrc/tex_scatter.cu",
+             replaces="tracer/pallas/tex_scatter.py:41", launches=scatter_launches,
+             max_abs_err=scatter_err, ms=k3_ms, plain_ms=p3_ms, bound_ms=k3_bound[0],
+             bound_by=k3_bound[1], library_ms=lib_ms),
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

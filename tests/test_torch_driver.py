@@ -74,6 +74,20 @@ def test_cli_gpu_without_cuda_fails(tmp_path, capsys):
     assert not list(tmp_path.glob("out_*"))
 
 
+@pytest.mark.parametrize("argv", [[], ["--backend", "auto"]], ids=["no-flag", "auto"])
+def test_cli_without_device_flag_needs_cuda(argv, tmp_path, capsys):
+    """Only --cpu or --backend cpu asks for the twin: otherwise the CLI runs
+    on the card, and exits 1 without one, writing no frame."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = _small_config(tmp_path)
+    assert cli.main(["--config", str(cfg), *argv]) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err
+    assert not list(tmp_path.glob("out_*"))
+    assert cli.main(["--backend", "cpu", "--config", str(cfg)]) == 0
+    assert list(tmp_path.glob("out_*"))
+
+
 @pytest.mark.parametrize("text", ["", "1\nx.png\n48 32", "1 x.png 48 32 90 oops"])
 def test_cli_bad_config_exits_2(text, monkeypatch, capsys):
     monkeypatch.setattr(sys, "stdin", io.StringIO(text))
@@ -82,9 +96,8 @@ def test_cli_bad_config_exits_2(text, monkeypatch, capsys):
 
 
 UNPORTED = [
-    ["--bvh"], ["--fit", "t.png"], ["--fit-params", "materials.albedo"], ["--fit-steps", "3"],
-    ["--fit-lr", "0.1"], ["--fit-checkpoint", "c.npz"], ["--ref-rng"], ["--stratify"],
-    ["--fast-math"], ["--retries", "2"], ["--backend", "tpu"],
+    ["--bvh"], ["--ref-rng"], ["--stratify"], ["--fast-math"], ["--retries", "2"],
+    ["--backend", "tpu"],
 ]
 
 

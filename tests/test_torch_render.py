@@ -65,8 +65,9 @@ def _jcam(w, h, background=(0.0, 0.0, 0.0)):
 def test_reproduces_golden_fixture():
     params = config.read_scene_params(io.StringIO(config.smoke_config_text()))
     scene = _smoke()
-    lookfrom, lookat = camera.camera_path_position(params.camera_path, 0, params.num_frames)
-    cam = camera.build_camera_data(lookfrom, lookat, 32, 24, params.fov_degrees)
+    lookfrom, lookat = camera.camera_path_position(params.camera_path, 0, params.num_frames,
+                                                   device="cpu")
+    cam = camera.build_camera_data(lookfrom, lookat, 32, 24, params.fov_degrees, device="cpu")
     fb = renderer.render_frame(scene, cam, 32, 24, spp=4, max_depth=5)
     assert fb.shape == (24, 32, 3) and fb.dtype == torch.float32
     np.testing.assert_allclose(fb.numpy(), np.load(GOLDEN)["fb"], rtol=1e-4, atol=1e-5)

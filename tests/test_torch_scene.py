@@ -94,7 +94,8 @@ def test_create_scene_matches_tracer(cfg, loader):
 def test_create_scene_bvh_not_ported():
     params = config.read_scene_params(io.StringIO(config.smoke_config_text()))
     with pytest.raises(NotImplementedError):
-        builders.create_scene(params, with_bvh=True, texture_loader=lambda _p: None)
+        builders.create_scene(params, with_bvh=True, texture_loader=lambda _p: None,
+                              device="cpu")
 
 
 @pytest.mark.parametrize("loader", sorted(LOADERS))

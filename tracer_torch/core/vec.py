@@ -1,7 +1,8 @@
 """Vector math on `[..., 3]` float32 tensors (port of tracer.core.vec).
 
-Forward only: the gradient-safe sqrt of the JAX package belongs to the
-gradient slice, which is not ported yet.
+`_sqrt_grad_safe` is the gradient-safe sqrt of the JAX package: the same
+forward values, and a derivative bounded at 0 so that a masked branch
+never multiplies a zero cotangent into an infinity.
 """
 
 from __future__ import annotations
@@ -9,6 +10,26 @@ from __future__ import annotations
 import torch
 
 NEAR_ZERO_EPS = 1e-8  # reference: include/vec3.h:59
+
+
+class _SqrtGradSafe(torch.autograd.Function):
+    """sqrt with the derivative `1 / (2 max(sqrt(x), 1e-12))` (the clamped
+    derivative of tracer.core.vec._sqrt_grad_safe's custom_jvp)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g / (2.0 * torch.clamp_min(y, 1e-12))
+
+
+def _sqrt_grad_safe(x: torch.Tensor) -> torch.Tensor:
+    return _SqrtGradSafe.apply(x)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -21,7 +42,8 @@ def length_squared(v: torch.Tensor) -> torch.Tensor:
 
 
 def length(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(length_squared(v))
+    """reference: include/vec3.h:55; gradient bounded at |v| = 0."""
+    return _sqrt_grad_safe(length_squared(v))
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -54,5 +76,5 @@ def refract(uv: torch.Tensor, n: torch.Tensor, etai_over_etat: torch.Tensor) -> 
     (reference: include/vec3.h:65-70)."""
     cos_theta = torch.clamp_max(dot(-uv, n), 1.0)
     r_out_perp = etai_over_etat[..., None] * (uv + cos_theta[..., None] * n)
-    r_out_parallel = -torch.sqrt(torch.abs(1.0 - length_squared(r_out_perp)))[..., None] * n
+    r_out_parallel = -_sqrt_grad_safe(torch.abs(1.0 - length_squared(r_out_perp)))[..., None] * n
     return r_out_perp + r_out_parallel

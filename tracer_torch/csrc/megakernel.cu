@@ -24,6 +24,22 @@
 // stay cached. This first version does nothing about that yet (no shared
 // memory staging, no ray sorting, no path regeneration).
 //
+// Record mode (record_kernel, entry tracer_megakernel_record) replaces the
+// same TPU kernel with record_idx=True (tracer/pallas/kernels.py:411-452,
+// entry tracer/pallas/megakernel.py:render_frame_pallas_record): the same
+// paths, plus the tapes the backward kernel replays. Each (sample, bounce)
+// a path reaches stores its slot directly: the winner index into
+// idx_tape[(s*D + d)*N + pixel] and, for a textured hit, the texture fields
+// into tex_tape[((f*spp + s)*D + d)*N + pixel], field-major (fields 0-2
+// texel, 3-5 tw*dT/dpx, 6-8 -th*dT/dpy, 9-12 x0, y0, fu, fv). The wrapper
+// fills the tapes with their neutral values first (-1; 1 for the texel
+// fields, 0 for the rest), so misses and unreached slots cost no store;
+// the TPU's masked accumulate over the whole tape has no counterpart.
+// What bounds it: the forward's FP32 work plus the tape stores, 4 bytes
+// per slot and field, written once and coalesced (neighbouring threads
+// hold neighbouring pixels). It is a second __global__ with its own copy
+// of the bounce loop, so that render_kernel's code stays as it was.
+//
 // Float semantics: IEEE division and sqrtf (no --use_fast_math); nvcc's
 // default FMA contraction is kept, so a ray on a razor-edge tie (polyhedron
 // border quads) may take another path than in the plain version — callers
@@ -145,6 +161,42 @@ __device__ V3 sample_bilinear(const float* tex, int th, int tw, float u, float v
     float bot = c01 * (1.0f - dx) + c11 * dx;
     out[c] = top * (1.0f - dy) + bot * dy;
   }
+  return make_v3(out[0], out[1], out[2]);
+}
+
+// sample_bilinear plus the recording tape's fields: the texel's exact
+// d/du and d/dv (bilinear is separately linear in px and py) as
+// tw*dT/dpx and -th*dT/dpy, and the addressing (x0, y0, fu, fv)
+__device__ V3 sample_bilinear_tape(const float* tex, int th, int tw, float u, float v,
+                                   V3* d_u, V3* d_v, float* addr) {
+  u = u - floorf(u);
+  v = v - floorf(v);
+  float px = u * (float)tw;
+  float py = (1.0f - v) * (float)th;
+  int x0 = min(max((int)px, 0), tw - 1);
+  int y0 = min(max((int)py, 0), th - 1);
+  int x1 = (x0 + 1) % tw;
+  int y1 = (y0 + 1) % th;
+  float dx = px - (float)x0;
+  float dy = py - (float)y0;
+  const float* r0 = tex + (size_t)y0 * tw * 3;
+  const float* r1 = tex + (size_t)y1 * tw * 3;
+  float out[3], gu[3], gv[3];
+  for (int c = 0; c < 3; ++c) {
+    float c00 = __ldg(r0 + x0 * 3 + c), c10 = __ldg(r0 + x1 * 3 + c);
+    float c01 = __ldg(r1 + x0 * 3 + c), c11 = __ldg(r1 + x1 * 3 + c);
+    float top = c00 * (1.0f - dx) + c10 * dx;
+    float bot = c01 * (1.0f - dx) + c11 * dx;
+    out[c] = top * (1.0f - dy) + bot * dy;
+    gu[c] = ((1.0f - dy) * (c10 - c00) + dy * (c11 - c01)) * (float)tw;
+    gv[c] = (bot - top) * -(float)th;
+  }
+  *d_u = make_v3(gu[0], gu[1], gu[2]);
+  *d_v = make_v3(gv[0], gv[1], gv[2]);
+  addr[0] = (float)x0;
+  addr[1] = (float)y0;
+  addr[2] = dx;
+  addr[3] = dy;
   return make_v3(out[0], out[1], out[2]);
 }
 
@@ -368,6 +420,227 @@ __global__ void __launch_bounds__(128) render_kernel(
   px[2] = acc_b;
 }
 
+// Record mode: render_kernel's bounce loop, storing each reached slot of
+// the winner-index and texture tapes (see the note at the top).
+__global__ void __launch_bounds__(128) record_kernel(
+    const float* __restrict__ sph, int num_s,
+    const float* __restrict__ pla, int num_p,
+    const float* __restrict__ join,
+    const float* __restrict__ tex, int th, int tw,
+    const float* __restrict__ cam,
+    float* __restrict__ out,
+    int width, int height, int spp, int max_depth,
+    uint32_t sample_start, int reference_quirk, int rr_start,
+    int* __restrict__ idx_tape, float* __restrict__ tex_tape, int tape_f) {
+  const int lin = blockIdx.x * blockDim.x + threadIdx.x;
+  const int npx = width * height;
+  if (lin >= npx) return;  // ragged last block
+  const int i = lin % width;  // column
+  const int j = lin / width;  // row
+  const int n = num_s + num_p;
+  const size_t field_stride = (size_t)spp * max_depth * npx;
+
+  const V3 cam_o = ld3(cam, C_OX, 1, 0);
+  const V3 p00 = ld3(cam, C_P00X, 1, 0);
+  const V3 du = ld3(cam, C_DUX, 1, 0);
+  const V3 dv = ld3(cam, C_DVX, 1, 0);
+  const V3 bg = ld3(cam, C_BGR, 1, 0);
+
+  const V3 pc = add(add(p00, scale(du, (float)i)), scale(dv, (float)j));
+  const uint32_t w32 = (uint32_t)width;
+  const uint32_t base = wang_hash(reference_quirk ? (uint32_t)i * w32 + (uint32_t)j
+                                                  : (uint32_t)j * w32 + (uint32_t)i);
+
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  for (int s = 0; s < spp; ++s) {
+    uint32_t seed = wang_hash(base + sample_start + (uint32_t)s);
+    const float ox = rand01(seed) - 0.5f;
+    const float oy = rand01(seed) - 0.5f;
+    V3 o = cam_o;
+    V3 d = sub(add(add(pc, scale(du, ox)), scale(dv, oy)), cam_o);
+    V3 beta = make_v3(1.0f, 1.0f, 1.0f);
+    V3 fin = make_v3(0.0f, 0.0f, 0.0f);
+
+    for (int depth = 0; depth < max_depth; ++depth) {
+      const size_t slot = ((size_t)s * max_depth + depth) * npx + lin;
+      const float a = dot(d, d);
+      const float inv_a = 1.0f / a;
+      float best = K_INFINITY;
+      int widx = -1;
+      float best_alpha = 0.0f, best_beta = 0.0f;
+      for (int k = 0; k < num_s; ++k) {
+        const V3 oc = sub(o, ld3(sph, S_CX, num_s, k));
+        const float r = ld(sph, S_RADIUS, num_s, k);
+        const float half_b = dot(oc, d);
+        const float c = dot(oc, oc) - r * r;
+        const float disc = half_b * half_b - a * c;
+        if (!(disc >= 0.0f)) continue;
+        const float sq = sqrtf(disc);
+        const float t_near = (-half_b - sq) * inv_a;
+        float t = K_INFINITY;
+        if (t_near >= T_MIN && t_near <= T_MAX) {
+          t = t_near;
+        } else {
+          const float t_far = (-half_b + sq) * inv_a;
+          if (t_far >= T_MIN && t_far <= T_MAX) t = t_far;
+        }
+        if (t < best) {
+          best = t;
+          widx = k;
+        }
+      }
+      for (int k = 0; k < num_p; ++k) {
+        const V3 nrm = ld3(pla, P_NX, num_p, k);
+        const float denom = dot(nrm, d);
+        if (!(fabsf(denom) >= DENOM_EPS)) continue;
+        const float root = (ld(pla, P_D, num_p, k) - dot(nrm, o)) / denom;
+        if (!(root >= T_MIN && root <= T_MAX) || !(root < best)) continue;
+        const V3 phv = sub(add(o, scale(d, root)), ld3(pla, P_BX, num_p, k));
+        const V3 w = ld3(pla, P_WX, num_p, k);
+        const float alpha = dot(w, cross(phv, ld3(pla, P_VX, num_p, k)));
+        const float beta_uv = dot(w, cross(ld3(pla, P_UX, num_p, k), phv));
+        const int ptype = (int)ld(pla, P_PTYPE, num_p, k);
+        bool inside;
+        if (ptype == QUAD) {
+          inside = alpha >= 0.0f && alpha <= 1.0f && beta_uv >= 0.0f && beta_uv <= 1.0f;
+        } else if (ptype == ELLIPSE) {
+          const float ea = alpha - 0.5f, eb = beta_uv - 0.5f;
+          inside = ea * ea + eb * eb <= 0.25f;
+        } else {
+          inside = alpha >= 0.0f && beta_uv >= 0.0f && alpha + beta_uv <= 1.0f;
+        }
+        if (!inside) continue;
+        best = root;
+        widx = num_s + k;
+        best_alpha = alpha;
+        best_beta = beta_uv;
+      }
+
+      if (widx < 0) {  // miss: the tape keeps its -1
+        fin = add(fin, mul(beta, bg));
+        break;
+      }
+      idx_tape[slot] = widx;
+
+      const V3 p = add(o, scale(d, best));
+      V3 outward;
+      float tu, tv;
+      if (widx < num_s) {
+        outward = sub(p, ld3(sph, S_CX, num_s, widx));
+        const float r = ld(sph, S_RADIUS, num_s, widx);
+        outward = make_v3(outward.x / r, outward.y / r, outward.z / r);
+        const float theta = acosf(fminf(fmaxf(outward.y, -1.0f), 1.0f));
+        const float phi = atan2f(-outward.z, outward.x) + PI_F;
+        tu = phi / TWO_PI_F;
+        tv = theta / PI_F;
+      } else {
+        outward = ld3(pla, P_NX, num_p, widx - num_s);
+        tu = best_alpha;
+        tv = best_beta;
+      }
+      const bool front = dot(d, outward) < 0.0f;
+      const V3 nrm = front ? outward : neg(outward);
+
+      const int mtype = (int)ld(join, J_MTYPE, n, widx);
+      V3 albedo = ld3(join, J_ALB0, n, widx);
+      if (tex != nullptr && ld(join, J_TEX_ID, n, widx) >= 0.0f) {
+        V3 t_du, t_dv;
+        float addr[4];
+        const V3 texel = sample_bilinear_tape(tex, th, tw, tu, tv, &t_du, &t_dv, addr);
+        albedo = mul(albedo, texel);
+        const float fields[13] = {texel.x, texel.y, texel.z, t_du.x, t_du.y, t_du.z,
+                                  t_dv.x, t_dv.y, t_dv.z, addr[0], addr[1], addr[2], addr[3]};
+        for (int f = 0; f < tape_f; ++f) tex_tape[f * field_stride + slot] = fields[f];
+      }
+      fin = add(fin, mul(beta, ld3(join, J_EMI0, n, widx)));
+
+      const float u_choice = rand01(seed);
+      V3 hemi = rand_unit_vector(seed);
+      if (!(dot(hemi, nrm) > 0.0f)) hemi = neg(hemi);
+      const V3 ball_dir = rand_unit_vector(seed);
+      const V3 ball = scale(ball_dir, cbrtf(rand01(seed)));
+      const float u_refl = rand01(seed);
+      const float u_rr = rand01(seed);
+
+      const V3 ud = scale(d, 1.0f / sqrtf(fmaxf(a, 1e-30f)));
+      const bool hemi_zero = fabsf(hemi.x) < NEAR_ZERO_EPS && fabsf(hemi.y) < NEAR_ZERO_EPS &&
+                             fabsf(hemi.z) < NEAR_ZERO_EPS;
+      const V3 lam_dir = hemi_zero ? nrm : hemi;
+
+      bool ok;
+      V3 new_o = p, new_d, att = albedo;
+      if (mtype == LAMBERTIAN) {
+        ok = true;
+        new_d = lam_dir;
+      } else if (mtype == METAL) {
+        const float fuzz = ld(join, J_FUZZ, n, widx);
+        if (u_choice < METAL_SPECULAR_P) {
+          new_d = add(reflect(ud, nrm), scale(ball, fuzz));
+          ok = dot(new_d, nrm) > 0.0f;
+        } else {
+          new_d = lam_dir;
+          ok = true;
+        }
+      } else if (mtype == DIELECTRIC) {
+        const float ir = ld(join, J_IR, n, widx);
+        const float ratio = front ? 1.0f / ir : ir;
+        const float cos_t = fminf(-dot(ud, nrm), 1.0f);
+        const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+        const bool cannot_refract = ratio * sin_t > 1.0f;
+        float r0 = (1.0f - ratio) / (1.0f + ratio);
+        r0 = r0 * r0;
+        const float x = 1.0f - cos_t;
+        const float x2 = x * x;
+        const float refl_p = r0 + (1.0f - r0) * (x2 * x2 * x);
+        if (cannot_refract || refl_p > u_refl) {
+          new_d = reflect(ud, nrm);
+        } else {
+          const V3 perp = scale(add(ud, scale(nrm, cos_t)), ratio);
+          const float par = -sqrtf(fabsf(1.0f - dot(perp, perp)));
+          new_d = add(perp, scale(nrm, par));
+        }
+        if (front) {
+          att = make_v3(1.0f, 1.0f, 1.0f);
+        } else {
+          const V3 od = sub(p, o);
+          const float dist = sqrtf(dot(od, od));
+          att = make_v3(expf(-ld(join, J_ABS0, n, widx) * dist),
+                        expf(-ld(join, J_ABS1, n, widx) * dist),
+                        expf(-ld(join, J_ABS2, n, widx) * dist));
+        }
+        const float p_rr = fmaxf(att.x, fmaxf(att.y, att.z));
+        ok = u_rr <= p_rr;
+        att = scale(att, 1.0f / fmaxf(p_rr, 1e-30f));
+        const float side = dot(new_d, nrm) > 0.0f ? 1.0f : -1.0f;
+        new_o = add(p, scale(nrm, DIELECTRIC_OFFSET * side));
+      } else {
+        ok = false;
+        new_d = lam_dir;
+      }
+      if (!ok) break;
+      beta = mul(beta, att);
+      o = new_o;
+      d = new_d;
+
+      if (rr_start >= 0) {
+        const float u_t = rand01(seed);
+        const float pr = fminf(fmaxf(fmaxf(beta.x, fmaxf(beta.y, beta.z)), RR_MIN_P), 1.0f);
+        if (depth >= rr_start) {
+          if (u_t >= pr) break;
+          beta = scale(beta, 1.0f / pr);
+        }
+      }
+    }
+    acc_r += fin.x;
+    acc_g += fin.y;
+    acc_b += fin.z;
+  }
+  float* px = out + (size_t)lin * 3;
+  px[0] = acc_r;
+  px[1] = acc_g;
+  px[2] = acc_b;
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes by tracer_torch/kernels/megakernel.py.
@@ -385,5 +658,23 @@ extern "C" int tracer_megakernel_render(
   render_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
       sample_start, reference_quirk, rr_start);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Record mode (record_kernel). idx_tape [spp*max_depth, width*height] and
+// tex_tape [tape_f*spp*max_depth, width*height] (nullptr when tex is) come
+// filled with their neutral values; tape_f is 9 or 13.
+extern "C" int tracer_megakernel_record(
+    const float* sph, int num_s, const float* pla, int num_p, const float* join,
+    const float* tex, int th, int tw, const float* cam, float* out,
+    int width, int height, int spp, int max_depth, unsigned int sample_start,
+    int reference_quirk, int rr_start, int* idx_tape, float* tex_tape, int tape_f,
+    void* stream) {
+  const int threads = 128;
+  const int pixels = width * height;
+  const int blocks = (pixels + threads - 1) / threads;
+  record_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
+      sample_start, reference_quirk, rr_start, idx_tape, tex_tape, tape_f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,14 @@ split rows and the precombined projection tables of the TPU packing (which
 exist for its matrix unit) have no counterpart. The row order is part of
 the kernel's interface: `csrc/megakernel.cu` declares the same rows in its
 `SphereRow`, `PlaneRow`, `JoinRow` and `CameraRow` enums.
+
+The backward kernel reads one combined table instead (`BWD_ROWS`, built
+differentiably by tracer_torch.kernels.bwd.pack_bwd_tables): the join rows
+of tracer/pallas/kernel_lib.py (`J_*`, the winner's geometry and
+material) followed by the geometry rows of tracer/pallas/bwd.py (`G_*`,
+offsets from `JROWS`: the plane d and its texture-uv frame), and the
+camera as `CAMV_ROWS`. `csrc/bwd.cu` declares the same rows in its
+`TableRow` and `CamvRow` enums.
 """
 
 from __future__ import annotations
@@ -30,6 +38,18 @@ JOIN_ROWS = ("mtype", "fuzz", "ir", "abs0", "abs1", "abs2", "alb0", "alb1", "alb
              "emi0", "emi1", "emi2", "tex_id")
 CAMERA_ROWS = ("ox", "oy", "oz", "p00x", "p00y", "p00z", "dux", "duy", "duz",
                "dvx", "dvy", "dvz", "bgr", "bgg", "bgb")
+
+BWD_JOIN_ROWS = ("cx", "cy", "cz", "rad", "nx", "ny", "nz", "issph", "mtype", "fuzz", "ir",
+                 "abs0", "abs1", "abs2", "alb0", "alb1", "alb2", "emi0", "emi1", "emi2", "texid")
+BWD_GEO_ROWS = ("pd", "ax", "ay", "az", "bx", "by", "bz", "ba", "bb")
+BWD_ROWS = BWD_JOIN_ROWS + BWD_GEO_ROWS
+CAMV_ROWS = ("p00x", "p00y", "p00z", "dux", "duy", "duz", "dvx", "dvy", "dvz",
+             "ox", "oy", "oz", "bgr", "bgg", "bgb")
+(J_CX, J_CY, J_CZ, J_RAD, J_NX, J_NY, J_NZ, J_ISSPH, J_MTYPE, J_FUZZ, J_IR,
+ J_ABS0, J_ABS1, J_ABS2, J_ALB0, J_ALB1, J_ALB2, J_EMI0, J_EMI1, J_EMI2, J_TEXID) = range(21)
+JROWS = len(BWD_JOIN_ROWS)
+G_PD, G_AX, G_AY, G_AZ, G_BX, G_BY, G_BZ, G_BA, G_BB = range(9)
+TROWS = len(BWD_ROWS)
 
 
 class PackedScene(NamedTuple):

@@ -21,6 +21,13 @@ METAL_SPECULAR_P = 0.8  # materials.h:82 (p_metal)
 DIELECTRIC_OFFSET = 1e-4  # materials.h:127
 
 
+def max3(x: torch.Tensor) -> torch.Tensor:
+    """max(x0, max(x1, x2)) over the trailing axis: the same value as amax,
+    with the gradient of the JAX kernels at ties (half to each side of a
+    tied maximum, where amax shares it evenly over all ties)."""
+    return torch.maximum(x[..., 0], torch.maximum(x[..., 1], x[..., 2]))
+
+
 def reflectance(cosine, ref_idx):
     """Schlick approximation (reference materials.h:64-68)."""
     r0 = (1.0 - ref_idx) / (1.0 + ref_idx)
@@ -67,8 +74,9 @@ def scatter(ray_origin, ray_dir, point, normal, front_face, mtype, fuzz, ir,
     distance = vec.length(point - ray_origin)
     transmission = torch.exp(-absorption * distance[..., None])
     die_att = torch.where(front_face[..., None], 1.0, transmission)
-    # Russian roulette on the max channel (materials.h:123-125)
-    p_rr = torch.amax(die_att, dim=-1)
+    # Russian roulette on the max channel (materials.h:123-125); nested
+    # maximum, whose gradient splits ties as the backward kernel's does
+    p_rr = max3(die_att)
     die_ok = u_rr <= p_rr
     die_att = die_att / torch.clamp_min(p_rr, 1e-30)[..., None]
     side = torch.where(vec.dot(die_dir, normal) > 0.0, 1.0, -1.0)

@@ -32,7 +32,7 @@ def _vec3(x, device) -> torch.Tensor:
 
 
 def build_camera_data(origin, look_at, width: int, height: int, vfov=DEFAULT_VFOV,
-                      vup=DEFAULT_VUP, background=(0.0, 0.0, 0.0), device="cpu") -> CameraData:
+                      vup=DEFAULT_VUP, background=(0.0, 0.0, 0.0), device="cuda") -> CameraData:
     """reference src/camera.cu:171-196 (look-at basis + viewport), float32."""
     origin = _vec3(origin, device)
     look_at = _vec3(look_at, device)
@@ -85,7 +85,7 @@ def get_rays(cam: CameraData, i, j, seed):
     return seed, origin, pixel_sample - origin
 
 
-def camera_path_position(path, frame, num_frames: int, device="cpu"):
+def camera_path_position(path, frame, num_frames: int, device="cuda"):
     """Sinusoidal cylindrical camera path (reference src/camera.cu:303-315):
     returns (lookfrom `[3]`, lookat `[3]`). `path` is a CameraPathParams."""
     t = (torch.as_tensor(frame, dtype=torch.float32, device=device) / num_frames) * (2.0 * math.pi)
@@ -102,7 +102,7 @@ def camera_path_position(path, frame, num_frames: int, device="cpu"):
 
 
 def camera_at(path, frame, num_frames, width, height, vfov,
-              background=(0.0, 0.0, 0.0), device="cpu") -> CameraData:
+              background=(0.0, 0.0, 0.0), device="cuda") -> CameraData:
     """Camera for animation frame `frame` (camera.cu:303-324)."""
     lookfrom, lookat = camera_path_position(path, frame, num_frames, device=device)
     return build_camera_data(lookfrom, lookat, width, height, vfov=float(vfov),

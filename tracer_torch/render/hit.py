@@ -4,7 +4,8 @@ reference `hit_scene`, include/scene.h:23-54).
 The valid-hit parameter of every (ray, primitive) pair forms a dense
 `[R, S+P]` matrix, spheres first; the argmin picks the winner, so ties go
 to the lowest index with spheres before planes. The winner's record is
-then recomputed from its gathered fields and joined with its material.
+then recomputed from its gathered fields and joined with its material;
+its index (`winner`) is what the recording renderer writes to its tape.
 This one brute intersector stands in for both `hit.py` and `hit_fast.py`
 of the JAX package (the latter is a TPU matrix-unit formulation).
 """
@@ -38,6 +39,7 @@ class JoinedHit(NamedTuple):
     albedo: torch.Tensor  # [R, 3]
     emit: torch.Tensor  # [R, 3]
     tex_id: torch.Tensor  # [R] i32
+    winner: torch.Tensor  # [R] i64 argmin over [spheres; planes] (meaningless on a miss)
 
 
 def hit_scene_brute(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) -> JoinedHit:
@@ -83,5 +85,5 @@ def hit_scene_brute(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) -
         hit=hit, t=t_best, point=point, normal=normal, front_face=front, u=u, v=v,
         mtype=mats.mtype[midx], fuzz=mats.fuzz[midx], ir=mats.ir[midx],
         absorption=mats.absorption[midx], albedo=mats.albedo[midx],
-        emit=mats.emit[midx], tex_id=mats.tex_id[midx],
+        emit=mats.emit[midx], tex_id=mats.tex_id[midx], winner=winner,
     )

@@ -21,26 +21,48 @@ DEFAULT_CHUNK = 16384
 
 def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base_seed,
                   spp: int, max_depth: int, chunk: int = DEFAULT_CHUNK,
-                  sample_start: int = 0, rr_start=None):
+                  sample_start: int = 0, rr_start=None, tape_fields=None):
     """Raw sample sums `[N, 3]` for a flat list of pixels.
 
     i_flat/j_flat: `[N]` pixel column/row; base_seed: `[N]` per-pixel seed
     (int64 holding uint32). Samples are the global ids
     `sample_start .. sample_start + spp - 1`, so chunked calls add up to
     the one-shot frame.
+
+    With `tape_fields` (9 or 13) it also records the recording kernel's
+    tapes and returns (sums, idx `[spp, max_depth, N]` int32 with -1 for a
+    miss or a bounce the path never reached, tex `[spp, max_depth, N, F]`
+    or None for an untextured scene); unvisited texture slots hold the
+    neutral values (multipliers 1, every other field 0).
     """
+    n, dev = i_flat.shape[0], i_flat.device
+    idx = tex = None
+    if tape_fields is not None:
+        if tape_fields not in integrator.TAPE_FIELDS:
+            raise ValueError(f"tape_fields must be one of {integrator.TAPE_FIELDS}, "
+                             f"got {tape_fields}")
+        idx = torch.full((spp, max_depth, n), -1, dtype=torch.int32, device=dev)
+        if scene.textures is not None:
+            neutral = torch.tensor(integrator.TAPE_NEUTRAL[:tape_fields], device=dev)
+            tex = neutral.expand(spp, max_depth, n, tape_fields).clone()
     out = []
-    for c0 in range(0, i_flat.shape[0], chunk):
+    for c0 in range(0, n, chunk):
         i, j, base = i_flat[c0:c0 + chunk], j_flat[c0:c0 + chunk], base_seed[c0:c0 + chunk]
-        acc = torch.zeros((i.shape[0], 3), dtype=torch.float32, device=i.device)
-        for s in range(sample_start, sample_start + spp):
-            seed = rng.sample_seed(base, s)
+        c1 = c0 + i.shape[0]
+        acc = torch.zeros((i.shape[0], 3), dtype=torch.float32, device=dev)
+        for s in range(spp):
+            seed = rng.sample_seed(base, sample_start + s)
             seed, origin, direction = camera_mod.get_rays(cam, i, j, seed)
-            color, _ = integrator.trace(scene, cam.background, origin, direction, seed,
-                                        max_depth, rr_start=rr_start)
-            acc = acc + color
+            res = integrator.trace(scene, cam.background, origin, direction, seed, max_depth,
+                                   rr_start=rr_start, tape_fields=tape_fields)
+            for d, (w, t) in enumerate(res[2] if idx is not None else ()):
+                idx[s, d, c0:c1] = w
+                if tex is not None:
+                    tex[s, d, c0:c1] = t
+            acc = acc + res[0]
         out.append(acc)
-    return torch.cat(out, dim=0)
+    sums = torch.cat(out, dim=0)
+    return sums if idx is None else (sums, idx, tex)
 
 
 def pixel_grid(width: int, height: int, reference_quirk: bool = True, device="cpu"):
@@ -72,3 +94,19 @@ def render_frame(scene: Scene, cam: camera_mod.CameraData, width: int, height: i
 def total_rays(width: int, height: int, sqrt_spp: int) -> int:
     """reference camera.cu:344-345: width*height*sqrt_spp^2."""
     return width * height * sqrt_spp * sqrt_spp
+
+
+def render_frame_record(scene: Scene, cam: camera_mod.CameraData, width: int, height: int,
+                        spp: int, max_depth: int, reference_quirk: bool = True, rr_start=None,
+                        sample_start: int = 0, tape_fields: int = 9):
+    """The plain version of the recording kernel (tracer/pallas/megakernel.py:
+    render_frame_pallas_record): returns (fb `[H, W, 3]`, idx `[spp, D, H*W]`
+    int32) for an untextured scene and (fb, idx, tex `[spp, D, H*W, F]`)
+    for a textured one, F = `tape_fields` (9, or 13 with the addressing
+    rows the texture-image gradient needs)."""
+    i_flat, j_flat, base_seed = pixel_grid(width, height, reference_quirk, scene.device)
+    fb, idx, tex = render_pixels(scene, cam, i_flat, j_flat, base_seed, spp, max_depth,
+                                 sample_start=sample_start, rr_start=rr_start,
+                                 tape_fields=tape_fields)
+    fb = fb.reshape(height, width, 3)
+    return (fb, idx) if tex is None else (fb, idx, tex)

@@ -290,7 +290,7 @@ def buffers_to_scene(buf: SceneBuffers, device, textures: Optional[np.ndarray] =
 
 
 def create_scene(params: SceneParams, with_bvh: bool = False,
-                 texture_loader=None, device="cpu") -> T.Scene:
+                 texture_loader=None, device="cuda") -> T.Scene:
     """Full analog of reference create_scene (main.cu:346-497).
 
     `texture_loader(path) -> np.ndarray [H, W, 3] | None` defaults to
