@@ -27,8 +27,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    - the backward kernel (K2) against the plain replay, both fed the same
      kernel-recorded tape, on the smoke scene and the canonical scene at a
      small shape: every scene and camera leaf within 1e-4 of its max|g|
-     (atomics add in no fixed order, nvcc contracts to FMA), the replayed
-     frame within 1e-4 of the recorded one relative to its max;
+     (atomics add in no fixed order; the kernel's cbrtf and the plain
+     version's float64 cube root may differ in the last bit), the replayed
+     frame within 1e-4 of the recorded one relative to its max (the record
+     kernel contracts to FMA, the backward kernel does not);
    - the texture scatter (K3) against the plain index_add_ version, rtol
      1e-5, atol 1e-5;
    - render_frame_diff on the card against central finite differences in
@@ -50,13 +52,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    launches once; the texture's cotangent is finite and non-zero.
 8. `tracer_torch.cli --gpu --fit` on the default config cut to sqrt_spp 2,
    depth 8, 2 steps, as a subprocess.
-9. Gradient-path times at the main shape: K1-rec against K1 (depth 8)
-   and the plain recording renderer, K2 against the plain replay, K3
-   against its plain version and one index_add_ of the pre-weighted
-   corners, the fwd+bwd rate of one render_frame_diff step, and each
-   kernel's bound (the larger of its FP32 operations over 67 TFLOP/s and
-   its bytes over 3.35 TB/s, counting the bounces and slots this run's
-   tapes hold).
+9. The gradient path at the main shape:
+   - K1-rec, K2 and K3 against their plain versions on the same inputs,
+     by phase 3's rules (K2 and the plain replay fed the same
+     kernel-recorded tape), except that the record's frame is judged per
+     pixel on its estimate (raw sum / spp): K1-rec keeps the forward's FMA
+     contraction, whose last-bit hit points, read through the noise floor
+     texture (texel slopes near 2000 per unit of u) and summed over 32
+     samples of bright paths, move about 1% of the raw sums by more than
+     1e-3;
+   - their times beside K1's (depth 8), the plain versions' and one
+     index_add_ of the pre-weighted corners, and the fwd+bwd rate of one
+     render_frame_diff step;
+   - each kernel's bound (the larger of its FP32 operations over 67
+     TFLOP/s and its bytes over 3.35 TB/s, counting the bounces and slots
+     this run's tapes hold).
 
 The line before the last is a JSON object describing the kernels, with the
 card's name and power limit on the line before it; the last is
@@ -79,7 +89,6 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL_PIXEL, TOL_FRAC, TOL_MEAN = 1e-3, 0.99, 1e-3
 TOL_GRAD = 1e-4  # K2 against the plain replay, relative to each leaf's max|g|
-SKY = (0.05, 0.07, 0.1)  # lights every pixel, so the comparisons see every path
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense, at the 700 W limit)
 PEAK_FP32 = 67e12  # FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # bytes/s of HBM
@@ -105,8 +114,9 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def compare(name, got, want, errs):
-    """Kernel frame against the plain frame; prints and returns the verdict."""
+def compare(name, got, want, errs, spp=1):
+    """Kernel frame against the plain frame; prints and returns the verdict.
+    With spp > 1 a pixel is judged on its estimate, the raw sum over spp."""
     import torch
 
     got, want = got.double(), want.double()
@@ -114,7 +124,7 @@ def compare(name, got, want, errs):
         print(f"  {name}: non-finite values")
         return False
     d = (got - want).abs().amax(dim=-1)
-    frac = (d < TOL_PIXEL).double().mean().item()
+    frac = (d / spp < TOL_PIXEL).double().mean().item()
     mean_k, mean_p = got.mean().item(), want.mean().item()
     rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-30)
     lit = (want.amax(dim=-1) > 0).double().mean().item()
@@ -124,69 +134,6 @@ def compare(name, got, want, errs):
           f"mean kernel {mean_k:.9g} plain {mean_p:.9g} rel {rel:.3g} (< {TOL_MEAN}), "
           f"lit pixels {lit:.4f} -> {'ok' if ok else 'FAIL'}", flush=True)
     return ok
-
-
-def full_scene(device):
-    """Every material and plane type, 8x8 texture on the floor (the scene
-    of tests/test_parity.py:_full_scene, built with the port)."""
-    import torch
-
-    from tracer_torch.scene import types as T
-
-    g = np.random.default_rng(11)
-    tex = g.uniform(0.2, 1.0, size=(1, 8, 8, 3)).astype(np.float32)
-    return T.Scene(
-        spheres=T.make_spheres([[0.0, 0.0, 1.0], [2.2, 0.0, 1.0], [-2.2, 0.0, 1.0],
-                                [0.0, 2.5, 4.0]], [1.0] * 4, [0, 1, 2, 3], device),
-        planes=T.make_planes([T.QUAD, T.TRIANGLE, T.ELLIPSE],
-                             [[-8, -8, 0], [3, -2, 0.5], [-5, -2, 0.5]],
-                             [[16, 0, 0], [2, 0, 0], [2, 0, 0]],
-                             [[0, 16, 0], [0, 0, 2], [0, 0, 2]], [4, 0, 0], device),
-        materials=T.make_materials(
-            [T.LAMBERTIAN, T.METAL, T.DIELECTRIC, T.DIFFUSE_LIGHT, T.METAL],
-            [0.0, 0.3, 0.0, 0.0, 0.1], [1.0, 1.0, 1.5, 1.0, 1.0],
-            [[0, 0, 0], [0, 0, 0], [0.3, 0.5, 0.1], [0, 0, 0], [0, 0, 0]],
-            [[0.7, 0.3, 0.3], [0.8, 0.8, 0.9], [1, 1, 1], [0, 0, 0], [0.9, 0.9, 0.9]],
-            [[0, 0, 0], [0, 0, 0], [0, 0, 0], [6, 5, 4], [0, 0, 0]],
-            [-1, -1, -1, -1, 0], device),
-        textures=torch.tensor(tex, device=device),
-    )
-
-
-def ramp_texture():
-    """A 32x32 two-way ramp (tests/test_opt.py's camera-fit texture): texels
-    change smoothly with (u, v), so moving a textured surface changes the
-    image smoothly."""
-    ramp = np.zeros((1, 32, 32, 3), np.float32)
-    ramp[0, :, :, 0] = np.linspace(0.1, 1.0, 32)[None, :]
-    ramp[0, :, :, 1] = np.linspace(1.0, 0.1, 32)[:, None]
-    ramp[0, :, :, 2] = 0.5
-    return ramp
-
-
-def tie_free_scene(device, center_z=1.0, ramp=False):
-    """tests/test_grad.py's scene, built with the port: no discrete decision
-    flips within +-1e-2 of sphere 0's z at 12x8, spp 2, depth 4. With
-    `ramp`, sphere 0 carries ramp_texture(), which gives its z a smooth,
-    non-zero gradient (in the untextured scene it is exactly 0)."""
-    import torch
-
-    from tracer_torch.scene import types as T
-
-    scene = T.Scene(
-        spheres=T.make_spheres([[0.0, 0.0, center_z], [2.2, 0.0, 1.0], [-2.2, 0.0, 1.0],
-                                [0.0, 2.5, 4.0]], [1.0] * 4, [0, 1, 2, 3], device),
-        planes=T.make_planes([T.QUAD], [[-8, -8, 0]], [[16, 0, 0]], [[0, 16, 0]], [4], device),
-        materials=T.make_materials(
-            [T.LAMBERTIAN, T.METAL, T.DIELECTRIC, T.DIFFUSE_LIGHT, T.LAMBERTIAN],
-            [0.0, 0.25, 0.0, 0.0, 0.0], [1.0, 1.0, 1.5, 1.0, 1.0],
-            [[0, 0, 0], [0, 0, 0], [0.3, 0.5, 0.1], [0, 0, 0], [0, 0, 0]],
-            [[0.7, 0.3, 0.3], [0.8, 0.8, 0.9], [1, 1, 1], [0, 0, 0], [0.5, 0.5, 0.5]],
-            [[0, 0, 0], [0, 0, 0], [0, 0, 0], [6, 5, 4], [0, 0, 0]],
-            [0 if ramp else -1, -1, -1, -1, -1], device),
-        textures=torch.tensor(ramp_texture(), device=device) if ramp else None,
-    )
-    return scene
 
 
 def synthetic_floor(_path):
@@ -223,22 +170,47 @@ def hit_bounces(idx):
     return int((idx >= 0).sum()), int((idx[:, 0] < 0).sum())
 
 
-def leaf_grads(scene, cam, dtable, dcam):
-    """Scene and camera float-leaf gradients from the backward kernel's two
-    outputs, through the packing: [(name, tensor)]."""
-    from tracer_torch.kernels import bwd
+def compare_record(name, got, want, errs, spp=1):
+    """K1-rec's (fb, idx[, tex]) against the plain record's: the frame by
+    compare(), >= TOL_FRAC of the index-tape slots equal and, on >= TOL_FRAC
+    of those, every texture field within 1e-3 of its scale (its max over the
+    tape, at least 1: the derivative fields grow with the texture's size).
+    Walks the tapes one sample at a time, so that the comparison takes
+    little memory beside them at the main shape."""
+    import torch
 
-    return list(zip(bwd.leaf_names(scene, cam), bwd.leaf_cotangents(scene, cam, dtable, dcam)))
+    ok = compare(f"{name}: frame", got[0], want[0], errs, spp) and len(got) == len(want)
+    textured = len(want) == 3
+    if textured:
+        scale = torch.maximum(want[2].amax(dim=(0, 1, 2)), -want[2].amin(dim=(0, 1, 2)))
+        scale = scale.clamp_min(1.0)
+    n_slots = n_same = n_tex = 0
+    for s in range(want[1].shape[0]):
+        same = got[1][s] == want[1][s]
+        n_slots += same.numel()
+        n_same += int(same.sum())
+        if textured:
+            d = (got[2][s][same] - want[2][s][same]).abs()
+            n_tex += int((d <= 1e-3 * scale).all(dim=1).sum())
+    frac = n_same / n_slots
+    t_frac = n_tex / max(n_same, 1) if textured else 1.0
+    ok &= frac >= TOL_FRAC and t_frac >= TOL_FRAC
+    print(f"    index tape: {frac:.6f} of {n_slots} slots equal (>= {TOL_FRAC}); "
+          f"texture tape: {t_frac:.6f} of those slots agree (>= {TOL_FRAC}) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
 
 
 def compare_grads(name, scene, cam, got, want, fb_rec, errs):
     """K2's (dtable, dcam, fb, gtex) against the plain replay's."""
     import torch
 
+    from tracer_torch.kernels import bwd
+
     ok = True
     worst, worst_abs = 0.0, 0.0
-    for (leaf, a), (_, b) in zip(leaf_grads(scene, cam, got[0], got[1]),
-                                 leaf_grads(scene, cam, want[0], want[1])):
+    for (leaf, a), (_, b) in zip(bwd.leaf_grads(scene, cam, got[0], got[1]),
+                                 bwd.leaf_grads(scene, cam, want[0], want[1])):
         scale = float(b.abs().max())
         err = float((a - b).abs().max())
         if not (torch.isfinite(a).all() and err <= TOL_GRAD * scale + 1e-30):
@@ -275,6 +247,9 @@ def main() -> int:
         return fail(f"tracer_torch is not importable next to this script ({e})")
     if not os.path.abspath(tracer_torch.__file__).startswith(HERE + os.sep):
         return fail(f"tracer_torch came from {tracer_torch.__file__}, not from {HERE}")
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_scenes import SKY, full_scene, tie_free_scene
+
     from tracer_torch.io import image as image_io
     from tracer_torch.kernels import bwd, diff, nvcc, replay, tex_scatter
     from tracer_torch.kernels import megakernel as mk
@@ -352,23 +327,9 @@ def main() -> int:
         got = mk.render_frame_kernel_record(scene, cm, w, h, spp, depth, **kw)
         torch.cuda.synchronize()
         want = renderer.render_frame_record(scene, cm, w, h, spp, depth, **kw)
-        same = got[1] == want[1]
-        frac = same.double().mean().item()
-        ok &= frac >= TOL_FRAC
-        ok &= compare(f"record {name}: frame", got[0], want[0], rec_errs)
-        t_frac = 1.0
-        if len(got) == 3:
-            # a texture slot agrees when every field is within 1e-3 of the
-            # field's scale (the derivative fields grow with tw and th)
-            gt, wt = got[2][same], want[2][same]
-            scale = wt.abs().amax(dim=0).clamp_min(1.0)
-            t_frac = ((gt - wt).abs() <= 1e-3 * scale).all(dim=1).double().mean().item()
-            ok &= t_frac >= TOL_FRAC
-        print(f"    index tape: {frac:.6f} of {same.numel()} slots equal (>= {TOL_FRAC}); "
-              f"texture tape: {t_frac:.6f} of those slots agree (>= {TOL_FRAC})", flush=True)
+        ok &= compare_record(f"record {name}", got, want, rec_errs)
     if not ok:
         return fail("record kernel and plain record disagree")
-    rec_err = max(rec_errs)
 
     # K2 against the plain replay, on the same kernel-recorded tape
     grad_errs = []
@@ -390,7 +351,6 @@ def main() -> int:
         ok &= compare_grads(f"backward {name}", scene, cm, got, want, out[0], grad_errs)
     if not ok:
         return fail("backward kernel and plain replay disagree")
-    grad_err = max(grad_errs)
 
     # K3 against the plain scatter
     rng = np.random.default_rng(0)
@@ -611,10 +571,12 @@ def main() -> int:
                 or not math.isfinite(float(last[0].split(": ")[1])):
             return fail(f"CLI --fit failed:\n{r.stderr[-3000:]}")
 
-    # ---- 9. gradient-path times ---------------------------------------------
-    print(f"[9] gradient-path times on {kind} ({card}), {GW}x{GH} spp{GSPP} d{GD}, canonical "
-          f"+ texture, camera frame 0, CUDA events, best of 3 after a warm-up:", flush=True)
+    # ---- 9. gradient-path times and checks at the main shape ------------------
+    print(f"[9] gradient path at the main shape on {kind} ({card}), {GW}x{GH} spp{GSPP} d{GD}, "
+          f"canonical + texture, camera frame 0, CUDA events, best of 3 after a warm-up; each "
+          f"kernel against its plain version on the same inputs:", flush=True)
     grays = GW * GH * GSPP
+    plain = {}  # the plain versions' outputs, kept from their timed runs
     fwd_ms = cuda_ms(lambda: mk.render_frame_kernel(canon, cam_g, GW, GH, GSPP, GD), reps=3)
     mk.render_frame_kernel_record(canon, cam_g, GW, GH, GSPP, GD)
     rec_ms = cuda_ms(lambda: mk.render_frame_kernel_record(canon, cam_g, GW, GH, GSPP, GD),
@@ -622,15 +584,28 @@ def main() -> int:
     out = mk.render_frame_kernel_record(canon, cam_g, GW, GH, GSPP, GD)
     hits_g, miss_g = hit_bounces(out[1])
     tape_b = out[1].numel() * 4 + out[2].numel() * 4
+    prec_ms = cuda_ms(lambda: plain.update(
+        rec=renderer.render_frame_record(canon, cam_g, GW, GH, GSPP, GD)))
+    ok = compare_record("record at the main shape (frame per-sample estimate)", out,
+                        plain.pop("rec"), rec_errs, spp=GSPP)
+    rec_err = max(rec_errs)
+    if not ok:
+        return fail("record kernel and plain record disagree at the main shape")
     table, camv = bwd.pack_tables(canon, cam_g)
     idx2 = out[1].reshape(GSPP * GD, -1)
     t2 = bwd._field_major(out[2], GSPP, GD, GW * GH)
     g2 = torch.randn((GW * GH, 3), generator=g, device=dev)
     bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2)
     bwd_ms = cuda_ms(lambda: bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2), reps=3)
-    pbwd_ms = cuda_ms(lambda: replay.replay_cotangents(table, camv, idx2, g2, GW, GSPP, GD, t2=t2))
-    del out, idx2, t2
-    prec_ms = cuda_ms(lambda: renderer.render_frame_record(canon, cam_g, GW, GH, GSPP, GD))
+    got = bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2)
+    pbwd_ms = cuda_ms(lambda: plain.update(
+        bwd=replay.replay_cotangents(table, camv, idx2, g2, GW, GSPP, GD, t2=t2)))
+    ok = compare_grads("backward at the main shape", canon, cam_g, got, plain.pop("bwd"),
+                       out[0], grad_errs)
+    grad_err = max(grad_errs)
+    if not ok:
+        return fail("backward kernel and plain replay disagree at the main shape")
+    del out, idx2, t2, got
     print(f"    K1 forward {fwd_ms:.3f} ms; K1-rec {rec_ms:.3f} ms (tapes {tape_b} bytes, "
           f"{hits_g} hit bounces, {miss_g} primary misses), plain record {prec_ms:.3f} ms; "
           f"K2 {bwd_ms:.3f} ms, plain replay {pbwd_ms:.3f} ms", flush=True)
@@ -658,7 +633,17 @@ def main() -> int:
     tex_scatter.texture_image_grads_kernel(gtex, t2, GSPP, GD, th, tw)
     k3_ms = cuda_ms(lambda: tex_scatter.texture_image_grads_kernel(gtex, t2, GSPP, GD, th, tw),
                     reps=3)
-    p3_ms = cuda_ms(lambda: bwd.texture_image_grads(gtex, t2, GSPP, GD, th, tw))
+    got = tex_scatter.texture_image_grads_kernel(gtex, t2, GSPP, GD, th, tw)
+    p3_ms = cuda_ms(lambda: plain.update(k3=bwd.texture_image_grads(gtex, t2, GSPP, GD, th, tw)))
+    want = plain.pop("k3")
+    k3_err = float((got - want).abs().max())
+    scatter_err = max(scatter_err, k3_err)
+    s_ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+    print(f"    texture scatter at the main shape: max|diff| {k3_err:.3g} (max "
+          f"{float(want.abs().max()):.3g}) -> {'ok' if s_ok else 'FAIL'}", flush=True)
+    if not s_ok:
+        return fail("texture scatter kernel and plain version disagree at the main shape")
+    del got, want
     live = int((gtex.reshape(3, -1) != 0).any(dim=0).sum())
     slots = gtex.shape[0] // 3 * gtex.shape[1]
     # one index_add_ of all four corners' weighted cotangents, inputs built first

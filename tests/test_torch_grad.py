@@ -20,9 +20,7 @@ field definitions at atol 1e-5 on the same (u, v).
 """
 
 import os
-import re
 import sys
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -41,10 +39,9 @@ from tracer_torch.render import camera, hit, renderer
 from tracer_torch.scene import types as T
 
 sys.path.insert(0, os.path.dirname(__file__))
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import tie_free_scene  # noqa: E402
 from test_grad import H, W, _cam, _scene  # noqa: E402
-from test_torch_scene import jax_cam_fields, jax_scene_fields, one_torch_thread  # noqa: E402,F401
+from test_torch_scene import _cu_enum, jax_cam_fields, jax_scene_fields, one_torch_thread  # noqa: E402,F401,E501
+from torch_scenes import tie_free_scene  # noqa: E402
 
 SPP, DEPTH = 2, 4
 RR = 2  # roulette in the textured case
@@ -279,14 +276,6 @@ def test_kernel_wrappers_take_the_plain_versions_for_cpu_tensors():
     bwd.scene_cam_grads(scene, cam, got[1], torch.ones(H, W, 3), W, H, SPP, DEPTH,
                         tex_tape=got[2])
     assert (megakernel.LAUNCHES_RECORD, bwd.LAUNCHES) == before
-
-
-def _cu_enum(name):
-    src = (Path(__file__).resolve().parent.parent / "tracer_torch" / "csrc" / "bwd.cu").read_text()
-    body = re.search(r"enum %s \{([^}]*)\}" % name, src).group(1)
-    items = [x.strip() for x in body.split(",") if x.strip()]
-    assert items[-1].endswith("_ROWS")
-    return tuple(x.split("_", 1)[1].lower() for x in items[:-1])
 
 
 @pytest.mark.parametrize("enum, rows", [("TableRow", pack.BWD_ROWS), ("CamvRow", pack.CAMV_ROWS)])

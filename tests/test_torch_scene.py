@@ -20,7 +20,7 @@ from tracer_torch.kernels import pack
 from tracer_torch.scene import builders, config
 from tracer_torch.scene import types as T
 
-CSRC = Path(__file__).resolve().parent.parent / "tracer_torch" / "csrc" / "megakernel.cu"
+CSRC = Path(__file__).resolve().parent.parent / "tracer_torch" / "csrc" / "common.cuh"
 
 
 @pytest.fixture(autouse=True, scope="module")

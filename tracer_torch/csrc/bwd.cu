@@ -54,55 +54,17 @@
 // build passes -fmad=false for this file): the replay then rounds as its
 // plain version does and takes the same discrete decisions (roulette,
 // Fresnel choice) on the same tape, where a flipped decision would move a
-// gradient by a whole path's contribution. Atomics add in no fixed order,
+// gradient by a whole path's contribution. The plain version writes its
+// inner products, 1/sqrt and Schlick power in this file's forms, so that
+// an ill-conditioned path (a refraction near total internal reflection
+// ahead of a long hop onto a noisy texture) gets the same gradient here. Atomics add in no fixed order,
 // so dtable and dcam differ from run to run in the last bits.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float T_MIN = 1e-3f;
-constexpr float T_MAX = 1e30f;
-constexpr float DENOM_EPS = 1e-8f;
-constexpr float NEAR_ZERO_EPS = 1e-8f;
-constexpr float RR_MIN_P = 0.05f;
-constexpr float METAL_SPECULAR_P = 0.8f;
-constexpr float DIELECTRIC_OFFSET = 1e-4f;
-constexpr float INV_2_32 = 2.3283064365386963e-10f;  // 2^-32
-constexpr float PI_F = 3.14159265358979323846f;
-constexpr float TWO_PI_F = 6.28318530717958647692f;
 constexpr int STATE_FLOATS = 10;  // o, d, beta, seed per bounce in the scratch
-
-// Table rows: must match tracer_torch/kernels/pack.py BWD_ROWS (a CPU test checks).
-enum TableRow {
-  T_CX, T_CY, T_CZ, T_RAD, T_NX, T_NY, T_NZ, T_ISSPH, T_MTYPE, T_FUZZ, T_IR,
-  T_ABS0, T_ABS1, T_ABS2, T_ALB0, T_ALB1, T_ALB2, T_EMI0, T_EMI1, T_EMI2, T_TEXID,
-  T_PD, T_AX, T_AY, T_AZ, T_BX, T_BY, T_BZ, T_BA, T_BB, T_ROWS
-};
-// Camera rows: must match tracer_torch/kernels/pack.py CAMV_ROWS.
-enum CamvRow {
-  V_P00X, V_P00Y, V_P00Z, V_DUX, V_DUY, V_DUZ, V_DVX, V_DVY, V_DVZ,
-  V_OX, V_OY, V_OZ, V_BGR, V_BGG, V_BGB, V_ROWS
-};
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 make_v3(float x, float y, float z) {
-  V3 r;
-  r.x = x;
-  r.y = y;
-  r.z = z;
-  return r;
-}
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return make_v3(a.x + b.x, a.y + b.y, a.z + b.z); }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return make_v3(a.x - b.x, a.y - b.y, a.z - b.z); }
-__device__ __forceinline__ V3 scale(V3 a, float s) { return make_v3(a.x * s, a.y * s, a.z * s); }
-__device__ __forceinline__ V3 mul(V3 a, V3 b) { return make_v3(a.x * b.x, a.y * b.y, a.z * b.z); }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 zero3() { return make_v3(0.0f, 0.0f, 0.0f); }
 
 // d max(a, b) / d a, with jnp.maximum's and torch.maximum's tie rule
 __device__ __forceinline__ float dmax(float a, float b) {
@@ -113,31 +75,6 @@ __device__ __forceinline__ float dmin(float a, float b) {
 }
 // derivative of the NaN-safe sqrt (tracer.core.vec._sqrt_grad_safe) at y = sqrt(x)
 __device__ __forceinline__ float dsqrt(float y) { return 1.0f / (2.0f * fmaxf(y, 1e-12f)); }
-
-// ---- RNG: bit-exact tracer.core.rng / the record-mode megakernel ----
-
-__device__ __forceinline__ uint32_t wang_hash(uint32_t s) {
-  s = (s ^ 61u) ^ (s >> 16);
-  s *= 9u;
-  s = s ^ (s >> 4);
-  s *= 0x27D4EB2Du;
-  s = s ^ (s >> 15);
-  return s;
-}
-
-__device__ __forceinline__ float rand01(uint32_t& s) {
-  s = wang_hash(s);
-  return __uint2float_rn(s) * INV_2_32;
-}
-
-__device__ __forceinline__ V3 rand_unit_vector(uint32_t& s) {
-  float u1 = rand01(s);
-  float u2 = rand01(s);
-  float z = 2.0f * u1 - 1.0f;
-  float phi = TWO_PI_F * u2;
-  float r = sqrtf(fmaxf(0.0f, 1.0f - z * z));
-  return make_v3(r * cosf(phi), r * sinf(phi), z);
-}
 
 // ---- one bounce: forward, and with ADJ its adjoint ----
 

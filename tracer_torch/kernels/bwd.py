@@ -176,6 +176,12 @@ def leaf_cotangents(scene: Scene, cam: camera_mod.CameraData, dtable, dcam) -> l
     return [torch.zeros_like(x) if g is None else g for x, g in zip(req, grads)]
 
 
+def leaf_grads(scene: Scene, cam: camera_mod.CameraData, dtable, dcam) -> list:
+    """[(leaf name, cotangent)] of the scene and camera float leaves for the
+    packed tables' cotangents (dtable, dcam)."""
+    return list(zip(leaf_names(scene, cam), leaf_cotangents(scene, cam, dtable, dcam)))
+
+
 def scene_cam_cotangents(scene: Scene, cam: camera_mod.CameraData, idx, g_fb, width: int,
                          height: int, spp: int, max_depth: int, reference_quirk: bool = True,
                          rr_start=None, sample_start: int = 0, row_offset: int = 0,

@@ -11,7 +11,7 @@ primitive, on the scene's device:
 The kernel keeps the direct plane and sphere fields, so the bf16 hi/lo
 split rows and the precombined projection tables of the TPU packing (which
 exist for its matrix unit) have no counterpart. The row order is part of
-the kernel's interface: `csrc/megakernel.cu` declares the same rows in its
+the kernel's interface: `csrc/common.cuh` declares the same rows in its
 `SphereRow`, `PlaneRow`, `JoinRow` and `CameraRow` enums.
 
 The backward kernel reads one combined table instead (`BWD_ROWS`, built
@@ -19,7 +19,7 @@ differentiably by tracer_torch.kernels.bwd.pack_bwd_tables): the join rows
 of tracer/pallas/kernel_lib.py (`J_*`, the winner's geometry and
 material) followed by the geometry rows of tracer/pallas/bwd.py (`G_*`,
 offsets from `JROWS`: the plane d and its texture-uv frame), and the
-camera as `CAMV_ROWS`. `csrc/bwd.cu` declares the same rows in its
+camera as `CAMV_ROWS`. `csrc/common.cuh` declares the same rows in its
 `TableRow` and `CamvRow` enums.
 """
 

@@ -12,6 +12,12 @@ of the replayed frame against the packed table, the camera rows and (with
 13 tape fields) the recorded texel values gives the backward kernel's
 outputs by construction: (dtable, dcam, fb, gtex).
 
+The replay rounds as the backward kernel does, so that a path whose
+gradient is ill-conditioned (a refraction near total internal reflection
+ahead of a long hop onto a noisy texture) gets the same gradient from
+both: inner products summed x, y, z in that order, `1 / sqrt` for the
+unit direction, and Schlick's fifth power as `x2 * x2 * x`.
+
 With a 9- or 13-field texture tape the texel is linearised around the
 recorded hit, `mult = T + dT/du (u - sg u) + dT/dv (v - sg v)`: the value
 is the recorded texel, the gradient carries d(texel)/d(uv). u and v are
@@ -46,6 +52,11 @@ def _mn(a, b):
     return torch.minimum(a, a.new_tensor(b))
 
 
+def _dot(a, b):
+    """Inner product over the trailing xyz axis, summed as the kernel sums it."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
 def _bounce(rec, bg, state, hit, seed, alive, tm, tm3, rr_start, depth):
     """One differentiable replay bounce (bwd.py:_bounce_fn + kernel_lib.py:
     _shade) over `[n]` lanes. `rec` is the winner's table column `[TROWS,
@@ -62,10 +73,10 @@ def _bounce(rec, bg, state, hit, seed, alive, tm, tm3, rr_start, depth):
     pd = row(J.JROWS + J.G_PD)
 
     # t of the recorded winner (bwd.py:450-467)
-    a = vec.dot(d, d)
+    a = _dot(d, d)
     oc = o - c
-    half_b = vec.dot(oc, d)
-    c_q = vec.dot(oc, oc) - rad * rad
+    half_b = _dot(oc, d)
+    c_q = _dot(oc, oc) - rad * rad
     disc = half_b * half_b - a * c_q
     dpos = disc >= 0.0
     sq = vec._sqrt_grad_safe(torch.where(dpos, disc, 1.0))
@@ -73,9 +84,9 @@ def _bounce(rec, bg, state, hit, seed, alive, tm, tm3, rr_start, depth):
     t_near = (-half_b - sq) * inv_a
     near_ok = dpos & (t_near >= T_MIN) & (t_near <= T_MAX)
     t_s = torch.where(near_ok, t_near, (-half_b + sq) * inv_a)
-    denom = vec.dot(pn, d)
+    denom = _dot(pn, d)
     safe_denom = torch.where(torch.abs(denom) < DENOM_EPS, 1.0, denom)
-    t_p = (pd - vec.dot(pn, o)) / safe_denom
+    t_p = (pd - _dot(pn, o)) / safe_denom
     t = torch.where(hit, torch.where(is_sph, t_s, t_p), K_INFINITY)
 
     albedo = torch.stack([row(J.J_ALB0), row(J.J_ALB1), row(J.J_ALB2)], dim=-1)
@@ -110,7 +121,7 @@ def _bounce(rec, bg, state, hit, seed, alive, tm, tm3, rr_start, depth):
     t_calc = torch.where(hitr, t, 1.0)
     p = o + t_calc[..., None] * d
     on = torch.where(is_sph[..., None], (p - c) * (1.0 / rad)[..., None], pn)
-    front = vec.dot(d, on) < 0.0
+    front = _dot(d, on) < 0.0
     n = on * torch.where(front, 1.0, -1.0)[..., None]
 
     miss = alive & ~hitr
@@ -124,35 +135,38 @@ def _bounce(rec, bg, state, hit, seed, alive, tm, tm3, rr_start, depth):
     seed, ball = rng.random_in_unit_sphere(seed)
     seed, u_refl = rng.random_float(seed)
     seed, u_rr = rng.random_float(seed)
-    hemi = hemi * torch.where(vec.dot(hemi, n) > 0.0, 1.0, -1.0)[..., None]
+    hemi = hemi * torch.where(_dot(hemi, n) > 0.0, 1.0, -1.0)[..., None]
 
-    ud = d * torch.rsqrt(_mx(a, 1e-30))[..., None]
+    ud = d * (1.0 / torch.sqrt(_mx(a, 1e-30)))[..., None]
     hemi_nz = (torch.abs(hemi) >= 1e-8).any(dim=-1)
     lam = torch.where(hemi_nz[..., None], hemi, n)
-    uddn = vec.dot(ud, n)
+    uddn = _dot(ud, n)
     refl = ud - 2.0 * uddn[..., None] * n
     r = refl + row(J.J_FUZZ)[..., None] * ball
     spec = u_choice < 0.8
     met = torch.where(spec[..., None], r, lam)
-    met_ok = ~spec | (vec.dot(r, n) > 0.0)
+    met_ok = ~spec | (_dot(r, n) > 0.0)
 
     ratio = torch.where(front, 1.0 / ir, ir)
     cos_t = _mn(-uddn, 1.0)
     sin_t = vec._sqrt_grad_safe(torch.maximum(cos_t.new_tensor(0.0), 1.0 - cos_t * cos_t))
     cannot = ratio * sin_t > 1.0
-    r0 = ((1.0 - ratio) / (1.0 + ratio)) ** 2
-    refl_p = r0 + (1.0 - r0) * (1.0 - cos_t) ** 5
+    r0 = (1.0 - ratio) / (1.0 + ratio)
+    r0 = r0 * r0
+    x1 = 1.0 - cos_t
+    x2 = x1 * x1
+    refl_p = r0 + (1.0 - r0) * (x2 * x2 * x1)
     choose_refl = cannot | (refl_p > u_refl)
     perp = ratio[..., None] * (ud + cos_t[..., None] * n)
-    par = -vec._sqrt_grad_safe(torch.abs(1.0 - vec.dot(perp, perp)))
+    par = -vec._sqrt_grad_safe(torch.abs(1.0 - _dot(perp, perp)))
     die = torch.where(choose_refl[..., None], refl, perp + par[..., None] * n)
-    dist = vec._sqrt_grad_safe(vec.dot(p - o, p - o))
+    dist = vec._sqrt_grad_safe(_dot(p - o, p - o))
     ab = torch.stack([row(J.J_ABS0), row(J.J_ABS1), row(J.J_ABS2)], dim=-1)
     tr = torch.where(front[..., None], 1.0, torch.exp(-ab * dist[..., None]))
     p_rr = max3(tr)
     die_ok = u_rr <= p_rr
     da = tr * (1.0 / _mx(p_rr, 1e-30))[..., None]
-    die_sgn = torch.where(vec.dot(die, n) > 0.0, 1e-4, -1e-4)
+    die_sgn = torch.where(_dot(die, n) > 0.0, 1e-4, -1e-4)
     die_o = p + n * die_sgn[..., None]
 
     mtype = row(J.J_MTYPE)
