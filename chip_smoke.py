@@ -67,6 +67,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    - each kernel's bound (the larger of its FP32 operations over 67
      TFLOP/s and its bytes over 3.35 TB/s, counting the bounces and slots
      this run's tapes hold).
+10. The cluster-culled kernel (K1-cl) on benchmarks/prim_scaling.py's
+    sphere field (2,000 spheres and a floor quad, bench.py's 2000-sphere
+    scene), k = 16:
+   - against its plain version (render_frame(cluster_k=16)) at 800x600,
+     spp 2, depth 20, camera path frame 1, by phase 3's rules, both timed;
+     its bound there (the larger of FP32 operations over 67 TFLOP/s and
+     bytes over 3.35 TB/s: per nearest-hit query one slab test per
+     cluster, plus the primitive tests of the visited clusters, both
+     counted by the kernel in one untimed launch);
+   - the main path of this phase: render_frame_kernel(cluster_k=16) at
+     800x600, spp 8, depth 20 on camera path frames 1-3 (bench.py's
+     2000-sphere line), each frame against K1's on the same inputs by
+     phase 3's rules, with the share of bit-equal pixels (built without
+     FMA contraction the two kernels give bit-equal frames; with it, nvcc
+     contracts their shared float code differently, and this field's
+     paths amplify the last-bit differences); K1-cl's launch count;
+   - K1 and K1-cl times at that shape, with and without rr_start=3 (best
+     of 3 frames after a warm-up), and on prim_scaling.py's sweep: n in
+     {2000, 5000, 10000, 20000} spheres and, for the crossing point, 250,
+     500 and 1000; 800x600, spp 4, depth 10, rr_start=3, its camera (best
+     of 3 after a warm-up).
 
 The line before the last is a JSON object describing the kernels, with the
 card's name and power limit on the line before it; the last is
@@ -100,6 +121,10 @@ PEAK_BYTES = 3.35e12  # bytes/s of HBM
 # and one texel cotangent scattered to its four corners (weights and 12
 # products).
 OPS_SPHERE, OPS_PLANE, OPS_SHADE, OPS_ADJOINT, OPS_SCATTER = 20, 12, 60, 300, 30
+# a ray against a cluster box: 6 differences and 6 products, the per-axis
+# min and max, the interval's 3 max and 3 min, and the comparison
+OPS_SLAB = 25
+CLUSTER_K = 16
 
 
 def fail(msg: str) -> int:
@@ -114,9 +139,10 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def compare(name, got, want, errs, spp=1):
+def compare(name, got, want, errs, spp=1, frac_min=TOL_FRAC):
     """Kernel frame against the plain frame; prints and returns the verdict.
-    With spp > 1 a pixel is judged on its estimate, the raw sum over spp."""
+    With spp > 1 a pixel is judged on its estimate, the raw sum over spp.
+    At least `frac_min` of the pixels must agree."""
     import torch
 
     got, want = got.double(), want.double()
@@ -128,9 +154,9 @@ def compare(name, got, want, errs, spp=1):
     mean_k, mean_p = got.mean().item(), want.mean().item()
     rel = abs(mean_k - mean_p) / max(abs(mean_p), 1e-30)
     lit = (want.amax(dim=-1) > 0).double().mean().item()
-    ok = frac >= TOL_FRAC and rel < TOL_MEAN and mean_p > 0
+    ok = frac >= frac_min and rel < TOL_MEAN and mean_p > 0
     errs.append(d.max().item())
-    print(f"  {name}: agree {frac:.6f} (>= {TOL_FRAC}), max|diff| {d.max().item():.6g}, "
+    print(f"  {name}: agree {frac:.6f} (>= {frac_min}), max|diff| {d.max().item():.6g}, "
           f"mean kernel {mean_k:.9g} plain {mean_p:.9g} rel {rel:.3g} (< {TOL_MEAN}), "
           f"lit pixels {lit:.4f} -> {'ok' if ok else 'FAIL'}", flush=True)
     return ok
@@ -234,6 +260,105 @@ def compare_grads(name, scene, cam, got, want, fb_rec, errs):
     return ok
 
 
+def clustered_phase(dev, kind, card, cams, W, H, PSPP):
+    """Phase 10: K1-cl on the sphere field. Returns (error or None, the
+    kernel's entry of the `kernels` line)."""
+    import torch
+
+    from torch_scenes import sphere_field, sphere_field_camera
+
+    from tracer_torch.kernels import cluster
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import renderer
+
+    plain = {}
+    CK, CSPP, CD = CLUSTER_K, 8, 20
+    field, cols = sphere_field(2000, dev)
+    tables = cluster.pack_clustered(field, CK)
+    n_fs, n_fp, n_c = field.num_spheres, field.num_planes, tables.num_clusters
+    print(f"[10] cluster-culled kernel (K1-cl) on {kind} ({card}): sphere field of {n_fs} "
+          f"spheres + {n_fp} floor quad, k {CK}: {n_c} clusters, "
+          f"{int((tables.slots >= 0).sum())} filled slots of {tables.slots.numel()}", flush=True)
+    cl_errs = []
+    mk.render_frame_kernel(field, cams[0], W, H, PSPP, CD, cluster_k=CK)  # warm-up
+    cl_ms = cuda_ms(lambda: mk.render_frame_kernel(field, cams[1], W, H, PSPP, CD, cluster_k=CK),
+                    reps=3)
+    got = mk.render_frame_kernel(field, cams[1], W, H, PSPP, CD, cluster_k=CK)
+    pcl_ms = cuda_ms(lambda: plain.update(
+        cl=renderer.render_frame(field, cams[1], W, H, PSPP, CD, cluster_k=CK)))
+    if not compare(f"K1-cl vs plain, {W}x{H} spp{PSPP} d{CD} camera frame 1", got,
+                   plain.pop("cl"), cl_errs):
+        return "cluster-culled kernel and plain version disagree", None
+    queries, visits, tested = mk.cluster_work(field, cams[1], W, H, PSPP, CD, CK)
+    # every query slab-tests all clusters; every tested primitive costs at
+    # least a plane test; a hit query shades (a path misses at most once)
+    cl_ops = (queries * n_c * OPS_SLAB + tested * OPS_PLANE
+              + max(queries - W * H * PSPP, 0) * OPS_SHADE)
+    cl_bytes = (4 * (n_fs * 4 + n_fp * 17 + (n_fs + n_fp) * 13) + 4 * n_c * 6
+                + 4 * tables.slots.numel() + 15 * 4 + W * H * 3 * 4)
+    cl_bound = bound(cl_ops, cl_bytes)
+    print(f"    kernel {cl_ms:.3f} ms, plain {pcl_ms:.3f} ms; work: {queries} nearest-hit "
+          f"queries, {visits} cluster visits ({visits / queries:.3f} per query), {tested} "
+          f"primitive tests ({tested / queries:.3f} per query, brute: {n_fs + n_fp}); bound "
+          f"{cl_bound[0]:.3f} ms ({cl_bound[1]}: {cl_ops:.4g} FP32 ops, {cl_bytes} bytes)",
+          flush=True)
+
+    # the main path of this phase, each frame against K1's
+    print(f"    main path: render_frame_kernel(cluster_k={CK}) at {W}x{H} spp{CSPP} d{CD}, "
+          f"camera path frames 1-3, against K1 (render_frame_kernel, cluster_k=0):", flush=True)
+    mk.LAUNCHES_CLUSTERED = 0
+    frames_cl = [mk.render_frame_kernel(field, c, W, H, CSPP, CD, cluster_k=CK)
+                 for c in cams[1:]]
+    torch.cuda.synchronize()
+    cl_launches = mk.LAUNCHES_CLUSTERED
+    print(f"    K1-cl launches {cl_launches} (3 frames)", flush=True)
+    if cl_launches != 3:
+        return f"the clustered main path launched K1-cl {cl_launches} times, not 3", None
+    for k, (c, fb_cl) in enumerate(zip(cams[1:], frames_cl), start=1):
+        if fb_cl.shape != (H, W, 3):
+            return f"K1-cl frame {k} has shape {tuple(fb_cl.shape)}", None
+        fb_k1 = mk.render_frame_kernel(field, c, W, H, CSPP, CD)
+        if not compare(f"K1-cl vs K1, camera frame {k}", fb_cl, fb_k1, []):
+            return "cluster-culled kernel and brute kernel disagree at the main shape", None
+        same = (fb_cl == fb_k1).all(dim=-1).double().mean().item()
+        print(f"    bit-equal pixels {same:.6f}", flush=True)
+    del frames_cl, fb_cl, fb_k1
+
+    def best_ms(scene, cam_list, spp, depth, **kw):
+        mk.render_frame_kernel(scene, cam_list[0], W, H, spp, depth, **kw)  # warm-up
+        return min(cuda_ms(lambda c=c: mk.render_frame_kernel(scene, c, W, H, spp, depth, **kw))
+                   for c in cam_list[1:])
+
+    crays = W * H * CSPP
+    for rr in (None, 3):
+        t_k1 = best_ms(field, cams, CSPP, CD, rr_start=rr)
+        t_cl = best_ms(field, cams, CSPP, CD, rr_start=rr, cluster_k=CK)
+        print(f"    {W}x{H} spp{CSPP} d{CD} rr_start={rr}: K1 {t_k1:.3f} ms = "
+              f"{crays / t_k1 / 1e3:.3f} Mrays/s; K1-cl {t_cl:.3f} ms = "
+              f"{crays / t_cl / 1e3:.3f} Mrays/s; K1/K1-cl {t_k1 / t_cl:.3f}", flush=True)
+
+    SW_SPP, SW_D = 4, 10
+    print(f"    sweep (benchmarks/prim_scaling.py): {W}x{H} spp{SW_SPP} d{SW_D} rr_start=3, its "
+          f"camera, best of 3 after a warm-up:", flush=True)
+    print("      n | clusters | K1 ms | K1 Mrays/s | K1-cl ms | K1-cl Mrays/s | K1/K1-cl")
+    srays = W * H * SW_SPP
+    for n in (250, 500, 1000, 2000, 5000, 10000, 20000):
+        scene_n, cols_n = sphere_field(n, dev)
+        cam_n = sphere_field_camera(cols_n, W, H, dev)
+        c_n = cluster.pack_clustered(scene_n, CK).num_clusters
+        t_k1 = best_ms(scene_n, [cam_n] * 4, SW_SPP, SW_D, rr_start=3)
+        t_cl = best_ms(scene_n, [cam_n] * 4, SW_SPP, SW_D, rr_start=3, cluster_k=CK)
+        print(f"      {n} | {c_n} | {t_k1:.3f} | {srays / t_k1 / 1e3:.3f} | {t_cl:.3f} | "
+              f"{srays / t_cl / 1e3:.3f} | {t_k1 / t_cl:.3f}", flush=True)
+    print(f"    card: {card}", flush=True)
+
+    return None, dict(name="megakernel_clustered", route="cuda",
+                      source="tracer_torch/csrc/megakernel.cu",
+                      replaces="tracer/pallas/culling.py:27", launches=cl_launches,
+                      max_abs_err=max(cl_errs), ms=cl_ms, plain_ms=pcl_ms,
+                      bound_ms=cl_bound[0], bound_by=cl_bound[1], library_ms=None)
+
+
 def main() -> int:
     import torch
 
@@ -248,10 +373,10 @@ def main() -> int:
     if not os.path.abspath(tracer_torch.__file__).startswith(HERE + os.sep):
         return fail(f"tracer_torch came from {tracer_torch.__file__}, not from {HERE}")
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    from torch_scenes import SKY, full_scene, tie_free_scene
+    from torch_scenes import SKY, full_scene, sphere_field, sphere_field_camera, tie_free_scene
 
     from tracer_torch.io import image as image_io
-    from tracer_torch.kernels import bwd, diff, nvcc, replay, tex_scatter
+    from tracer_torch.kernels import bwd, cluster, diff, nvcc, replay, tex_scatter
     from tracer_torch.kernels import megakernel as mk
     from tracer_torch.opt import fit as fit_mod
     from tracer_torch.render import camera as C
@@ -677,6 +802,12 @@ def main() -> int:
     for name, b in (("K1-rec", rec_bound), ("K2", bwd_bound), ("K3", k3_bound)):
         print(f"    {name} bound: {b[0]:.3f} ms ({b[1]})")
     print(f"    card: {card}", flush=True)
+    del table, camv, g2, gtex, t2, target
+
+    # ---- 10. the cluster-culled kernel on the sphere field ---------------------
+    err, cl_entry = clustered_phase(dev, kind, card, cams, W, H, PSPP)
+    if err:
+        return fail(err)
 
     kernels = [
         dict(name="megakernel", route="cuda", source="tracer_torch/csrc/megakernel.cu",
@@ -694,6 +825,7 @@ def main() -> int:
              replaces="tracer/pallas/tex_scatter.py:41", launches=scatter_launches,
              max_abs_err=scatter_err, ms=k3_ms, plain_ms=p3_ms, bound_ms=k3_bound[0],
              bound_by=k3_bound[1], library_ms=lib_ms),
+        cl_entry,
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

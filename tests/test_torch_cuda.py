@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on a CUDA device:
-the forward megakernel, its record mode, the backward kernel and the
-texture-gradient scatter, and fit on the card.
+the forward megakernel, its cluster-culled and record modes, the backward
+kernel and the texture-gradient scatter, and fit on the card.
 
 Every test here needs a card: each carries the `cuda` marker and skips
 without one. The file imports neither jax nor tracer, so it also runs on a
@@ -28,7 +28,7 @@ from tracer_torch.render import camera, renderer
 from tracer_torch.scene import builders, config
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_scenes import SKY, full_scene  # noqa: E402
+from torch_scenes import SKY, big_scene, full_scene  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +86,62 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         megakernel.render_frame_kernel(scene, cpu_cam, 8, 8, 1, 2)
     with pytest.raises(ValueError, match="spp must be a positive int"):
         megakernel.render_frame_kernel(scene, cam, 8, 8, 0, 2)
+
+
+# ---- the cluster-culled kernel ----------------------------------------------
+
+def _clustered_case(name, dev):
+    if name == "big300":
+        return big_scene(300, dev), camera.build_camera_data(
+            [0, -30, 6], [0, 0, 2], 64, 48, 50.0, background=SKY, device=dev)
+    params = config.read_scene_params(io.StringIO(config.smoke_config_text()))
+    return (builders.create_scene(params, texture_loader=lambda _p: None, device=dev),
+            camera.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], 64, 48, 90.0,
+                                     background=SKY, device=dev))
+
+
+@pytest.mark.parametrize("name, rr_start", [("smoke", None), ("big300", None), ("big300", 3)])
+def test_clustered_kernel_matches_plain(dev, name, rr_start):
+    scene, cam = _clustered_case(name, dev)
+    before = (megakernel.LAUNCHES, megakernel.LAUNCHES_CLUSTERED)
+    got = megakernel.render_frame_kernel(scene, cam, 64, 48, 4, 8, rr_start=rr_start,
+                                         cluster_k=16)
+    assert (megakernel.LAUNCHES, megakernel.LAUNCHES_CLUSTERED) == (before[0], before[1] + 1)
+    want = renderer.render_frame(scene, cam, 64, 48, 4, 8, rr_start=rr_start, cluster_k=16)
+    _agree(got, want)
+
+
+def test_clustered_kernel_sample_chunks_add_up(dev):
+    scene, cam = _clustered_case("big300", dev)
+    one = megakernel.render_frame_kernel(scene, cam, 64, 48, 6, 6, cluster_k=16)
+    two = (megakernel.render_frame_kernel(scene, cam, 64, 48, 2, 6, cluster_k=16)
+           + megakernel.render_frame_kernel(scene, cam, 64, 48, 4, 6, sample_start=2,
+                                            cluster_k=16))
+    torch.testing.assert_close(two, one, rtol=1e-5, atol=1e-5)
+
+
+def test_cluster_work_counts_the_plain_visits(dev):
+    """At depth 1 every query is a primary ray: the kernel's counts equal
+    the plain version's visited clusters and their primitives."""
+    from tracer_torch.core import rng
+    from tracer_torch.kernels import cluster
+    from tracer_torch.render import hit
+
+    scene, cam = _clustered_case("big300", dev)
+    queries, visits, tests = megakernel.cluster_work(scene, cam, 64, 48, 1, 1, 16)
+    i, j, seeds = renderer.pixel_grid(64, 48, device=dev)
+    _, o, d = camera.get_rays(cam, i, j, rng.sample_seed(seeds, 0))
+    tables = cluster.pack_clustered(scene, 16)
+    vis = hit.cluster_visibility(tables, o, d)
+    filled = (tables.slots.reshape(tables.num_clusters, -1) >= 0).sum(dim=1)
+    assert (queries, visits, tests) == (64 * 48, int(vis.sum()), int((vis * filled).sum()))
+
+
+@pytest.mark.parametrize("bad", [-1, 2.0, True, "16"])
+def test_clustered_kernel_rejects_bad_cluster_k(dev, bad):
+    scene, cam = _clustered_case("smoke", dev)
+    with pytest.raises(ValueError, match="cluster_k must be an int >= 0"):
+        megakernel.render_frame_kernel(scene, cam, 64, 48, 1, 2, cluster_k=bad)
 
 
 # ---- the gradient path ---------------------------------------------------

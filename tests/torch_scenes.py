@@ -5,6 +5,7 @@ CUDA tests and the smoke run can use it on a machine without JAX."""
 import numpy as np
 import torch
 
+from tracer_torch.render import camera
 from tracer_torch.scene import types as T
 
 SKY = (0.05, 0.07, 0.1)  # lights every pixel, so the comparisons see every path
@@ -61,4 +62,71 @@ def tie_free_scene(device, center_z=1.0, ramp=False):
             [[0, 0, 0], [0, 0, 0], [0, 0, 0], [6, 5, 4], [0, 0, 0]],
             [0 if ramp else -1, -1, -1, -1, -1], device),
         textures=torch.tensor(ramp_texture(), device=device) if ramp else None,
+    )
+
+
+def sphere_field_fields(n):
+    """benchmarks/prim_scaling.py:build_field(n) as host arrays keyed by
+    dotted field path (the input of scene_from_numpy, from which the tests
+    also build the JAX twin): n non-overlapping spheres on a jittered grid,
+    every third one a light, over one floor quad. At n = 2000 it is
+    bench.py's 2000-sphere scene (BASELINE config 5 scale). Returns
+    (fields, cols); cols sizes the camera."""
+    g = np.random.default_rng(3)
+    cols = int(np.ceil(np.sqrt(n * 1.25)))
+    rows = int(np.ceil(n / cols))
+    radii = g.uniform(0.3, 0.95, size=(n,)).astype(np.float32)
+    gx, gy = np.meshgrid(np.arange(cols), np.arange(rows), indexing="ij")
+    cell = np.stack([gx.ravel() * 2.0 - (cols - 1.0), gy.ravel() * 2.0 - (rows - 1.0)], -1)[:n]
+    slack = (1.0 - radii - 0.02)[:, None]
+    centers = np.zeros((n, 3), np.float32)
+    centers[:, :2] = cell + g.uniform(-1, 1, size=(n, 2)) * slack
+    centers[:, 2] = radii + 0.05 + g.uniform(0, 6, size=(n,))
+    half = float(cols + 10)
+    scene = T.Scene(
+        spheres=T.make_spheres(centers, radii, np.arange(n) % 3, "cpu"),
+        planes=T.make_planes([T.QUAD], [[-half, -half, 0]], [[2 * half, 0, 0]],
+                             [[0, 2 * half, 0]], [0], "cpu"),
+        materials=T.make_materials(
+            [T.LAMBERTIAN, T.METAL, T.DIFFUSE_LIGHT], [0, 0.2, 0], [1, 1, 1], np.zeros((3, 3)),
+            [[0.7, 0.5, 0.4], [0.8, 0.8, 0.9], [0, 0, 0]], [[0, 0, 0], [0, 0, 0], [9, 8, 7]],
+            [-1] * 3, "cpu"),
+        textures=None,
+    )
+    fields = {f"{group}.{name}": leaf.numpy()
+              for group in ("spheres", "planes", "materials")
+              for name, leaf in getattr(scene, group)._asdict().items()}
+    return fields, cols
+
+
+def sphere_field(n, device):
+    """(scene, cols) of sphere_field_fields(n) on `device`."""
+    fields, cols = sphere_field_fields(n)
+    return T.scene_from_numpy(fields, device), cols
+
+
+def sphere_field_camera(cols, width, height, device):
+    """benchmarks/prim_scaling.py:cam_for: the field seen from above its
+    +x edge."""
+    d = cols * 1.6
+    return camera.build_camera_data([d, 0.0, d * 0.45], [0.0, 0.0, 3.0], width, height, 55.0,
+                                    device=device)
+
+
+def big_scene(num_spheres, device, seed=0):
+    """tests/test_scale.py:_big_scene built with the port (no BVH): spheres
+    scattered over a 40x40 patch above a floor quad."""
+    g = np.random.default_rng(seed)
+    centers = g.uniform(-20, 20, size=(num_spheres, 3)).astype(np.float32)
+    centers[:, 2] = g.uniform(0.5, 8, size=num_spheres)
+    radii = g.uniform(0.3, 1.2, size=num_spheres).astype(np.float32)
+    mat_idx = g.integers(0, 3, size=num_spheres).astype(np.int32)
+    return T.Scene(
+        spheres=T.make_spheres(centers, radii, mat_idx, device),
+        planes=T.make_planes([T.QUAD], [[-30, -30, 0]], [[60, 0, 0]], [[0, 60, 0]], [3], device),
+        materials=T.make_materials(
+            [T.LAMBERTIAN, T.METAL, T.DIFFUSE_LIGHT, T.LAMBERTIAN], [0, 0.2, 0, 0], [1, 1, 1, 1],
+            np.zeros((4, 3)), [[0.6, 0.4, 0.3], [0.8, 0.8, 0.9], [0, 0, 0], [0.5, 0.5, 0.5]],
+            [[0, 0, 0], [0, 0, 0], [6, 6, 6], [0, 0, 0]], [-1] * 4, device),
+        textures=None,
     )

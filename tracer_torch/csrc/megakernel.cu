@@ -41,6 +41,26 @@
 // trace_pixel<RECORD>: the tape stores sit under `if constexpr`, so
 // render_kernel compiles to the loop without them.
 //
+// Cluster-culled mode (render_clustered_kernel, entry
+// tracer_megakernel_render_clustered) replaces the same TPU kernel with
+// cluster_k > 0: its nearest hit tracer/pallas/culling.py:
+// _intersect_clustered (and _intersect_culled, which finds the same hit
+// with other TPU visiting mechanics). Primitives are grouped into clusters
+// of at most K (tracer_torch/kernels/cluster.py); per bounce each thread
+// slab-tests its own ray against every cluster box and runs the sphere or
+// plane test of the brute block on the primitives of the clusters it may
+// hit, reading them from the brute tables through the clusters' slot
+// indices. Culling is per ray, not per 128-ray bundle as on the TPU, so the
+// answer does not depend on the launch layout. Clusters and slots are
+// visited in ascending order with strict <, so ties go to the lowest
+// (cluster, slot), as in the TPU's legacy intersector. The slab's upper
+// bound stays K_INFINITY, as on the TPU. What bounds it: FP32 work, C slab
+// tests per bounce (every thread reads the same box at the same time, so
+// the box loads are broadcasts from L1) plus the primitive tests of the
+// visited clusters; divergence between threads that visit different
+// clusters. It shares trace_pixel's bounce loop: the nearest-hit block is
+// chosen at compile time, and the brute kernels compile as before.
+//
 // Float semantics: IEEE division and sqrtf (no --use_fast_math); nvcc's
 // default FMA contraction is kept, so a ray on a razor-edge tie (polyhedron
 // border quads) may take another path than in the plain version — callers
@@ -104,13 +124,82 @@ __device__ __forceinline__ V3 sample_bilinear(const float* tex, int th, int tw, 
   return make_v3(out[0], out[1], out[2]);
 }
 
+// ---- nearest hit: the clustered block's primitive tests ----
+//
+// The same arithmetic as the brute block's loops in trace_pixel, which keep
+// their own copy (see there).
+
+// Sphere k's nearest valid root (sphere.h:24-53): the near root, else the
+// far one, within [T_MIN, T_MAX]; K_INFINITY for none.
+__device__ __forceinline__ float sphere_t(const float* __restrict__ sph, int num_s, int k, V3 o,
+                                          V3 d, float a, float inv_a) {
+  const V3 oc = sub(o, ld3(sph, S_CX, num_s, k));
+  const float r = ld(sph, S_RADIUS, num_s, k);
+  const float half_b = dot(oc, d);
+  const float c = dot(oc, oc) - r * r;
+  const float disc = half_b * half_b - a * c;
+  if (!(disc >= 0.0f)) return K_INFINITY;
+  const float sq = sqrtf(disc);
+  const float t_near = (-half_b - sq) * inv_a;
+  if (t_near >= T_MIN && t_near <= T_MAX) return t_near;
+  const float t_far = (-half_b + sq) * inv_a;
+  if (t_far >= T_MIN && t_far <= T_MAX) return t_far;
+  return K_INFINITY;
+}
+
+// Plane k (plane.h:57-96): true, with *best, *alpha and *beta set to its
+// root and planar coordinates, if its root is valid, nearer than *best and
+// inside the quad, ellipse or triangle.
+__device__ __forceinline__ bool plane_hit(const float* __restrict__ pla, int num_p, int k, V3 o,
+                                          V3 d, float* best, float* alpha_out, float* beta_out) {
+  const V3 nrm = ld3(pla, P_NX, num_p, k);
+  const float denom = dot(nrm, d);
+  if (!(fabsf(denom) >= DENOM_EPS)) return false;
+  const float root = (ld(pla, P_D, num_p, k) - dot(nrm, o)) / denom;
+  if (!(root >= T_MIN && root <= T_MAX) || !(root < *best)) return false;
+  const V3 phv = sub(add(o, scale(d, root)), ld3(pla, P_BX, num_p, k));
+  const V3 w = ld3(pla, P_WX, num_p, k);
+  const float alpha = dot(w, cross(phv, ld3(pla, P_VX, num_p, k)));
+  const float beta_uv = dot(w, cross(ld3(pla, P_UX, num_p, k), phv));
+  const int ptype = (int)ld(pla, P_PTYPE, num_p, k);
+  bool inside;
+  if (ptype == QUAD) {
+    inside = alpha >= 0.0f && alpha <= 1.0f && beta_uv >= 0.0f && beta_uv <= 1.0f;
+  } else if (ptype == ELLIPSE) {
+    const float ea = alpha - 0.5f, eb = beta_uv - 0.5f;
+    inside = ea * ea + eb * eb <= 0.25f;
+  } else {
+    inside = alpha >= 0.0f && beta_uv >= 0.0f && alpha + beta_uv <= 1.0f;
+  }
+  if (!inside) return false;
+  *best = root;
+  *alpha_out = alpha;
+  *beta_out = beta_uv;
+  return true;
+}
+
+// The clustering of tracer_torch/kernels/cluster.py:ClusterTables.
+struct Clusters {
+  const float* boxes;  // [6, num_clusters]: lo x, y, z, hi x, y, z
+  const int* slots;    // [num_clusters * k]: primitive index, -1 pads the end
+  int num_clusters, k;
+  unsigned long long* counts;  // nullptr, or [3]: nearest-hit queries, clusters
+                               // visited, primitives tested (summed over threads)
+};
+
+// The slab test's inverse direction, |d| guarded at 1e-30 (culling.py:33-38).
+__device__ __forceinline__ float guarded_inv(float x) {
+  return 1.0f / (fabsf(x) < 1e-30f ? (x < 0.0f ? -1e-30f : 1e-30f) : x);
+}
+
 // ---- the bounce loop ----
 
 // One pixel's samples: the raw radiance sum into out[lin]. With RECORD,
 // every reached slot also stores its winner into idx_tape and, for a
 // textured hit, its tape_f texture fields into tex_tape (see the note at
-// the top).
-template <bool RECORD>
+// the top). With CLUSTERED, the nearest hit visits the clusters of `cl`
+// instead of every primitive.
+template <bool RECORD, bool CLUSTERED>
 __device__ __forceinline__ void trace_pixel(
     const float* __restrict__ sph, int num_s,
     const float* __restrict__ pla, int num_p,
@@ -120,7 +209,7 @@ __device__ __forceinline__ void trace_pixel(
     float* __restrict__ out,
     int width, int height, int spp, int max_depth,
     uint32_t sample_start, int reference_quirk, int rr_start, int lin,
-    int* __restrict__ idx_tape, float* __restrict__ tex_tape, int tape_f) {
+    int* __restrict__ idx_tape, float* __restrict__ tex_tape, int tape_f, Clusters cl) {
   const int npx = width * height;
   const int i = lin % width;  // column
   const int j = lin / width;  // row
@@ -139,6 +228,7 @@ __device__ __forceinline__ void trace_pixel(
                                                   : (uint32_t)j * w32 + (uint32_t)i);
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  uint32_t n_queries = 0, n_visits = 0, n_tests = 0;  // CLUSTERED's counts
   for (int s = 0; s < spp; ++s) {
     uint32_t seed = wang_hash(base + sample_start + (uint32_t)s);
     const float ox = rand01(seed) - 0.5f;  // x before y
@@ -149,59 +239,102 @@ __device__ __forceinline__ void trace_pixel(
     V3 fin = make_v3(0.0f, 0.0f, 0.0f);
 
     for (int depth = 0; depth < max_depth; ++depth) {
-      // -- brute nearest hit: spheres then planes, strict < (lowest index
-      //    wins ties), as tracer_torch/render/hit.py's argmin
       const float a = dot(d, d);
       const float inv_a = 1.0f / a;
       float best = K_INFINITY;
       int widx = -1;
       float best_alpha = 0.0f, best_beta = 0.0f;
-      for (int k = 0; k < num_s; ++k) {
-        const V3 oc = sub(o, ld3(sph, S_CX, num_s, k));
-        const float r = ld(sph, S_RADIUS, num_s, k);
-        const float half_b = dot(oc, d);
-        const float c = dot(oc, oc) - r * r;
-        const float disc = half_b * half_b - a * c;
-        if (!(disc >= 0.0f)) continue;
-        const float sq = sqrtf(disc);
-        const float t_near = (-half_b - sq) * inv_a;
-        float t = K_INFINITY;
-        if (t_near >= T_MIN && t_near <= T_MAX) {
-          t = t_near;
-        } else {
-          const float t_far = (-half_b + sq) * inv_a;
-          if (t_far >= T_MIN && t_far <= T_MAX) t = t_far;
+      if constexpr (CLUSTERED) {
+        // -- clustered nearest hit: the ray's own slab test against each
+        //    cluster box (culling.py:40-60), then the primitives of the
+        //    clusters it passes; strict < in (cluster, slot) order
+        ++n_queries;
+        const float ivx = guarded_inv(d.x), ivy = guarded_inv(d.y), ivz = guarded_inv(d.z);
+        const int nc = cl.num_clusters;
+        for (int c = 0; c < nc; ++c) {
+          const float tx1 = (__ldg(cl.boxes + c) - o.x) * ivx;
+          const float tx2 = (__ldg(cl.boxes + 3 * nc + c) - o.x) * ivx;
+          const float ty1 = (__ldg(cl.boxes + nc + c) - o.y) * ivy;
+          const float ty2 = (__ldg(cl.boxes + 4 * nc + c) - o.y) * ivy;
+          const float tz1 = (__ldg(cl.boxes + 2 * nc + c) - o.z) * ivz;
+          const float tz2 = (__ldg(cl.boxes + 5 * nc + c) - o.z) * ivz;
+          const float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
+                                   fmaxf(fminf(tz1, tz2), T_MIN));
+          const float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
+                                   fminf(fmaxf(tz1, tz2), K_INFINITY));
+          if (!(tmax > tmin)) continue;
+          ++n_visits;
+          const int* slot = cl.slots + (size_t)c * cl.k;
+          for (int q = 0; q < cl.k; ++q) {
+            const int prim = __ldg(slot + q);
+            if (prim < 0) break;  // padding fills a cluster's last slots
+            ++n_tests;
+            if (prim < num_s) {
+              const float t = sphere_t(sph, num_s, prim, o, d, a, inv_a);
+              if (t < best) {
+                best = t;
+                widx = prim;
+              }
+            } else if (plane_hit(pla, num_p, prim - num_s, o, d, &best, &best_alpha,
+                                 &best_beta)) {
+              widx = prim;
+            }
+          }
         }
-        if (t < best) {
-          best = t;
-          widx = k;
+      } else {
+        // -- brute nearest hit: spheres then planes, strict < (lowest index
+        //    wins ties), as tracer_torch/render/hit.py's argmin. It keeps
+        //    its own copy of sphere_t's and plane_hit's arithmetic, so that
+        //    render_kernel and record_kernel compile to the code they had
+        //    before the clustered block (the same SASS); an edit here needs
+        //    the same edit there
+        for (int k = 0; k < num_s; ++k) {
+          const V3 oc = sub(o, ld3(sph, S_CX, num_s, k));
+          const float r = ld(sph, S_RADIUS, num_s, k);
+          const float half_b = dot(oc, d);
+          const float c = dot(oc, oc) - r * r;
+          const float disc = half_b * half_b - a * c;
+          if (!(disc >= 0.0f)) continue;
+          const float sq = sqrtf(disc);
+          const float t_near = (-half_b - sq) * inv_a;
+          float t = K_INFINITY;
+          if (t_near >= T_MIN && t_near <= T_MAX) {
+            t = t_near;
+          } else {
+            const float t_far = (-half_b + sq) * inv_a;
+            if (t_far >= T_MIN && t_far <= T_MAX) t = t_far;
+          }
+          if (t < best) {
+            best = t;
+            widx = k;
+          }
         }
-      }
-      for (int k = 0; k < num_p; ++k) {
-        const V3 nrm = ld3(pla, P_NX, num_p, k);
-        const float denom = dot(nrm, d);
-        if (!(fabsf(denom) >= DENOM_EPS)) continue;
-        const float root = (ld(pla, P_D, num_p, k) - dot(nrm, o)) / denom;
-        if (!(root >= T_MIN && root <= T_MAX) || !(root < best)) continue;
-        const V3 phv = sub(add(o, scale(d, root)), ld3(pla, P_BX, num_p, k));
-        const V3 w = ld3(pla, P_WX, num_p, k);
-        const float alpha = dot(w, cross(phv, ld3(pla, P_VX, num_p, k)));
-        const float beta_uv = dot(w, cross(ld3(pla, P_UX, num_p, k), phv));
-        const int ptype = (int)ld(pla, P_PTYPE, num_p, k);
-        bool inside;
-        if (ptype == QUAD) {
-          inside = alpha >= 0.0f && alpha <= 1.0f && beta_uv >= 0.0f && beta_uv <= 1.0f;
-        } else if (ptype == ELLIPSE) {
-          const float ea = alpha - 0.5f, eb = beta_uv - 0.5f;
-          inside = ea * ea + eb * eb <= 0.25f;
-        } else {
-          inside = alpha >= 0.0f && beta_uv >= 0.0f && alpha + beta_uv <= 1.0f;
+        for (int k = 0; k < num_p; ++k) {
+          const V3 nrm = ld3(pla, P_NX, num_p, k);
+          const float denom = dot(nrm, d);
+          if (!(fabsf(denom) >= DENOM_EPS)) continue;
+          const float root = (ld(pla, P_D, num_p, k) - dot(nrm, o)) / denom;
+          if (!(root >= T_MIN && root <= T_MAX) || !(root < best)) continue;
+          const V3 phv = sub(add(o, scale(d, root)), ld3(pla, P_BX, num_p, k));
+          const V3 w = ld3(pla, P_WX, num_p, k);
+          const float alpha = dot(w, cross(phv, ld3(pla, P_VX, num_p, k)));
+          const float beta_uv = dot(w, cross(ld3(pla, P_UX, num_p, k), phv));
+          const int ptype = (int)ld(pla, P_PTYPE, num_p, k);
+          bool inside;
+          if (ptype == QUAD) {
+            inside = alpha >= 0.0f && alpha <= 1.0f && beta_uv >= 0.0f && beta_uv <= 1.0f;
+          } else if (ptype == ELLIPSE) {
+            const float ea = alpha - 0.5f, eb = beta_uv - 0.5f;
+            inside = ea * ea + eb * eb <= 0.25f;
+          } else {
+            inside = alpha >= 0.0f && beta_uv >= 0.0f && alpha + beta_uv <= 1.0f;
+          }
+          if (!inside) continue;
+          best = root;
+          widx = num_s + k;
+          best_alpha = alpha;
+          best_beta = beta_uv;
         }
-        if (!inside) continue;
-        best = root;
-        widx = num_s + k;
-        best_alpha = alpha;
-        best_beta = beta_uv;
       }
 
       // miss: background, the path ends (camera.cu:226-229); the tape
@@ -343,6 +476,13 @@ __device__ __forceinline__ void trace_pixel(
   px[0] = acc_r;
   px[1] = acc_g;
   px[2] = acc_b;
+  if constexpr (CLUSTERED) {
+    if (cl.counts != nullptr) {
+      atomicAdd(cl.counts, (unsigned long long)n_queries);
+      atomicAdd(cl.counts + 1, (unsigned long long)n_visits);
+      atomicAdd(cl.counts + 2, (unsigned long long)n_tests);
+    }
+  }
 }
 
 // ---- the kernels ----
@@ -358,9 +498,9 @@ __global__ void __launch_bounds__(128) render_kernel(
     uint32_t sample_start, int reference_quirk, int rr_start) {
   const int lin = blockIdx.x * blockDim.x + threadIdx.x;
   if (lin >= width * height) return;  // ragged last block
-  trace_pixel<false>(sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height, spp,
-                     max_depth, sample_start, reference_quirk, rr_start, lin, nullptr, nullptr,
-                     0);
+  trace_pixel<false, false>(sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height,
+                            spp, max_depth, sample_start, reference_quirk, rr_start, lin, nullptr,
+                            nullptr, 0, Clusters{});
 }
 
 __global__ void __launch_bounds__(128) record_kernel(
@@ -375,9 +515,25 @@ __global__ void __launch_bounds__(128) record_kernel(
     int* __restrict__ idx_tape, float* __restrict__ tex_tape, int tape_f) {
   const int lin = blockIdx.x * blockDim.x + threadIdx.x;
   if (lin >= width * height) return;  // ragged last block
-  trace_pixel<true>(sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height, spp,
-                    max_depth, sample_start, reference_quirk, rr_start, lin, idx_tape, tex_tape,
-                    tape_f);
+  trace_pixel<true, false>(sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height,
+                           spp, max_depth, sample_start, reference_quirk, rr_start, lin, idx_tape,
+                           tex_tape, tape_f, Clusters{});
+}
+
+__global__ void __launch_bounds__(128) render_clustered_kernel(
+    const float* __restrict__ sph, int num_s,
+    const float* __restrict__ pla, int num_p,
+    const float* __restrict__ join,
+    const float* __restrict__ tex, int th, int tw,
+    const float* __restrict__ cam,
+    float* __restrict__ out,
+    int width, int height, int spp, int max_depth,
+    uint32_t sample_start, int reference_quirk, int rr_start, Clusters cl) {
+  const int lin = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lin >= width * height) return;  // ragged last block
+  trace_pixel<false, true>(sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height,
+                           spp, max_depth, sample_start, reference_quirk, rr_start, lin, nullptr,
+                           nullptr, 0, cl);
 }
 
 }  // namespace
@@ -415,5 +571,25 @@ extern "C" int tracer_megakernel_record(
   record_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
       sample_start, reference_quirk, rr_start, idx_tape, tex_tape, tape_f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Cluster-culled mode (render_clustered_kernel): boxes [6, num_clusters] and
+// slots [num_clusters * k] as tracer_torch/kernels/cluster.py packs them.
+// counts is nullptr (timed launches) or 3 zeroed counters that receive the
+// launch's nearest-hit queries, visited clusters and tested primitives.
+extern "C" int tracer_megakernel_render_clustered(
+    const float* sph, int num_s, const float* pla, int num_p, const float* join,
+    const float* tex, int th, int tw, const float* cam, float* out,
+    int width, int height, int spp, int max_depth, unsigned int sample_start,
+    int reference_quirk, int rr_start, const float* boxes, const int* slots, int num_clusters,
+    int k, unsigned long long* counts, void* stream) {
+  const int threads = 128;
+  const int pixels = width * height;
+  const int blocks = (pixels + threads - 1) / threads;
+  const Clusters cl{boxes, slots, num_clusters, k, counts};
+  render_clustered_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
+      sample_start, reference_quirk, rr_start, cl);
   return static_cast<int>(cudaGetLastError());
 }

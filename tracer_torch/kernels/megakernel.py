@@ -12,6 +12,12 @@ tensors, and only by that:
 There is no fallback: a CUDA scene never reaches the plain version, and a
 launch the driver refuses raises.
 
+With `cluster_k` > 0 `render_frame_kernel` launches the cluster-culled
+kernel instead (port of render_frame_pallas with cluster_k > 0, tracer/
+pallas/culling.py), whose plain version is `render_frame(...,
+cluster_k=...)`: the same estimator, with each ray testing only the
+primitives of the clusters whose box it may hit (kernels/cluster.py).
+
 `render_frame_kernel_record` is the record mode (port of
 render_frame_pallas_record), whose plain version is
 `tracer_torch.render.renderer.render_frame_record`: the same frame plus
@@ -19,8 +25,8 @@ the winner-index and texture tapes the backward kernel replays.
 
 The kernels are compiled at first use by `nvcc` (tracer_torch.kernels.
 nvcc) into shared libraries with plain C entry points, loaded with ctypes.
-`LAUNCHES` and `LAUNCHES_RECORD` count the two kernels' launches, so a run
-can show that its main path went through them.
+`LAUNCHES`, `LAUNCHES_RECORD` and `LAUNCHES_CLUSTERED` count the three
+kernels' launches, so a run can show that its main path went through them.
 """
 
 from __future__ import annotations
@@ -29,12 +35,14 @@ import ctypes
 
 import torch
 
+from tracer_torch.kernels import cluster as cluster_mod
 from tracer_torch.kernels import nvcc
 from tracer_torch.kernels import pack as pack_mod
 from tracer_torch.render import integrator, renderer
 
 LAUNCHES = 0  # launches of the forward kernel since import (or since reset to 0)
 LAUNCHES_RECORD = 0  # launches of the record-mode kernel
+LAUNCHES_CLUSTERED = 0  # launches of the cluster-culled kernel
 
 
 def library_path():
@@ -50,10 +58,12 @@ def _fns():
     lib = build().lib
     p, i = ctypes.c_void_p, ctypes.c_int
     common = [p, i, p, i, p, p, i, i, p, p, i, i, i, i, ctypes.c_uint, i, i]
-    lib.tracer_megakernel_render.argtypes = common + [p]
-    lib.tracer_megakernel_record.argtypes = common + [p, p, i, p]
-    lib.tracer_megakernel_render.restype = lib.tracer_megakernel_record.restype = i
-    return lib.tracer_megakernel_render, lib.tracer_megakernel_record
+    fns = lib.tracer_megakernel_render, lib.tracer_megakernel_record, \
+        lib.tracer_megakernel_render_clustered
+    for fn, extra in zip(fns, ([p], [p, p, i, p], [p, p, i, i, p, p])):
+        fn.argtypes = common + extra
+        fn.restype = i
+    return fns
 
 
 def _check(name, t, device, shape=None):
@@ -110,21 +120,26 @@ def _args(scene, cam, tex, out, width, height, spp, max_depth, sample_start, ref
 
 
 def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth: int,
-                        reference_quirk: bool = True, rr_start=None, sample_start: int = 0):
+                        reference_quirk: bool = True, rr_start=None, sample_start: int = 0,
+                        cluster_k: int = 0):
     """Render one frame; returns `[height, width, 3]` raw sample sums of the
     global samples `sample_start .. sample_start + spp - 1`.
 
     Same contract, RNG streams and estimator as
     `tracer_torch.render.renderer.render_frame`, which it calls for a scene
     on the CPU. For a CUDA scene it launches the kernel on the current
-    stream without synchronising, or raises.
+    stream without synchronising, or raises. `cluster_k` > 0 takes the
+    cluster-culled kernel over clusters of at most that many primitives.
     """
     if scene.device.type == "cpu":
         return renderer.render_frame(scene, cam, width, height, spp, max_depth,
                                      reference_quirk=reference_quirk, rr_start=rr_start,
-                                     sample_start=sample_start)
+                                     sample_start=sample_start, cluster_k=cluster_k)
     if scene.device.type != "cuda":
         raise ValueError(f"render_frame_kernel: no kernel for device {scene.device}")
+    if cluster_mod.check_k(cluster_k):
+        return _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk,
+                                 rr_start, sample_start, cluster_k, None)
     device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     _keep, args = _args(scene, cam, tex, out, width, height, spp, max_depth, sample_start,
@@ -135,6 +150,38 @@ def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
+                      sample_start, cluster_k, counts):
+    device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
+    tables = cluster_mod.pack_clustered(scene, cluster_k)
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    _keep, args = _args(scene, cam, tex, out, width, height, spp, max_depth, sample_start,
+                        reference_quirk, rr_start)
+    err = _fns()[2](*args, tables.boxes.data_ptr(), tables.slots.data_ptr(),
+                    tables.num_clusters, tables.k, None if counts is None else counts.data_ptr(),
+                    torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"clustered megakernel launch failed: CUDA error {err}")
+    global LAUNCHES_CLUSTERED
+    LAUNCHES_CLUSTERED += 1
+    return out
+
+
+def cluster_work(scene, cam, width: int, height: int, spp: int, max_depth: int, cluster_k: int,
+                 reference_quirk: bool = True, rr_start=None, sample_start: int = 0):
+    """The work of one cluster-culled launch with these arguments, counted
+    by the kernel: (nearest-hit queries, clusters visited, primitives
+    tested), as Python ints. CUDA scenes only; synchronises."""
+    if scene.device.type != "cuda":
+        raise ValueError("cluster_work counts inside the CUDA kernel: the scene must be on CUDA")
+    if not cluster_mod.check_k(cluster_k):
+        raise ValueError("cluster_work needs cluster_k >= 1")
+    counts = torch.zeros(3, dtype=torch.int64, device=scene.device)
+    _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
+                      sample_start, cluster_k, counts)
+    return tuple(int(c) for c in counts.tolist())
 
 
 def tape_bytes(width: int, height: int, spp: int, max_depth: int, tape_fields: int,

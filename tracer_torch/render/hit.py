@@ -8,6 +8,10 @@ then recomputed from its gathered fields and joined with its material;
 its index (`winner`) is what the recording renderer writes to its tape.
 This one brute intersector stands in for both `hit.py` and `hit_fast.py`
 of the JAX package (the latter is a TPU matrix-unit formulation).
+
+`hit_scene_clustered` is the plain version of the cluster-culled
+kernel's nearest hit (tracer/pallas/culling.py): the same matrix, masked
+per ray to the primitives of the clusters whose box the ray may hit.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from tracer_torch.core import T_MAX, T_MIN
+from tracer_torch.geometry import aabb as aabb_mod
 from tracer_torch.geometry import plane as plane_mod
 from tracer_torch.geometry import sphere as sphere_mod
 from tracer_torch.scene.types import K_INFINITY, Scene
@@ -42,8 +47,8 @@ class JoinedHit(NamedTuple):
     winner: torch.Tensor  # [R] i64 argmin over [spheres; planes] (meaningless on a miss)
 
 
-def hit_scene_brute(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) -> JoinedHit:
-    """Nearest hit over all spheres and planes; origin/direction `[R, 3]`."""
+def _all_ts(scene: Scene, origin, direction, t_min, t_max):
+    """The dense `[R, S+P]` valid-hit parameter matrix, spheres first."""
     num_s, num_p = scene.num_spheres, scene.num_planes
     if num_s + num_p == 0:
         raise ValueError("scene has no primitives")
@@ -53,8 +58,13 @@ def hit_scene_brute(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) -
                                        scene.spheres.radius, t_min, t_max))
     if num_p:
         ts.append(plane_mod.plane_ts(origin, direction, scene.planes, t_min, t_max))
-    t_all = torch.cat(ts, dim=1)  # [R, S+P]
-    t_best, winner = torch.min(t_all, dim=1)  # first minimum: lowest index
+    return torch.cat(ts, dim=1)
+
+
+def _joined(scene: Scene, origin, direction, t_best, winner) -> JoinedHit:
+    """The winner's record recomputed from its gathered fields, joined with
+    its material; `winner` is the primitive index, spheres first."""
+    num_s, num_p = scene.num_spheres, scene.num_planes
     hit = t_best < K_INFINITY
     # records of missing rays are computed at a harmless t and masked later
     t_calc = torch.where(hit, t_best, 1.0)
@@ -87,3 +97,44 @@ def hit_scene_brute(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) -
         absorption=mats.absorption[midx], albedo=mats.albedo[midx],
         emit=mats.emit[midx], tex_id=mats.tex_id[midx], winner=winner,
     )
+
+
+def hit_scene_brute(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) -> JoinedHit:
+    """Nearest hit over all spheres and planes; origin/direction `[R, 3]`."""
+    t_best, winner = torch.min(_all_ts(scene, origin, direction, t_min, t_max), dim=1)
+    return _joined(scene, origin, direction, t_best, winner)  # first minimum: lowest index
+
+
+def cluster_visibility(tables, origin, direction):
+    """`[R, C]` bool: the clusters whose box each ray's slab test passes
+    (tracer/pallas/culling.py:33-60: the inverse direction guarded at
+    1e-30, the slab over (T_MIN, K_INFINITY))."""
+    eps = 1e-30
+    guarded = torch.where(direction.abs() < eps, torch.where(direction < 0, -eps, eps), direction)
+    boxes = tables.boxes.T  # [C, 6]
+    return aabb_mod.slab_hit(origin[:, None, :], guarded[:, None, :], boxes[None, :, :3],
+                             boxes[None, :, 3:], T_MIN, K_INFINITY)
+
+
+def hit_scene_clustered(scene: Scene, tables, origin, direction, t_min=T_MIN, t_max=T_MAX,
+                        return_visits=False):
+    """Nearest hit over the primitives of the clusters (`tables`, a
+    kernels.cluster.ClusterTables of this scene) whose box the ray's own
+    slab test passes. Same record as `hit_scene_brute`, `winner` the
+    original primitive index; ties go to the lowest (cluster, slot), the
+    order in which tracer's legacy clustered intersector visits them. A
+    ray's answer differs from the brute one only where its slab test
+    rejects the box of the primitive it hits, by rounding at a box face.
+    With `return_visits` also returns the `[R]` count of clusters each ray
+    visits."""
+    t_all = _all_ts(scene, origin, direction, t_min, t_max)
+    n = t_all.shape[1]
+    slots = tables.slots.long()
+    filled = slots >= 0
+    t_pad = torch.cat([t_all, t_all.new_full((t_all.shape[0], 1), K_INFINITY)], dim=1)
+    t_slot = t_pad[:, torch.where(filled, slots, n)]  # [R, C*K] in slot order
+    vis = cluster_visibility(tables, origin, direction)  # [R, C]
+    t_vis = torch.where(vis.repeat_interleave(tables.k, dim=1), t_slot, K_INFINITY)
+    t_best, j = torch.min(t_vis, dim=1)  # first minimum: lowest (cluster, slot)
+    rec = _joined(scene, origin, direction, t_best, torch.where(filled, slots, 0)[j])
+    return (rec, vis.sum(dim=1)) if return_visits else rec

@@ -1,5 +1,5 @@
 """Path-trace integrator (port of tracer.render.integrator, fixed RNG
-stream, brute intersection): the reference's per-thread bounce loop
+stream, brute or cluster-culled intersection): the reference's per-thread bounce loop
 (src/camera.cu:218-288) over a batch of rays with an `alive` mask.
 
 The loop stops as soon as every ray of the batch has terminated (the
@@ -37,9 +37,13 @@ def roulette_p(beta):
     return torch.minimum(torch.maximum(m, m.new_tensor(RR_MIN_P)), m.new_tensor(1.0))
 
 
-def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields=None):
+def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields=None,
+            clusters=None):
     origin, direction, beta, final, seed, alive = carry
-    rec = hit_mod.hit_scene_brute(scene, origin, direction)
+    if clusters is None:
+        rec = hit_mod.hit_scene_brute(scene, origin, direction)
+    else:
+        rec = hit_mod.hit_scene_clustered(scene, clusters, origin, direction)
 
     # miss: final += beta * background, the path dies (camera.cu:226-229)
     miss = alive & ~rec.hit
@@ -90,9 +94,11 @@ def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields
 
 
 def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_start=None,
-          tape_fields=None):
+          tape_fields=None, clusters=None):
     """Radiance `[R, 3]` for a batch of rays; `seed` is `[R]` int64 holding
-    uint32, already advanced past ray generation. Returns (final, seed), or
+    uint32, already advanced past ray generation. `clusters` (the scene's
+    kernels.cluster.ClusterTables, or None for brute force) selects the
+    cluster-culled nearest hit. Returns (final, seed), or
     with `tape_fields` (9 or 13; ignored for an untextured scene) (final,
     seed, slots): one (winner `[R]` int32, texture fields `[R, F]` or None)
     per bounce executed."""
@@ -103,10 +109,11 @@ def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_
     slots = []
     for depth in range(max_depth):
         if tape_fields is None:
-            carry = _bounce(scene, background, carry, rr_start=rr_start, depth=depth)
+            carry = _bounce(scene, background, carry, rr_start=rr_start, depth=depth,
+                            clusters=clusters)
         else:
             carry, slot = _bounce(scene, background, carry, rr_start=rr_start, depth=depth,
-                                  tape_fields=tape_fields)
+                                  tape_fields=tape_fields, clusters=clusters)
             slots.append(slot)
         if not bool(carry[-1].any()):
             break

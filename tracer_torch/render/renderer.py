@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from tracer_torch.core import rng
+from tracer_torch.kernels import cluster as cluster_mod
 from tracer_torch.render import camera as camera_mod
 from tracer_torch.render import integrator
 from tracer_torch.scene.types import Scene
@@ -21,13 +22,16 @@ DEFAULT_CHUNK = 16384
 
 def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base_seed,
                   spp: int, max_depth: int, chunk: int = DEFAULT_CHUNK,
-                  sample_start: int = 0, rr_start=None, tape_fields=None):
+                  sample_start: int = 0, rr_start=None, tape_fields=None,
+                  cluster_k: int = 0):
     """Raw sample sums `[N, 3]` for a flat list of pixels.
 
     i_flat/j_flat: `[N]` pixel column/row; base_seed: `[N]` per-pixel seed
     (int64 holding uint32). Samples are the global ids
     `sample_start .. sample_start + spp - 1`, so chunked calls add up to
-    the one-shot frame.
+    the one-shot frame. `cluster_k` > 0 takes the cluster-culled nearest
+    hit over clusters of at most that many primitives (the plain version
+    of the clustered kernel); 0 takes brute force.
 
     With `tape_fields` (9 or 13) it also records the recording kernel's
     tapes and returns (sums, idx `[spp, max_depth, N]` int32 with -1 for a
@@ -36,6 +40,12 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
     neutral values (multipliers 1, every other field 0).
     """
     n, dev = i_flat.shape[0], i_flat.device
+    clusters = None
+    if cluster_mod.check_k(cluster_k):
+        if tape_fields is not None:
+            # as tracer's record path, which asserts `not clustered`
+            raise ValueError("the recording renderer is brute force only: cluster_k must be 0")
+        clusters = cluster_mod.pack_clustered(scene, cluster_k)
     idx = tex = None
     if tape_fields is not None:
         if tape_fields not in integrator.TAPE_FIELDS:
@@ -54,7 +64,8 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
             seed = rng.sample_seed(base, sample_start + s)
             seed, origin, direction = camera_mod.get_rays(cam, i, j, seed)
             res = integrator.trace(scene, cam.background, origin, direction, seed, max_depth,
-                                   rr_start=rr_start, tape_fields=tape_fields)
+                                   rr_start=rr_start, tape_fields=tape_fields,
+                                   clusters=clusters)
             for d, (w, t) in enumerate(res[2] if idx is not None else ()):
                 idx[s, d, c0:c1] = w
                 if tex is not None:
@@ -79,15 +90,17 @@ def pixel_grid(width: int, height: int, reference_quirk: bool = True, device="cp
 
 def render_frame(scene: Scene, cam: camera_mod.CameraData, width: int, height: int,
                  spp: int, max_depth: int, reference_quirk: bool = True, rr_start=None,
-                 sample_start: int = 0):
+                 sample_start: int = 0, cluster_k: int = 0):
     """Render one frame on the scene's device; returns `[height, width, 3]`
     raw sample sums of samples `sample_start .. sample_start + spp - 1`.
 
     rr_start (int, default None = off): throughput Russian roulette from
-    that bounce index on (see integrator._bounce)."""
+    that bounce index on (see integrator._bounce). cluster_k (int, default
+    0 = brute force): the cluster-culled nearest hit over clusters of at
+    most that many primitives (see render_pixels)."""
     i_flat, j_flat, base_seed = pixel_grid(width, height, reference_quirk, scene.device)
     fb = render_pixels(scene, cam, i_flat, j_flat, base_seed, spp, max_depth,
-                       sample_start=sample_start, rr_start=rr_start)
+                       sample_start=sample_start, rr_start=rr_start, cluster_k=cluster_k)
     return fb.reshape(height, width, 3)
 
 
