@@ -112,12 +112,12 @@ def test_hit_scene_clustered_matches_brute(name):
     o = torch.tensor(g.uniform(-25, 25, size=(4096, 3)).astype(np.float32))
     d = torch.tensor(g.normal(size=(4096, 3)).astype(np.float32))
     want = hit.hit_scene_brute(scene, o, d)
-    got, visits = hit.hit_scene_clustered(scene, tables, o, d, return_visits=True)
+    got = hit.hit_scene_clustered(scene, tables, o, d)
     assert want.hit.float().mean() > 0.3
     assert torch.equal(got.hit, want.hit) and torch.equal(got.t, want.t)
     for f in ("winner", "point", "normal", "albedo", "emit"):  # a miss's record is masked
         assert torch.equal(getattr(got, f)[want.hit], getattr(want, f)[want.hit]), f
-    assert torch.equal(visits, hit.cluster_visibility(tables, o, d).sum(dim=1))
+    visits = hit.cluster_visibility(tables, o, d).sum(dim=1)
     assert visits.double().mean() < tables.num_clusters / 2  # the culling culls
 
 
@@ -174,6 +174,25 @@ def test_material_change_with_same_geometry_is_not_stale():
     after = renderer.render_frame(redder, cam, 12, 8, 2, 4, cluster_k=2)
     assert not torch.equal(after, before)
     assert torch.equal(after, renderer.render_frame(redder, cam, 12, 8, 2, 4))
+
+
+def test_cluster_tables_follow_the_geometry_tensors():
+    """The cache holds the tables of the geometry tensors themselves: an
+    in-place change builds them anew, and so does a new scene with the same
+    geometry, to the same tables."""
+    scene = tie_free_scene("cpu")
+    tables = cluster.pack_clustered(scene, 2)
+    assert cluster.pack_clustered(scene, 2) is tables
+    assert cluster.pack_clustered(scene, 3) is not tables
+    twin = tie_free_scene("cpu")
+    again = cluster.pack_clustered(twin, 2)
+    assert again is not tables
+    assert torch.equal(again.boxes, tables.boxes) and torch.equal(again.slots, tables.slots)
+    with torch.no_grad():
+        twin.spheres.center[:, 2] += 5.0
+    moved = cluster.pack_clustered(twin, 2)
+    assert moved is not again and not torch.equal(moved.boxes, again.boxes)
+    assert torch.equal(moved.boxes, cluster._build(cluster._geometry(twin), 2, "cpu").boxes)
 
 
 @pytest.mark.parametrize("bad", [-1, 1.5, True, "16"])

@@ -137,6 +137,14 @@ def test_cluster_work_counts_the_plain_visits(dev):
     assert (queries, visits, tests) == (64 * 48, int(vis.sum()), int((vis * filled).sum()))
 
 
+def test_counted_instantiation_renders_the_same_frame(dev):
+    scene, cam = _clustered_case("big300", dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    counted = megakernel._render_clustered(scene, cam, 64, 48, 2, 4, True, 3, 0, 16, counts)
+    plain = megakernel.render_frame_kernel(scene, cam, 64, 48, 2, 4, rr_start=3, cluster_k=16)
+    assert torch.equal(counted, plain) and int(counts[0]) >= 64 * 48 * 2
+
+
 @pytest.mark.parametrize("bad", [-1, 2.0, True, "16"])
 def test_clustered_kernel_rejects_bad_cluster_k(dev, bad):
     scene, cam = _clustered_case("smoke", dev)

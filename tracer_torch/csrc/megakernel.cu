@@ -58,8 +58,11 @@
 // tests per bounce (every thread reads the same box at the same time, so
 // the box loads are broadcasts from L1) plus the primitive tests of the
 // visited clusters; divergence between threads that visit different
-// clusters. It shares trace_pixel's bounce loop: the nearest-hit block is
-// chosen at compile time, and the brute kernels compile as before.
+// clusters. It shares trace_pixel's bounce loop and the primitive tests
+// (sphere_t, plane_hit): only the nearest-hit block's loop is chosen at
+// compile time. Its counted instantiation (COUNT, for the bound) adds up the
+// launch's queries, cluster visits and primitive tests; the timed one
+// carries no counters.
 //
 // Float semantics: IEEE division and sqrtf (no --use_fast_math); nvcc's
 // default FMA contraction is kept, so a ray on a razor-edge tie (polyhedron
@@ -124,10 +127,7 @@ __device__ __forceinline__ V3 sample_bilinear(const float* tex, int th, int tw, 
   return make_v3(out[0], out[1], out[2]);
 }
 
-// ---- nearest hit: the clustered block's primitive tests ----
-//
-// The same arithmetic as the brute block's loops in trace_pixel, which keep
-// their own copy (see there).
+// ---- nearest hit: the primitive tests of both nearest-hit blocks ----
 
 // Sphere k's nearest valid root (sphere.h:24-53): the near root, else the
 // far one, within [T_MIN, T_MAX]; K_INFINITY for none.
@@ -183,7 +183,7 @@ struct Clusters {
   const float* boxes;  // [6, num_clusters]: lo x, y, z, hi x, y, z
   const int* slots;    // [num_clusters * k]: primitive index, -1 pads the end
   int num_clusters, k;
-  unsigned long long* counts;  // nullptr, or [3]: nearest-hit queries, clusters
+  unsigned long long* counts;  // COUNT's [3]: nearest-hit queries, clusters
                                // visited, primitives tested (summed over threads)
 };
 
@@ -198,8 +198,9 @@ __device__ __forceinline__ float guarded_inv(float x) {
 // every reached slot also stores its winner into idx_tape and, for a
 // textured hit, its tape_f texture fields into tex_tape (see the note at
 // the top). With CLUSTERED, the nearest hit visits the clusters of `cl`
-// instead of every primitive.
-template <bool RECORD, bool CLUSTERED>
+// instead of every primitive; with COUNT also, the work it did is added to
+// cl.counts.
+template <bool RECORD, bool CLUSTERED, bool COUNT = false>
 __device__ __forceinline__ void trace_pixel(
     const float* __restrict__ sph, int num_s,
     const float* __restrict__ pla, int num_p,
@@ -228,7 +229,7 @@ __device__ __forceinline__ void trace_pixel(
                                                   : (uint32_t)j * w32 + (uint32_t)i);
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  uint32_t n_queries = 0, n_visits = 0, n_tests = 0;  // CLUSTERED's counts
+  uint32_t n_queries = 0, n_visits = 0, n_tests = 0;  // COUNT's (dead code without it)
   for (int s = 0; s < spp; ++s) {
     uint32_t seed = wang_hash(base + sample_start + (uint32_t)s);
     const float ox = rand01(seed) - 0.5f;  // x before y
@@ -283,57 +284,16 @@ __device__ __forceinline__ void trace_pixel(
         }
       } else {
         // -- brute nearest hit: spheres then planes, strict < (lowest index
-        //    wins ties), as tracer_torch/render/hit.py's argmin. It keeps
-        //    its own copy of sphere_t's and plane_hit's arithmetic, so that
-        //    render_kernel and record_kernel compile to the code they had
-        //    before the clustered block (the same SASS); an edit here needs
-        //    the same edit there
+        //    wins ties), as tracer_torch/render/hit.py's argmin
         for (int k = 0; k < num_s; ++k) {
-          const V3 oc = sub(o, ld3(sph, S_CX, num_s, k));
-          const float r = ld(sph, S_RADIUS, num_s, k);
-          const float half_b = dot(oc, d);
-          const float c = dot(oc, oc) - r * r;
-          const float disc = half_b * half_b - a * c;
-          if (!(disc >= 0.0f)) continue;
-          const float sq = sqrtf(disc);
-          const float t_near = (-half_b - sq) * inv_a;
-          float t = K_INFINITY;
-          if (t_near >= T_MIN && t_near <= T_MAX) {
-            t = t_near;
-          } else {
-            const float t_far = (-half_b + sq) * inv_a;
-            if (t_far >= T_MIN && t_far <= T_MAX) t = t_far;
-          }
+          const float t = sphere_t(sph, num_s, k, o, d, a, inv_a);
           if (t < best) {
             best = t;
             widx = k;
           }
         }
         for (int k = 0; k < num_p; ++k) {
-          const V3 nrm = ld3(pla, P_NX, num_p, k);
-          const float denom = dot(nrm, d);
-          if (!(fabsf(denom) >= DENOM_EPS)) continue;
-          const float root = (ld(pla, P_D, num_p, k) - dot(nrm, o)) / denom;
-          if (!(root >= T_MIN && root <= T_MAX) || !(root < best)) continue;
-          const V3 phv = sub(add(o, scale(d, root)), ld3(pla, P_BX, num_p, k));
-          const V3 w = ld3(pla, P_WX, num_p, k);
-          const float alpha = dot(w, cross(phv, ld3(pla, P_VX, num_p, k)));
-          const float beta_uv = dot(w, cross(ld3(pla, P_UX, num_p, k), phv));
-          const int ptype = (int)ld(pla, P_PTYPE, num_p, k);
-          bool inside;
-          if (ptype == QUAD) {
-            inside = alpha >= 0.0f && alpha <= 1.0f && beta_uv >= 0.0f && beta_uv <= 1.0f;
-          } else if (ptype == ELLIPSE) {
-            const float ea = alpha - 0.5f, eb = beta_uv - 0.5f;
-            inside = ea * ea + eb * eb <= 0.25f;
-          } else {
-            inside = alpha >= 0.0f && beta_uv >= 0.0f && alpha + beta_uv <= 1.0f;
-          }
-          if (!inside) continue;
-          best = root;
-          widx = num_s + k;
-          best_alpha = alpha;
-          best_beta = beta_uv;
+          if (plane_hit(pla, num_p, k, o, d, &best, &best_alpha, &best_beta)) widx = num_s + k;
         }
       }
 
@@ -476,12 +436,10 @@ __device__ __forceinline__ void trace_pixel(
   px[0] = acc_r;
   px[1] = acc_g;
   px[2] = acc_b;
-  if constexpr (CLUSTERED) {
-    if (cl.counts != nullptr) {
-      atomicAdd(cl.counts, (unsigned long long)n_queries);
-      atomicAdd(cl.counts + 1, (unsigned long long)n_visits);
-      atomicAdd(cl.counts + 2, (unsigned long long)n_tests);
-    }
+  if constexpr (COUNT) {
+    atomicAdd(cl.counts, (unsigned long long)n_queries);
+    atomicAdd(cl.counts + 1, (unsigned long long)n_visits);
+    atomicAdd(cl.counts + 2, (unsigned long long)n_tests);
   }
 }
 
@@ -520,6 +478,7 @@ __global__ void __launch_bounds__(128) record_kernel(
                            tex_tape, tape_f, Clusters{});
 }
 
+template <bool COUNT>
 __global__ void __launch_bounds__(128) render_clustered_kernel(
     const float* __restrict__ sph, int num_s,
     const float* __restrict__ pla, int num_p,
@@ -531,9 +490,9 @@ __global__ void __launch_bounds__(128) render_clustered_kernel(
     uint32_t sample_start, int reference_quirk, int rr_start, Clusters cl) {
   const int lin = blockIdx.x * blockDim.x + threadIdx.x;
   if (lin >= width * height) return;  // ragged last block
-  trace_pixel<false, true>(sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height,
-                           spp, max_depth, sample_start, reference_quirk, rr_start, lin, nullptr,
-                           nullptr, 0, cl);
+  trace_pixel<false, true, COUNT>(sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width,
+                                  height, spp, max_depth, sample_start, reference_quirk, rr_start,
+                                  lin, nullptr, nullptr, 0, cl);
 }
 
 }  // namespace
@@ -576,8 +535,9 @@ extern "C" int tracer_megakernel_record(
 
 // Cluster-culled mode (render_clustered_kernel): boxes [6, num_clusters] and
 // slots [num_clusters * k] as tracer_torch/kernels/cluster.py packs them.
-// counts is nullptr (timed launches) or 3 zeroed counters that receive the
-// launch's nearest-hit queries, visited clusters and tested primitives.
+// counts is nullptr (the uncounted kernel) or 3 zeroed counters that receive
+// the launch's nearest-hit queries, visited clusters and tested primitives
+// (the counted instantiation).
 extern "C" int tracer_megakernel_render_clustered(
     const float* sph, int num_s, const float* pla, int num_p, const float* join,
     const float* tex, int th, int tw, const float* cam, float* out,
@@ -588,8 +548,15 @@ extern "C" int tracer_megakernel_render_clustered(
   const int pixels = width * height;
   const int blocks = (pixels + threads - 1) / threads;
   const Clusters cl{boxes, slots, num_clusters, k, counts};
-  render_clustered_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
-      sample_start, reference_quirk, rr_start, cl);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (counts != nullptr) {
+    render_clustered_kernel<true><<<blocks, threads, 0, st>>>(
+        sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
+        sample_start, reference_quirk, rr_start, cl);
+  } else {
+    render_clustered_kernel<false><<<blocks, threads, 0, st>>>(
+        sph, num_s, pla, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
+        sample_start, reference_quirk, rr_start, cl);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,16 +13,20 @@ original primitive index of each of its K slots. The kernel reads
 geometry and materials from `kernels/pack.py:pack_scene`'s tables through
 those indices, so the bf16 hi/lo projection rows and the per-slot
 material copies of tracer's `pack_clustered` (matrix-unit mechanics) have
-no counterpart. The tables are cached per (geometry, k, device); since
-they hold no materials, a material change with unchanged geometry cannot
-render with stale materials, as it can through tracer's table cache
-(keyed by geometry, holding materials).
+no counterpart. Since they hold no materials, a material change with
+unchanged geometry cannot render with stale materials, as it can through
+tracer's table cache (keyed by geometry, holding materials).
+
+The tables are cached per k for the scene's geometry tensors themselves,
+while those live and are not changed in place (a change bumps their
+`_version`). A cached lookup reads nothing from the device, so a render
+on the card does not wait for the stream; a new scene with the same
+geometry builds its tables again, from a host copy.
 """
 
 from __future__ import annotations
 
-import collections
-import hashlib
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -31,7 +35,7 @@ import torch
 from tracer_torch.geometry import aabb as aabb_mod
 from tracer_torch.scene.types import Scene
 
-_CACHE = collections.OrderedDict()
+_CACHE = []  # (weak refs to the geometry tensors, their versions, k, tables), newest last
 _CACHE_MAX = 8
 
 
@@ -66,22 +70,13 @@ def _median_split_clusters(centroids: np.ndarray, k: int) -> list:
 
 
 def _geometry(scene: Scene):
-    """The host arrays the clustering reads."""
+    """The tensors the clustering reads."""
     sp, pl = scene.spheres, scene.planes
-    return [t.detach().cpu().numpy() for t in (sp.center, sp.radius, pl.base, pl.u, pl.v,
-                                               pl.ptype)]
+    return sp.center, sp.radius, pl.base, pl.u, pl.v, pl.ptype
 
 
-def _fingerprint(arrays) -> bytes:
-    h = hashlib.sha1()
-    for a in arrays:
-        h.update(str(a.shape).encode())
-        h.update(a.tobytes())
-    return h.digest()
-
-
-def _build(arrays, k: int, device) -> ClusterTables:
-    center, radius, base, u, v, ptype = arrays
+def _build(tensors, k: int, device) -> ClusterTables:
+    center, radius, base, u, v, ptype = (t.detach().cpu().numpy() for t in tensors)
     num_s, num_p = center.shape[0], base.shape[0]
     n = num_s + num_p
     centroid = np.zeros((n, 3), np.float32)
@@ -106,19 +101,20 @@ def _build(arrays, k: int, device) -> ClusterTables:
 
 def pack_clustered(scene: Scene, k: int = 16) -> ClusterTables:
     """The cluster tables of `scene` for clusters of at most `k`
-    primitives, on the scene's device (cached by geometry content)."""
+    primitives, on the scene's device (cached per geometry tensors)."""
     if check_k(k) == 0:
         raise ValueError("pack_clustered needs k >= 1")
     if scene.num_spheres + scene.num_planes == 0:
         raise ValueError("scene has no primitives")
-    arrays = _geometry(scene)
-    key = (_fingerprint(arrays), k, str(scene.device))
-    tables = _CACHE.get(key)
-    if tables is None:
-        tables = _build(arrays, k, scene.device)
-        while len(_CACHE) >= _CACHE_MAX:
-            _CACHE.popitem(last=False)
-        _CACHE[key] = tables
-    else:
-        _CACHE.move_to_end(key)
+    tensors = _geometry(scene)
+    if any(t.is_inference() for t in tensors):  # no version counter to key on
+        return _build(tensors, k, scene.device)
+    versions = tuple(t._version for t in tensors)
+    for i, (refs, vers, ek, tables) in enumerate(_CACHE):
+        if ek == k and vers == versions and all(r() is t for r, t in zip(refs, tensors)):
+            _CACHE.append(_CACHE.pop(i))
+            return tables
+    tables = _build(tensors, k, scene.device)
+    _CACHE.append((tuple(weakref.ref(t) for t in tensors), versions, k, tables))
+    del _CACHE[:-_CACHE_MAX]
     return tables

@@ -116,17 +116,14 @@ def cluster_visibility(tables, origin, direction):
                              boxes[None, :, 3:], T_MIN, K_INFINITY)
 
 
-def hit_scene_clustered(scene: Scene, tables, origin, direction, t_min=T_MIN, t_max=T_MAX,
-                        return_visits=False):
+def hit_scene_clustered(scene: Scene, tables, origin, direction, t_min=T_MIN, t_max=T_MAX):
     """Nearest hit over the primitives of the clusters (`tables`, a
     kernels.cluster.ClusterTables of this scene) whose box the ray's own
     slab test passes. Same record as `hit_scene_brute`, `winner` the
     original primitive index; ties go to the lowest (cluster, slot), the
     order in which tracer's legacy clustered intersector visits them. A
     ray's answer differs from the brute one only where its slab test
-    rejects the box of the primitive it hits, by rounding at a box face.
-    With `return_visits` also returns the `[R]` count of clusters each ray
-    visits."""
+    rejects the box of the primitive it hits, by rounding at a box face."""
     t_all = _all_ts(scene, origin, direction, t_min, t_max)
     n = t_all.shape[1]
     slots = tables.slots.long()
@@ -136,5 +133,4 @@ def hit_scene_clustered(scene: Scene, tables, origin, direction, t_min=T_MIN, t_
     vis = cluster_visibility(tables, origin, direction)  # [R, C]
     t_vis = torch.where(vis.repeat_interleave(tables.k, dim=1), t_slot, K_INFINITY)
     t_best, j = torch.min(t_vis, dim=1)  # first minimum: lowest (cluster, slot)
-    rec = _joined(scene, origin, direction, t_best, torch.where(filled, slots, 0)[j])
-    return (rec, vis.sum(dim=1)) if return_visits else rec
+    return _joined(scene, origin, direction, t_best, torch.where(filled, slots, 0)[j])
