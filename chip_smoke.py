@@ -9,12 +9,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. Device: the card's name and power limit.
 2. Build: compiles every tracer_torch/csrc/*.cu with nvcc, one process per
-   source, all started together (megakernel.cu, bwd.cu, tex_scatter.cu).
+   source, all started together (megakernel.cu, bwd.cu, tex_scatter.cu),
+   and prints ptxas's registers and spills for every instantiation.
 3. Each kernel against its plain PyTorch version, on the card, on the same
    inputs:
    - the forward megakernel (K1): smoke scene (quirk on and off), a partial
      tile, an 8x8 texture, the canonical scene with a synthetic 1330x2000
-     floor texture, rr_start=3, and two sample chunks against one shot. A
+     floor texture (its records in shared memory, and in global memory),
+     rr_start=3, and two sample chunks against one shot. A
      pixel agrees when its max channel |diff| < 1e-3 (float32
      reassociation and FMA contraction flip razor-edge hits, after which a
      sample takes another valid path); >= 99% of pixels must agree and the
@@ -41,8 +43,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    texture), cut to 2 frames and sqrt_spp 4 for the time limit; checks the
    saved frames, K1's launch count, and a sample of pixels against the
    plain version. Then the CLI once, as a subprocess.
-5. K1's times: Mrays/s at 800x600, spp 32, depth 50, textured (best of 3
-   frames after a warm-up), and the plain version's with spp cut to 2.
+5. K1 at 800x600, spp 32, depth 50: Mrays/s textured, untextured and with
+   rr_start=3 (best of 3 frames after a warm-up), each with its nearest-hit
+   queries, hits and lane utilisation from the counted instantiation
+   (megakernel.loop_work), and textured with the records in global memory
+   instead of shared; the plain version at the same shape, textured,
+   timed and held to the kernel's frame per pixel on its estimate (raw sum
+   / spp, as phase 9's record frame); K1's bound from the exact queries.
 6. Main gradient path at full width: opt.fit.fit(engine="cuda") on the
    canonical textured scene at 800x600, spp 32, depth 8, 3 Adam steps on
    materials.albedo and spheres.center toward a target rendered from a
@@ -63,10 +70,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      1e-3;
    - their times beside K1's (depth 8), the plain versions' and one
      index_add_ of the pre-weighted corners, and the fwd+bwd rate of one
-     render_frame_diff step;
+     render_frame_diff step; K1's and K1-rec's lane utilisation; K2 with
+     its one wave of resident blocks and with SMs x 8 blocks (the grid
+     before the occupancy sizing); the mean number of distinct winners
+     per group of 32 neighbouring pixels and tape row;
    - each kernel's bound (the larger of its FP32 operations over 67
-     TFLOP/s and its bytes over 3.35 TB/s, counting the bounces and slots
-     this run's tapes hold).
+     TFLOP/s and its bytes over 3.35 TB/s, counting the queries the
+     counted instantiation saw and the slots this run's tapes hold).
 10. The cluster-culled kernel (K1-cl) on benchmarks/prim_scaling.py's
     sphere field (2,000 spheres and a floor quad, bench.py's 2000-sphere
     scene), k = 16:
@@ -85,7 +95,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      contracts their shared float code differently, and this field's
      paths amplify the last-bit differences); K1-cl's launch count;
    - K1 and K1-cl times at that shape, with and without rr_start=3 (best
-     of 3 frames after a warm-up), and on prim_scaling.py's sweep: n in
+     of 3 frames after a warm-up), with their lane utilisation, and again
+     with the field's records in shared memory instead of global; and on
+     prim_scaling.py's sweep (records in shared memory up to n = 1000,
+     in global memory above): n in
      {2000, 5000, 10000, 20000} spheres and, for the crossing point, 250,
      500 and 1000; 800x600, spp 4, depth 10, rr_start=3, its camera (best
      of 3 after a warm-up).
@@ -126,6 +139,22 @@ OPS_SPHERE, OPS_PLANE, OPS_SHADE, OPS_ADJOINT, OPS_SCATTER = 20, 12, 60, 300, 30
 # min and max, the interval's 3 max and 3 min, and the comparison
 OPS_SLAB = 25
 CLUSTER_K = 16
+
+
+def instantiation(line: str) -> str:
+    """A ptxas 'Compiling entry' line's kernel, by name and template arguments."""
+    import re
+
+    m = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+    if m:
+        rec, clu, smem, count = (x == "1" for x in m.groups())
+        name = "K1-rec" if rec else ("K1-cl" if clu else "K1")
+        return (f"{name}, records in {'shared' if smem else 'global'} memory"
+                + (", counted" if count else ""))
+    m = re.search(r"bwd_kernelILb(\d)E", line)
+    if m:
+        return f"K2, dtable in {'shared' if m.group(1) == '1' else 'global'} memory"
+    return "K3" if "scatter_kernel" in line else line
 
 
 def fail(msg: str) -> int:
@@ -194,6 +223,21 @@ def hit_bounces(idx):
     its paths executed, at least (a path's miss after a hit is not on the
     tape, so it is not counted)."""
     return int((idx >= 0).sum()), int((idx[:, 0] < 0).sum())
+
+
+def winners_per_group(idx2):
+    """(mean distinct winners, mean lanes that hit) per group of 32
+    neighbouring pixels and tape row of an index tape [rows, N], over the
+    groups with a hit: the lanes K2's aggregation adds with one atomic."""
+    import torch
+
+    g = idx2.reshape(idx2.shape[0], -1, 32).sort(dim=-1).values
+    first = torch.ones_like(g, dtype=torch.bool)
+    first[..., 1:] = g[..., 1:] != g[..., :-1]
+    distinct = ((g >= 0) & first).sum(dim=-1)
+    lanes = (g >= 0).sum(dim=-1)
+    live = lanes > 0
+    return float(distinct[live].double().mean()), float(lanes[live].double().mean())
 
 
 def compare_record(name, got, want, errs, spp=1):
@@ -290,20 +334,21 @@ def clustered_phase(dev, kind, card, cams, W, H, PSPP):
                    plain.pop("cl"), cl_errs):
         return "cluster-culled kernel and plain version disagree", None
     queries, visits, tested = mk.cluster_work(field, cams[1], W, H, PSPP, CD, CK)
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    hits = mk.loop_work(field, cams[1], W, H, PSPP, CD, cluster_k=CK).hits
+    counts = torch.zeros(len(mk.COUNT_NAMES), dtype=torch.int64, device=dev)
     cnt_ms = cuda_ms(lambda: mk._render_clustered(field, cams[1], W, H, PSPP, CD, True, None, 0,
                                                   CK, counts), reps=3)
     # every query slab-tests all clusters; every tested primitive costs at
-    # least a plane test; a hit query shades (a path misses at most once)
-    cl_ops = (queries * n_c * OPS_SLAB + tested * OPS_PLANE
-              + max(queries - W * H * PSPP, 0) * OPS_SHADE)
-    cl_bytes = (4 * (n_fs * 4 + n_fp * 17 + (n_fs + n_fp) * 13) + 4 * n_c * 6
+    # least a plane test; a hit shades
+    cl_ops = queries * n_c * OPS_SLAB + tested * OPS_PLANE + hits * OPS_SHADE
+    cl_bytes = (4 * (n_fs * 4 + n_fp * 20 + (n_fs + n_fp) * 13) + 4 * n_c * 6
                 + 4 * tables.slots.numel() + 15 * 4 + W * H * 3 * 4)
     cl_bound = bound(cl_ops, cl_bytes)
     print(f"    kernel {cl_ms:.3f} ms (counted instantiation {cnt_ms:.3f} ms), plain "
           f"{pcl_ms:.3f} ms; work: {queries} nearest-hit "
           f"queries, {visits} cluster visits ({visits / queries:.3f} per query), {tested} "
-          f"primitive tests ({tested / queries:.3f} per query, brute: {n_fs + n_fp}); bound "
+          f"primitive tests ({tested / queries:.3f} per query, brute: {n_fs + n_fp}), {hits} "
+          f"hits; bound "
           f"{cl_bound[0]:.3f} ms ({cl_bound[1]}: {cl_ops:.4g} FP32 ops, {cl_bytes} bytes)",
           flush=True)
 
@@ -337,14 +382,27 @@ def clustered_phase(dev, kind, card, cams, W, H, PSPP):
     for rr in (None, 3):
         t_k1 = best_ms(field, cams, CSPP, CD, rr_start=rr)
         t_cl = best_ms(field, cams, CSPP, CD, rr_start=rr, cluster_k=CK)
+        u_k1, u_cl = (mk.loop_work(field, cams[1], W, H, CSPP, CD, rr_start=rr, cluster_k=k)
+                      .lane_utilisation for k in (0, CK))
         print(f"    {W}x{H} spp{CSPP} d{CD} rr_start={rr}: K1 {t_k1:.3f} ms = "
               f"{crays / t_k1 / 1e3:.3f} Mrays/s; K1-cl {t_cl:.3f} ms = "
-              f"{crays / t_cl / 1e3:.3f} Mrays/s; K1/K1-cl {t_k1 / t_cl:.3f}", flush=True)
+              f"{crays / t_cl / 1e3:.3f} Mrays/s; K1/K1-cl {t_k1 / t_cl:.3f}; lane utilisation "
+              f"K1 {u_k1:.4f}, K1-cl {u_cl:.4f}", flush=True)
+    # the same frames with the field's records in shared memory
+    saved, mk.TABLE_SHARED_BYTES_MAX = mk.TABLE_SHARED_BYTES_MAX, 48 * 1024
+    try:
+        t_k1 = best_ms(field, cams, CSPP, CD)
+        t_cl = best_ms(field, cams, CSPP, CD, cluster_k=CK)
+    finally:
+        mk.TABLE_SHARED_BYTES_MAX = saved
+    print(f"    records in shared memory instead of global ({(n_fs * 4 + n_fp * 20) * 4} bytes): "
+          f"K1 {t_k1:.3f} ms, K1-cl {t_cl:.3f} ms", flush=True)
 
     SW_SPP, SW_D = 4, 10
     print(f"    sweep (benchmarks/prim_scaling.py): {W}x{H} spp{SW_SPP} d{SW_D} rr_start=3, its "
-          f"camera, best of 3 after a warm-up:", flush=True)
-    print("      n | clusters | K1 ms | K1 Mrays/s | K1-cl ms | K1-cl Mrays/s | K1/K1-cl")
+          f"camera, best of 3 after a warm-up; records in shared memory up to "
+          f"{mk.TABLE_SHARED_BYTES_MAX} bytes, else global:", flush=True)
+    print("      n | records | clusters | K1 ms | K1 Mrays/s | K1-cl ms | K1-cl Mrays/s | K1/K1-cl")
     srays = W * H * SW_SPP
     for n in (250, 500, 1000, 2000, 5000, 10000, 20000):
         scene_n, cols_n = sphere_field(n, dev)
@@ -352,7 +410,8 @@ def clustered_phase(dev, kind, card, cams, W, H, PSPP):
         c_n = cluster.pack_clustered(scene_n, CK).num_clusters
         t_k1 = best_ms(scene_n, [cam_n] * 4, SW_SPP, SW_D, rr_start=3)
         t_cl = best_ms(scene_n, [cam_n] * 4, SW_SPP, SW_D, rr_start=3, cluster_k=CK)
-        print(f"      {n} | {c_n} | {t_k1:.3f} | {srays / t_k1 / 1e3:.3f} | {t_cl:.3f} | "
+        where = "shared" if (n * 4 + 20) * 4 <= mk.TABLE_SHARED_BYTES_MAX else "global"
+        print(f"      {n} | {where} | {c_n} | {t_k1:.3f} | {srays / t_k1 / 1e3:.3f} | {t_cl:.3f} | "
               f"{srays / t_cl / 1e3:.3f} | {t_k1 / t_cl:.3f}", flush=True)
     print(f"    card: {card}", flush=True)
 
@@ -402,9 +461,10 @@ def main() -> int:
     for stem, b in builds.items():
         print(f"    {stem}: {os.path.relpath(b.path, HERE)}")
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower() \
-                    or "Compiling entry" in line:
-                print(f"      nvcc: {line.strip()}")
+            if "Compiling entry" in line:
+                print(f"      {instantiation(line)}:")
+            elif "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"        ptxas: {line.strip().removeprefix('ptxas info    : ')}")
 
     # ---- 3. kernels against their plain versions ----------------------
     print(f"[3] kernels vs plain on {kind}", flush=True)
@@ -434,6 +494,11 @@ def main() -> int:
     cam_c = C.camera_at(canon_p.camera_path, 0, canon_p.num_frames, 96, 64,
                         canon_p.fov_degrees, background=SKY, device=dev)
     ok &= case("canonical + 1330x2000 texture 96x64 spp4 d50", canon, cam_c, 96, 64, 4, 50)
+    saved, mk.TABLE_SHARED_BYTES_MAX = mk.TABLE_SHARED_BYTES_MAX, 0
+    try:  # the variant that reads the records from global memory
+        ok &= case("same, records in global memory", canon, cam_c, 96, 64, 4, 50)
+    finally:
+        mk.TABLE_SHARED_BYTES_MAX = saved
     ok &= case("smoke rr_start=3 64x48 spp4 d8", smoke, cam, 64, 48, 4, 8, rr_start=3)
     one = mk.render_frame_kernel(smoke, cam, 64, 48, 4, 8)
     two = (mk.render_frame_kernel(smoke, cam, 64, 48, 2, 8)
@@ -590,6 +655,7 @@ def main() -> int:
 
     # ---- 5. K1's times --------------------------------------------------
     W, H, SPP, D = 800, 600, 32, 50
+    plain = {}  # the plain versions' outputs, kept from their timed runs
     cams = [C.camera_at(canon_p.camera_path, k, canon_p.num_frames, W, H, canon_p.fov_degrees,
                         device=dev) for k in range(4)]
     rays = W * H * SPP
@@ -600,33 +666,43 @@ def main() -> int:
                    for c in cams[1:])
 
     print(f"[5] times on {kind} ({card}), canonical scene {W}x{H} d{D}, best of 3 frames "
-          f"(camera path frames 1-3) after one warm-up, CUDA events:", flush=True)
-    ms_tex = kernel_best(canon)
-    print(f"    kernel textured spp{SPP}: {ms_tex:.3f} ms/frame = {rays / ms_tex / 1e3:.3f} Mrays/s")
+          f"(camera path frames 1-3) after one warm-up, CUDA events; lane utilisation from the "
+          f"counted instantiation on camera frame 1:", flush=True)
     untex = canon._replace(textures=None)
-    ms_untex = kernel_best(untex)
-    print(f"    kernel untextured spp{SPP}: {ms_untex:.3f} ms/frame = "
-          f"{rays / ms_untex / 1e3:.3f} Mrays/s")
-    ms_rr = kernel_best(untex, rr_start=3)
-    print(f"    kernel untextured rr_start=3 spp{SPP}: {ms_rr:.3f} ms/frame = "
-          f"{rays / ms_rr / 1e3:.3f} Mrays/s")
-    PSPP = 2
-    k_ms = cuda_ms(lambda: mk.render_frame_kernel(canon, cams[1], W, H, PSPP, D), reps=3)
-    p_ms = cuda_ms(lambda: renderer.render_frame(canon, cams[1], W, H, PSPP, D), reps=1)
-    prays = W * H * PSPP
-    print(f"    same shape at spp{PSPP} (camera frame 1): kernel {k_ms:.3f} ms = "
-          f"{prays / k_ms / 1e3:.3f} Mrays/s; plain PyTorch {p_ms:.3f} ms = "
-          f"{prays / p_ms / 1e3:.3f} Mrays/s (plain spp cut 32 -> {PSPP} for time)", flush=True)
-    # K1's bound at the spp2 shape: the bounces its paths execute, from the
-    # index tape of the same paths (texture changes no path without roulette)
-    idx_k1 = mk.render_frame_kernel_record(untex, cams[1], W, H, PSPP, D)[1]
-    hits, prim_miss = hit_bounces(idx_k1)
-    del idx_k1
     n_s, n_p = canon.num_spheres, canon.num_planes
-    k1_ops = (hits + prim_miss) * (n_s * OPS_SPHERE + n_p * OPS_PLANE) + hits * OPS_SHADE
-    k1_bytes = (4 * (n_s + n_p) * 34 + canon.textures.numel() * 4 + 15 * 4 + W * H * 3 * 4)
+    k1_work = {}
+    for name, scene, kw in (("textured", canon, {}), ("untextured", untex, {}),
+                            ("untextured rr_start=3", untex, dict(rr_start=3))):
+        t = kernel_best(scene, **kw)
+        work = mk.loop_work(scene, cams[1], W, H, SPP, D, **kw)
+        k1_work[name] = (t, work)
+        print(f"    K1 {name} spp{SPP}: {t:.3f} ms/frame = {rays / t / 1e3:.3f} Mrays/s; "
+              f"{work.queries} nearest-hit queries ({work.queries / rays:.4f} per sample), "
+              f"{work.hits} hits, {work.passes} warp passes, lane utilisation "
+              f"{work.lane_utilisation:.4f}", flush=True)
+    k_ms, k1_work = k1_work["textured"]
+    saved, mk.TABLE_SHARED_BYTES_MAX = mk.TABLE_SHARED_BYTES_MAX, 0
+    try:
+        t_glob = kernel_best(canon)
+    finally:
+        mk.TABLE_SHARED_BYTES_MAX = saved
+    print(f"    K1 textured spp{SPP} with the records in global memory instead of shared: "
+          f"{t_glob:.3f} ms", flush=True)
+    fb_k1 = mk.render_frame_kernel(canon, cams[1], W, H, SPP, D)
+    p_ms = cuda_ms(lambda: plain.update(k1=renderer.render_frame(canon, cams[1], W, H, SPP, D)))
+    if not compare(f"K1 vs plain at {W}x{H} spp{SPP} d{D} textured, camera frame 1 (per-sample "
+                   f"estimate)", fb_k1, plain.pop("k1"), errs, spp=SPP):
+        return fail("kernel and plain version disagree at K1's timing shape")
+    max_abs_err = max(errs)
+    del fb_k1
+    print(f"    plain PyTorch at that shape: {p_ms:.3f} ms = {rays / p_ms / 1e3:.3f} Mrays/s",
+          flush=True)
+    # K1's bound: every query tests every primitive, every hit shades
+    k1_ops = k1_work.queries * (n_s * OPS_SPHERE + n_p * OPS_PLANE) + k1_work.hits * OPS_SHADE
+    k1_bytes = (4 * (n_s * 4 + n_p * 20 + (n_s + n_p) * 13) + canon.textures.numel() * 4
+                + 15 * 4 + W * H * 3 * 4)
     k1_bound, k1_by = bound(k1_ops, k1_bytes)
-    print(f"    bound at spp{PSPP}: {hits} hit bounces + {prim_miss} primary misses -> "
+    print(f"    bound at spp{SPP}: {k1_work.queries} queries, {k1_work.hits} hits -> "
           f"{k1_ops:.4g} FP32 ops, {k1_bytes} bytes: {k1_bound:.3f} ms ({k1_by})", flush=True)
 
     # ---- 6. main gradient path at full width -----------------------------
@@ -705,7 +781,6 @@ def main() -> int:
           f"canonical + texture, camera frame 0, CUDA events, best of 3 after a warm-up; each "
           f"kernel against its plain version on the same inputs:", flush=True)
     grays = GW * GH * GSPP
-    plain = {}  # the plain versions' outputs, kept from their timed runs
     fwd_ms = cuda_ms(lambda: mk.render_frame_kernel(canon, cam_g, GW, GH, GSPP, GD), reps=3)
     mk.render_frame_kernel_record(canon, cam_g, GW, GH, GSPP, GD)
     rec_ms = cuda_ms(lambda: mk.render_frame_kernel_record(canon, cam_g, GW, GH, GSPP, GD),
@@ -726,6 +801,11 @@ def main() -> int:
     g2 = torch.randn((GW * GH, 3), generator=g, device=dev)
     bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2)
     bwd_ms = cuda_ms(lambda: bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2), reps=3)
+    per_sm = bwd.blocks_per_sm(True, table.shape[1])
+    bwd.BLOCKS_PER_SM = 8  # the grid of SMs x 8 blocks, as before the occupancy sizing
+    bwd_ms8 = cuda_ms(lambda: bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2), reps=3)
+    bwd.BLOCKS_PER_SM = None
+    distinct, hit_lanes = winners_per_group(idx2)
     got = bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2)
     pbwd_ms = cuda_ms(lambda: plain.update(
         bwd=replay.replay_cotangents(table, camv, idx2, g2, GW, GSPP, GD, t2=t2)))
@@ -735,9 +815,19 @@ def main() -> int:
     if not ok:
         return fail("backward kernel and plain replay disagree at the main shape")
     del out, idx2, t2, got
-    print(f"    K1 forward {fwd_ms:.3f} ms; K1-rec {rec_ms:.3f} ms (tapes {tape_b} bytes, "
-          f"{hits_g} hit bounces, {miss_g} primary misses), plain record {prec_ms:.3f} ms; "
-          f"K2 {bwd_ms:.3f} ms, plain replay {pbwd_ms:.3f} ms", flush=True)
+    fwd_work = mk.loop_work(canon, cam_g, GW, GH, GSPP, GD)
+    rec_work = mk.loop_work(canon, cam_g, GW, GH, GSPP, GD, record=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"    K1 forward {fwd_ms:.3f} ms (lane utilisation {fwd_work.lane_utilisation:.4f}); "
+          f"K1-rec {rec_ms:.3f} ms (tapes {tape_b} bytes, {rec_work.queries} nearest-hit "
+          f"queries, {rec_work.hits} hits = {hits_g} tape hit slots, {miss_g} primary misses; "
+          f"lane utilisation {rec_work.lane_utilisation:.4f}), K1-rec - K1 "
+          f"{rec_ms - fwd_ms:.3f} ms; plain record {prec_ms:.3f} ms", flush=True)
+    print(f"    K2 {bwd_ms:.3f} ms with one wave of {per_sm} resident blocks an SM "
+          f"({sms * per_sm} blocks), {bwd_ms8:.3f} ms with {sms} x 8 blocks; plain replay "
+          f"{pbwd_ms:.3f} ms; "
+          f"distinct winners per 32-pixel group and tape row {distinct:.4f}, among "
+          f"{hit_lanes:.4f} lanes that hit (groups with a hit)", flush=True)
     # one fwd+bwd step as the user calls it, host clock to synchronize
     leaf = canon.materials.albedo.detach().clone().requires_grad_()
     scene_a = canon._replace(materials=canon.materials._replace(albedo=leaf))
@@ -797,8 +887,8 @@ def main() -> int:
     # dtable, dcam and fb; the scatter reads every cotangent and the
     # addressing of the slots that have one
     n_prims = canon.num_spheres + canon.num_planes
-    reached = hits_g + miss_g
-    rec_ops = reached * (n_s * OPS_SPHERE + n_p * OPS_PLANE) + hits_g * OPS_SHADE
+    reached = rec_work.queries  # every query's slot, a miss after a hit included
+    rec_ops = reached * (n_s * OPS_SPHERE + n_p * OPS_PLANE) + rec_work.hits * OPS_SHADE
     rec_bound = bound(rec_ops, k1_bytes + tape_b)
     bwd_bound = bound(hits_g * OPS_ADJOINT, reached * 4 * 10 + 2 * 4 * n_prims * 30
                       + 2 * GW * GH * 3 * 4 + 2 * 15 * 4)
@@ -809,7 +899,7 @@ def main() -> int:
     del table, camv, g2, gtex, t2, target
 
     # ---- 10. the cluster-culled kernel on the sphere field ---------------------
-    err, cl_entry = clustered_phase(dev, kind, card, cams, W, H, PSPP)
+    err, cl_entry = clustered_phase(dev, kind, card, cams, W, H, 2)
     if err:
         return fail(err)
 

@@ -28,7 +28,8 @@ from tracer_torch.render import camera, renderer
 from tracer_torch.scene import builders, config
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from torch_scenes import SKY, big_scene, full_scene  # noqa: E402
+from torch_scenes import (SKY, big_scene, closed_box, full_scene, sky_camera,  # noqa: E402
+                          sky_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -139,7 +140,7 @@ def test_cluster_work_counts_the_plain_visits(dev):
 
 def test_counted_instantiation_renders_the_same_frame(dev):
     scene, cam = _clustered_case("big300", dev)
-    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    counts = torch.zeros(len(megakernel.COUNT_NAMES), dtype=torch.int64, device=dev)
     counted = megakernel._render_clustered(scene, cam, 64, 48, 2, 4, True, 3, 0, 16, counts)
     plain = megakernel.render_frame_kernel(scene, cam, 64, 48, 2, 4, rr_start=3, cluster_k=16)
     assert torch.equal(counted, plain) and int(counts[0]) >= 64 * 48 * 2
@@ -163,12 +164,20 @@ def test_record_kernel_matches_plain_record(dev):
                                                 tape_fields=13)
     assert megakernel.LAUNCHES_RECORD == before + 1
     want = renderer.render_frame_record(scene, cam, 64, 48, 4, 8, rr_start=3, tape_fields=13)
+    _agree_record(got, want)
+
+
+def _agree_record(got, want):
+    """The frame by _agree, >= 99% of index-tape slots equal and, on >= 99%
+    of those, every texture field within 1e-3 of its scale."""
     _agree(got[0], want[0])
+    assert len(got) == len(want)
     same = got[1] == want[1]
     assert same.double().mean() >= 0.99
-    gt, wt = got[2][same], want[2][same]
-    scale = wt.abs().amax(dim=0).clamp_min(1.0)
-    assert ((gt - wt).abs() <= 1e-3 * scale).all(dim=1).double().mean() >= 0.99
+    if len(want) == 3:
+        gt, wt = got[2][same], want[2][same]
+        scale = wt.abs().amax(dim=0).clamp_min(1.0)
+        assert ((gt - wt).abs() <= 1e-3 * scale).all(dim=1).double().mean() >= 0.99
 
 
 @pytest.mark.parametrize("textured", [False, True], ids=["smoke", "textured-rr"])
@@ -265,3 +274,132 @@ def test_backward_kernel_global_atomics_and_band_arguments(dev, monkeypatch):
                                  bwd.leaf_grads(scene, cam, want[0], want[1])):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
     torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-4 * float(want[2].abs().max()))
+
+
+# ---- the regenerating bounce loop, its tables and its counts ------------------
+
+def _closed_camera(dev, w=32, h=24):
+    return camera.build_camera_data([0.0, 0.0, 0.0], [1.0, 0.3, 0.2], w, h, 70.0,
+                                    background=SKY, device=dev)
+
+
+@pytest.mark.parametrize("record", [False, True], ids=["K1", "K1-rec"])
+@pytest.mark.parametrize("name, spp, depth, rr_start", [
+    ("spp1", 1, 8, None), ("odd-spp", 5, 8, None), ("max-depth", 3, 6, None),
+    ("rr_start", 4, 10, 2)])
+def test_regenerating_loop_matches_plain(dev, name, spp, depth, rr_start, record):
+    """Lanes start their next sample as soon as a path ends: one sample,
+    an odd count, paths that reach max_depth (inside a closed box) and
+    roulette, against the plain version."""
+    if name == "max-depth":
+        scene, cam = closed_box(dev), _closed_camera(dev)
+    else:
+        scene = full_scene(dev)
+        cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 32, 24, 55.0,
+                                       background=SKY, device=dev)
+    kw = dict(rr_start=rr_start)
+    if record:
+        got = megakernel.render_frame_kernel_record(scene, cam, 32, 24, spp, depth,
+                                                    tape_fields=13, **kw)
+        _agree_record(got, renderer.render_frame_record(scene, cam, 32, 24, spp, depth,
+                                                        tape_fields=13, **kw))
+    else:
+        got = megakernel.render_frame_kernel(scene, cam, 32, 24, spp, depth, **kw)
+        _agree(got, renderer.render_frame(scene, cam, 32, 24, spp, depth, **kw))
+
+
+def test_shared_and_global_tables_give_the_same_frame(dev, monkeypatch):
+    """The records staged in shared memory or read from global memory: the
+    same float code, so the same frames and tapes."""
+    scene = full_scene(dev)
+    cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 40, 30, 55.0,
+                                   background=SKY, device=dev)
+
+    def run():
+        return (megakernel.render_frame_kernel(scene, cam, 40, 30, 4, 8, rr_start=3),
+                *megakernel.render_frame_kernel_record(scene, cam, 40, 30, 2, 6, tape_fields=13),
+                megakernel.render_frame_kernel(scene, cam, 40, 30, 4, 8, cluster_k=2))
+
+    shared = run()
+    monkeypatch.setattr(megakernel, "TABLE_SHARED_BYTES_MAX", 0)
+    for a, b in zip(shared, run()):
+        assert torch.equal(a, b)
+
+
+def test_loop_work_counts_the_plain_queries(dev):
+    """The counted instantiation's nearest-hit queries against the plain
+    count: exact where every ray misses, and where the paths' lengths leave
+    no razor-edge decision to the rounding, near elsewhere; every pass
+    counts its active lanes once per warp."""
+    w, h, spp = 32, 24, 3
+    sky = megakernel.loop_work(sky_scene(dev), sky_camera(w, h, dev), w, h, spp, 8)
+    assert sky.queries == sky.active_lanes == w * h * spp and sky.hits == 0
+    scene = full_scene(dev)
+    cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], w, h, 55.0,
+                                   background=SKY, device=dev)
+    plain = renderer.query_count(scene, cam, w, h, spp, 8, rr_start=2)
+    for kw in (dict(), dict(record=True), dict(cluster_k=2)):
+        work = megakernel.loop_work(scene, cam, w, h, spp, 8, rr_start=2, **kw)
+        assert abs(work.queries - plain) <= 1e-3 * plain, kw
+        assert work.queries == work.active_lanes and work.hits < work.queries
+        assert w * h // 32 * spp <= work.passes and 0.0 < work.lane_utilisation <= 1.0
+    closed = megakernel.loop_work(closed_box(dev), _closed_camera(dev), w, h, spp, 4)
+    plain = renderer.query_count(closed_box(dev), _closed_camera(dev), w, h, spp, 4)
+    assert abs(closed.queries - plain) <= 1e-3 * plain
+    assert w * h * spp * 4 * 0.99 <= closed.queries <= w * h * spp * 4
+
+
+@pytest.mark.parametrize("name", ["one-winner", "many-winners"])
+def test_backward_kernel_groups_lanes_by_winner(dev, name):
+    """K2 sums each winner's column over the lanes that share it: against
+    the plain replay where every primary hit is the floor quad (a camera
+    facing it), and where the winners differ (300 spheres)."""
+    if name == "one-winner":
+        scene = full_scene(dev)
+        cam = camera.build_camera_data([0.0, -6.0, 20.0], [0.0, -6.0, 0.0], 40, 30, 10.0,
+                                       vup=(0.0, 1.0, 0.0), background=SKY, device=dev)
+    else:
+        scene = big_scene(300, dev)
+        cam = camera.build_camera_data([0, -30, 6], [0, 0, 2], 40, 30, 50.0, background=SKY,
+                                       device=dev)
+    out = megakernel.render_frame_kernel_record(scene, cam, 40, 30, 2, 5, tape_fields=13)
+    floor = scene.num_spheres
+    primary = out[1][:, 0]
+    if name == "one-winner":
+        assert bool((primary == floor).all())
+    else:
+        assert len(torch.unique(primary)) > 20
+    table, camv = bwd.pack_tables(scene, cam)
+    idx2 = out[1].reshape(10, -1)
+    t2 = bwd._field_major(out[2], 2, 5, 1200) if len(out) == 3 else None
+    g2 = torch.randn((1200, 3), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    got = bwd.bwd_kernel(table, camv, idx2, g2, 40, 2, 5, t2=t2)
+    want = replay.replay_cotangents(table, camv, idx2, g2, 40, 2, 5, t2=t2)
+    for (leaf, a), (_, b) in zip(bwd.leaf_grads(scene, cam, got[0], got[1]),
+                                 bwd.leaf_grads(scene, cam, want[0], want[1])):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), leaf
+
+
+def test_backward_kernel_grid_size_leaves_the_cotangents(dev, monkeypatch):
+    """The warps take their pixels from a counter, so one wave of resident
+    blocks and a grid of SMs x 8 blocks give the same cotangents."""
+    scene = full_scene(dev)
+    cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 40, 30, 55.0,
+                                   background=SKY, device=dev)
+    out = megakernel.render_frame_kernel_record(scene, cam, 40, 30, 2, 5, tape_fields=9)
+    table, camv = bwd.pack_tables(scene, cam)
+    idx2, t2 = out[1].reshape(10, -1), bwd._field_major(out[2], 2, 5, 1200)
+    g2 = torch.randn((1200, 3), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    wave = bwd.bwd_kernel(table, camv, idx2, g2, 40, 2, 5, t2=t2)
+    monkeypatch.setattr(bwd, "BLOCKS_PER_SM", 8)
+    more = bwd.bwd_kernel(table, camv, idx2, g2, 40, 2, 5, t2=t2)
+    for a, b in zip(more[:3], wave[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+def test_backward_grid_is_one_wave_of_resident_blocks(dev):
+    scene = full_scene(dev)
+    table, _ = bwd.pack_tables(scene, camera.build_camera_data(
+        [5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 8, 8, 55.0, device=dev))
+    per_sm = bwd.blocks_per_sm(True, table.shape[1])
+    assert 1 <= per_sm <= 2048 // bwd.THREADS

@@ -30,6 +30,7 @@ from tracer_torch.scene import types as T
 sys.path.insert(0, os.path.dirname(__file__))
 from test_parity import _full_scene  # noqa: E402
 from test_torch_scene import one_torch_thread, jax_cam_fields, jax_scene_fields  # noqa: E402,F401
+from torch_scenes import SKY, closed_sphere, sky_camera, sky_scene  # noqa: E402
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "canonical_32x24_spp4_d5.npz")
 
@@ -148,3 +149,16 @@ def test_kernel_wrapper_takes_the_plain_version_for_cpu_tensors():
 
 def test_total_rays():
     assert renderer.total_rays(1080, 720, 50) == jax_renderer.total_rays(1080, 720, 50)
+
+
+def test_query_count_is_one_per_sample_when_every_ray_misses():
+    assert renderer.query_count(sky_scene("cpu"), sky_camera(16, 12, "cpu"), 16, 12, 3, 8) \
+        == 16 * 12 * 3
+
+
+def test_query_count_is_max_depth_per_sample_inside_a_closed_sphere():
+    cam = camera.build_camera_data([0.0, 0.0, 0.0], [1.0, 0.3, 0.2], 10, 8, 70.0,
+                                   background=SKY, device="cpu")
+    assert renderer.query_count(closed_sphere("cpu"), cam, 10, 8, 2, 4) == 10 * 8 * 2 * 4
+    # roulette ends paths early, so the count falls
+    assert renderer.query_count(closed_sphere("cpu"), cam, 10, 8, 2, 4, rr_start=0) < 640

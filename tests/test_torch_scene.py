@@ -175,16 +175,44 @@ def test_pack_scene_tables():
     p = pack.pack_scene(scene)
     s, n = scene.num_spheres, scene.num_spheres + scene.num_planes
     assert (p.num_s, p.num_p) == (s, scene.num_planes)
-    assert p.sph.shape == (len(pack.SPHERE_ROWS), s) and p.sph.is_contiguous()
-    assert p.pla.shape == (len(pack.PLANE_ROWS), scene.num_planes) and p.pla.is_contiguous()
+    assert p.sph.shape == (s, len(pack.SPHERE_ROWS)) and p.sph.is_contiguous()
+    assert p.pla.shape == (scene.num_planes, len(pack.PLANE_ROWS)) and p.pla.is_contiguous()
     assert p.join.shape == (len(pack.JOIN_ROWS), n) and p.join.is_contiguous()
     assert all(t.dtype == torch.float32 for t in (p.sph, p.pla, p.join))
     row = {name: i for i, name in enumerate(pack.PLANE_ROWS)}
-    torch.testing.assert_close(p.sph[3], scene.spheres.radius, rtol=0, atol=0)
-    torch.testing.assert_close(p.pla[row["wx"]:row["wx"] + 3].T, scene.planes.w, rtol=0, atol=0)
-    assert torch.equal(p.pla[row["ptype"]], scene.planes.ptype.float())
+    torch.testing.assert_close(p.sph[:, 3], scene.spheres.radius, rtol=0, atol=0)
+    torch.testing.assert_close(p.pla[:, row["wx"]:row["wx"] + 3], scene.planes.w, rtol=0, atol=0)
+    assert torch.equal(p.pla[:, row["ptype"]], scene.planes.ptype.float())
     midx = torch.cat([scene.spheres.material_idx, scene.planes.material_idx]).long()
     jrow = {name: i for i, name in enumerate(pack.JOIN_ROWS)}
     assert torch.equal(p.join[jrow["tex_id"]], scene.materials.tex_id[midx].float())
     assert torch.equal(p.join[jrow["emi0"]:jrow["emi0"] + 3].T, scene.materials.emit[midx])
     assert (p.join[jrow["tex_id"]] >= 0).sum() == 1  # the textured floor only
+
+
+def test_pack_records_are_whole_float4s_holding_the_fields():
+    """The kernel reads a sphere as one float4 and a plane as five: every
+    field at the offset common.cuh declares, the padding zero."""
+    body = CSRC.read_text()
+    assert "SPHERE_F4 = S_ROWS / 4" in body and "PLANE_F4 = P_ROWS / 4" in body
+    assert len(_cu_enum("SphereRow")) == 4 and len(_cu_enum("PlaneRow")) == 20
+    params = config.read_scene_params(io.StringIO(config.default_config_text()))
+    scene = builders.create_scene(params, texture_loader=lambda _p: None, device="cpu")
+    p = pack.pack_scene(scene)
+    assert p.sph.data_ptr() % 16 == 0 and p.pla.data_ptr() % 16 == 0
+    sph = p.sph.reshape(-1, 4)  # float4 records
+    assert sph.shape[0] == scene.num_spheres
+    torch.testing.assert_close(sph[:, :3], scene.spheres.center, rtol=0, atol=0)
+    torch.testing.assert_close(sph[:, 3], scene.spheres.radius, rtol=0, atol=0)
+    pla = p.pla.reshape(scene.num_planes, 5, 4)
+    off = {name: divmod(i, 4) for i, name in enumerate(_cu_enum("PlaneRow"))}
+    planes = scene.planes
+    for field, value in (("n", planes.normal), ("b", planes.base), ("u", planes.u),
+                         ("v", planes.v), ("w", planes.w)):
+        q, c = off[field + "x"]
+        assert off[field + "z"] == (q, c + 2)
+        torch.testing.assert_close(pla[:, q, c:c + 3], value, rtol=0, atol=0)
+    torch.testing.assert_close(pla[:, off["d"][0], off["d"][1]], planes.d, rtol=0, atol=0)
+    assert torch.equal(pla[:, off["ptype"][0], off["ptype"][1]], planes.ptype.float())
+    for pad in ("pad0", "pad1", "pad2"):
+        assert not pla[:, off[pad][0], off[pad][1]].any()

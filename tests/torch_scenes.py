@@ -130,3 +130,64 @@ def big_scene(num_spheres, device, seed=0):
             [[0, 0, 0], [0, 0, 0], [6, 6, 6], [0, 0, 0]], [-1] * 4, device),
         textures=None,
     )
+
+
+def sky_scene(device):
+    """A small sphere and quad behind sky_camera(): every primary ray misses
+    and sees SKY, so each sample makes exactly one nearest-hit query."""
+    return T.Scene(
+        spheres=T.make_spheres([[-50.0, 0.0, 0.0]], [1.0], [0], device),
+        planes=T.make_planes([T.QUAD], [[-60, -1, -1]], [[0, 2, 0]], [[0, 0, 2]], [0], device),
+        materials=T.make_materials([T.LAMBERTIAN], [0.0], [1.0], np.zeros((1, 3)),
+                                   [[0.5, 0.5, 0.5]], [[0, 0, 0]], [-1], device),
+        textures=None,
+    )
+
+
+def sky_camera(width, height, device):
+    """Looking along +x from the origin, away from sky_scene()'s primitives."""
+    return camera.build_camera_data([0.0, 0.0, 0.0], [1.0, 0.0, 0.0], width, height, 60.0,
+                                    background=SKY, device=device)
+
+
+def closed_sphere(device, radius=50.0):
+    """One large sphere around the origin, Lambertian with a faint emission
+    (so that the frame is not black), and a quad outside it that no ray
+    reaches. A camera inside hits the sphere's inward-facing side on every
+    bounce and Lambertian never absorbs, so without roulette every path
+    runs to max_depth: each sample makes max_depth nearest-hit queries. (A
+    scattered ray's origin can round to just outside the sphere, and a
+    grazing direction from there misses it: a few bounces in a thousand,
+    so a test that counts on every path reaching max_depth picks a shape
+    where none does.)"""
+    far = 4.0 * radius
+    return T.Scene(
+        spheres=T.make_spheres([[0.0, 0.0, 0.0]], [radius], [0], device),
+        planes=T.make_planes([T.QUAD], [[far, -1, -1]], [[0, 2, 0]], [[0, 0, 2]], [0], device),
+        materials=T.make_materials([T.LAMBERTIAN], [0.0], [1.0], np.zeros((1, 3)),
+                                   [[0.6, 0.5, 0.4]], [[0.2, 0.2, 0.2]], [-1], device),
+        textures=None,
+    )
+
+
+def closed_box(device, half=20.0):
+    """Six inward-facing Lambertian quads around the origin, with a faint
+    emission: a camera inside hits a wall on every bounce, so without
+    roulette its paths run to max_depth, but for rounding: a scattered
+    origin just outside a wall and a grazing direction can hit that wall
+    again from outside and leave the box, about one bounce in a thousand
+    at this size (a third of closed_sphere()'s rate)."""
+    h, e = half, 2.0 * half
+    corners = [([-h, -h, -h], [e, 0, 0], [0, e, 0]), ([-h, -h, h], [e, 0, 0], [0, e, 0]),
+               ([-h, -h, -h], [e, 0, 0], [0, 0, e]), ([-h, h, -h], [e, 0, 0], [0, 0, e]),
+               ([-h, -h, -h], [0, e, 0], [0, 0, e]), ([h, -h, -h], [0, e, 0], [0, 0, e])]
+    return T.Scene(
+        spheres=T.make_spheres(np.zeros((0, 3)), np.zeros(0), np.zeros(0, np.int32), device),
+        planes=T.make_planes([T.QUAD] * 6, [c[0] for c in corners], [c[1] for c in corners],
+                             [c[2] for c in corners], [0, 0, 1, 1, 2, 2], device),
+        materials=T.make_materials(
+            [T.LAMBERTIAN] * 3, [0.0] * 3, [1.0] * 3, np.zeros((3, 3)),
+            [[0.6, 0.5, 0.4], [0.5, 0.5, 0.5], [0.4, 0.6, 0.4]],
+            [[0.1, 0.1, 0.1], [0.2, 0.2, 0.2], [0.0, 0.0, 0.0]], [-1] * 3, device),
+        textures=None,
+    )

@@ -29,7 +29,9 @@
 // side), so the kernel differentiates the same function as its plain
 // version.
 //
-// Design: one thread per pixel (grid-stride), looping over its samples. A
+// Design: one thread per pixel, looping over its samples; the warps of
+// one wave of resident blocks take their next 32 pixels from a counter,
+// so that no SM is left with the last pixels of a grid-stride walk. A
 // forward replay runs the sample's bounces and keeps each bounce's entry
 // state (origin, direction, throughput, seed: 10 floats) in a per-thread
 // global scratch [10*D, threads]; it stops where the path dies, since
@@ -40,15 +42,22 @@
 // (30 rows x 199 primitives = 24 KB for the canonical scene) and is added
 // to global memory with one atomicAdd per entry at the end; a table above
 // the wrapper's shared-memory limit takes the global-atomic variant
-// (SHARED_ACC = false). dcam is reduced per block the same way.
+// (SHARED_ACC = false). dcam is reduced per block the same way. Each
+// bounce's adjoint collects its winner's column (COLUMN_ROWS values) and
+// adds it in one place (add_column): the lanes of a warp that share a
+// winner, as many do on the floor quad, sum their columns with shuffles
+// and add each row with one atomic, in both accumulator variants.
 //
 // What bounds it on this card: the tapes are read once (4 bytes per slot
 // for the index tape, 4 per slot and field for the texture tape), and the
 // forward recompute plus adjoint is a few hundred FP32 operations per
-// reached bounce; the shared-memory atomics into the winner's column
-// serialise when the threads of a warp share a winner (the floor), and
-// warps diverge on path length and material as in the forward kernel.
-// This first version does nothing about either.
+// reached bounce; in practice latency: each bounce's loads wait on its
+// winner index, and few warps are resident. __launch_bounds__ caps the
+// registers for BWD_MIN_BLOCKS resident blocks an SM (128 registers, with
+// spills), the fastest of 3, 4 and 5 blocks on the H100. Per-lane atomics
+// into the winner's column serialise where lanes share the winner.
+// Warps diverge on path length and material, as the forward kernel's did
+// before it regenerated paths.
 //
 // Float semantics: IEEE division and sqrtf, and no FMA contraction (the
 // build passes -fmad=false for this file): the replay then rounds as its
@@ -57,14 +66,22 @@
 // gradient by a whole path's contribution. The plain version writes its
 // inner products, 1/sqrt and Schlick power in this file's forms, so that
 // an ill-conditioned path (a refraction near total internal reflection
-// ahead of a long hop onto a noisy texture) gets the same gradient here. Atomics add in no fixed order,
-// so dtable and dcam differ from run to run in the last bits.
+// ahead of a long hop onto a noisy texture) gets the same gradient here.
+// Atomics add in no fixed order, so dtable and dcam differ from run to run
+// in the last bits.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int STATE_FLOATS = 10;  // o, d, beta, seed per bounce in the scratch
+constexpr int THREADS = 128;
+#ifndef BWD_MIN_BLOCKS
+#define BWD_MIN_BLOCKS 4  // resident blocks an SM the register budget allows
+#endif
+#ifndef BWD_GROUP_LANES
+#define BWD_GROUP_LANES 1  // 0: every lane adds its own column (for timing the grouping)
+#endif
 
 // d max(a, b) / d a, with jnp.maximum's and torch.maximum's tie rule
 __device__ __forceinline__ float dmax(float a, float b) {
@@ -88,9 +105,43 @@ struct Adj {
   V3 o, d, beta;  // cotangents of the bounce's outputs in, of its inputs out
 };
 
-// Table cotangents of the winner, accumulated into acc[row * n + w].
-__device__ __forceinline__ void acc_add(float* acc, int n, int w, int row, float v) {
-  if (v != 0.0f) atomicAdd(acc + (size_t)row * n + w, v);
+// One bounce's cotangents of its winner's column of dtable: COLUMN_ROWS values,
+// each with its row (the rows follow the winner's kind and material).
+constexpr int COLUMN_ROWS = 22;
+
+// Adds a bounce's column to acc[row * n + w] with one atomic per row for
+// each group of the warp's active lanes that share a winner (the lanes of
+// a warp hold neighbouring pixels, which often hit the same primitive).
+// __match_any_sync finds the groups. Each group then sums its values, all
+// rows together, in ceil(log2(size)) rounds of shuffles: in each round
+// every lane adds the values of the next peer above it that is still in
+// the sum, and the peers at odd positions leave it (the tree of
+// Westphal's reduce_peers). The group's lowest lane adds the sums.
+__device__ __forceinline__ void add_column(float* acc, int n, int w, const int (&row)[COLUMN_ROWS],
+                                           float (&v)[COLUMN_ROWS]) {
+  const unsigned m = __activemask();
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = BWD_GROUP_LANES ? __match_any_sync(m, w) : 1u << lane;
+  int rel = __popc(peers & ((1u << lane) - 1u));  // position among the peers
+  const bool lowest = rel == 0;
+  unsigned above = peers & ~((2u << lane) - 1u);  // the peers above this lane
+  while (__any_sync(m, above != 0u)) {
+    const int next = __ffs(above);
+    const int src = next ? next - 1 : lane;
+#pragma unroll
+    for (int k = 0; k < COLUMN_ROWS; ++k) {
+      const float t = __shfl_sync(m, v[k], src);
+      if (next) v[k] += t;
+    }
+    above &= ~__ballot_sync(m, rel & 1);
+    rel >>= 1;
+  }
+  if (lowest) {
+#pragma unroll
+    for (int k = 0; k < COLUMN_ROWS; ++k) {
+      if (v[k] != 0.0f) atomicAdd(acc + (size_t)row[k] * n + w, v[k]);
+    }
+  }
 }
 
 template <bool ADJ>
@@ -254,8 +305,12 @@ __device__ void bounce(const float* __restrict__ table, int n, int w, V3 bg,
   // scatter update (only where live before roulette, i.e. ok)
   V3 go = zero3(), gd = zero3(), gb = zero3();
   V3 G_p = zero3(), G_nrm = zero3(), G_ud = zero3(), G_albedo = zero3();
-  float g_uddn = 0.0f, g_a = 0.0f, g_t = 0.0f, g_rad = 0.0f;
+  float g_uddn = 0.0f, g_a = 0.0f, g_t = 0.0f, g_rad = 0.0f, g_num = 0.0f;
   V3 G_c = zero3(), G_pn = zero3();
+  // the winner's material and texture-frame cotangents, added in one go
+  // at the end: ir or fuzz, the absorption, and the plane's d(u), d(v)
+  float g_mat = 0.0f, g_du_pl = 0.0f, g_dv_pl = 0.0f;
+  V3 g_abs = zero3();
   if (ok) {
     const V3 G_no = g.o, G_nd = g.d;
     const V3 at = is_die ? da : albedo;
@@ -289,7 +344,7 @@ __device__ void bounce(const float* __restrict__ table, int n, int w, V3 bg,
         const float g_cos = dot(G_w, nrm);
         G_nrm = add(G_nrm, scale(G_w, cos_t));
         g_uddn += -g_cos * dmin(-uddn, 1.0f);
-        acc_add(acc, n, w, T_IR, front ? -g_ratio / (ir * ir) : g_ratio);
+        g_mat = front ? -g_ratio / (ir * ir) : g_ratio;
       }
       if (!front) {  // Beer-Lambert: da = tr / max(p_rr, 1e-30)
         const V3 G_da = G_at;
@@ -300,9 +355,7 @@ __device__ void bounce(const float* __restrict__ table, int n, int w, V3 bg,
         G_tr = add(G_tr, make_v3(g_prr * dmax(tr.x, q_rr), g_prr * wq * dmax(tr.y, tr.z),
                                  g_prr * wq * dmax(tr.z, tr.y)));
         const V3 G_e = mul(G_tr, tr);  // d exp(x) = exp(x) dx
-        acc_add(acc, n, w, T_ABS0, -G_e.x * dist);
-        acc_add(acc, n, w, T_ABS1, -G_e.y * dist);
-        acc_add(acc, n, w, T_ABS2, -G_e.z * dist);
+        g_abs = make_v3(-G_e.x * dist, -G_e.y * dist, -G_e.z * dist);
         const float g_dist = -dot(G_e, ab);
         const V3 G_od = scale(od, 2.0f * g_dist * dsqrt(dist));
         G_p = add(G_p, G_od);
@@ -312,7 +365,7 @@ __device__ void bounce(const float* __restrict__ table, int n, int w, V3 bg,
     if (!hemi_nz) G_nrm = add(G_nrm, G_lam);
     if (is_met && spec) {
       G_refl = add(G_refl, G_r);
-      acc_add(acc, n, w, T_FUZZ, dot(G_r, ball));
+      g_mat = dot(G_r, ball);
     }
     // refl = ud - 2 (ud.n) n
     G_ud = add(G_ud, G_refl);
@@ -331,9 +384,6 @@ __device__ void bounce(const float* __restrict__ table, int n, int w, V3 bg,
 
   // emission
   gb = add(gb, mul(g_f, em));
-  acc_add(acc, n, w, T_EMI0, g_f.x * b.x);
-  acc_add(acc, n, w, T_EMI1, g_f.y * b.y);
-  acc_add(acc, n, w, T_EMI2, g_f.z * b.z);
 
   // normal: nrm = on * sgn
   const V3 G_on = scale(G_nrm, sgn);
@@ -346,9 +396,6 @@ __device__ void bounce(const float* __restrict__ table, int n, int w, V3 bg,
   }
 
   // albedo = alb * mult, mult linearised in (u, v)
-  acc_add(acc, n, w, T_ALB0, G_albedo.x * mult.x);
-  acc_add(acc, n, w, T_ALB1, G_albedo.y * mult.y);
-  acc_add(acc, n, w, T_ALB2, G_albedo.z * mult.z);
   if (tape_f > 0) {
     const V3 G_mult = mul(G_albedo, alb);
     if (want_tex && textured) {
@@ -385,14 +432,8 @@ __device__ void bounce(const float* __restrict__ table, int n, int w, V3 bg,
       } else {  // u = A.h - A.base, v = B.h - B.base
         const V3 A = make_v3(T(T_AX), T(T_AY), T(T_AZ));
         const V3 B = make_v3(T(T_BX), T(T_BY), T(T_BZ));
-        acc_add(acc, n, w, T_AX, g_du * h.x);
-        acc_add(acc, n, w, T_AY, g_du * h.y);
-        acc_add(acc, n, w, T_AZ, g_du * h.z);
-        acc_add(acc, n, w, T_BA, -g_du);
-        acc_add(acc, n, w, T_BX, g_dv * h.x);
-        acc_add(acc, n, w, T_BY, g_dv * h.y);
-        acc_add(acc, n, w, T_BZ, g_dv * h.z);
-        acc_add(acc, n, w, T_BB, -g_dv);
+        g_du_pl = g_du;
+        g_dv_pl = g_dv;
         G_h = add(scale(A, g_du), scale(B, g_dv));
       }
       G_p = add(G_p, G_h);  // h and p are both o + t d
@@ -420,13 +461,8 @@ __device__ void bounce(const float* __restrict__ table, int n, int w, V3 bg,
     gd = add(gd, scale(oc, g_half_b));
     go = add(go, G_oc);
     G_c = sub(G_c, G_oc);
-    acc_add(acc, n, w, T_CX, G_c.x);
-    acc_add(acc, n, w, T_CY, G_c.y);
-    acc_add(acc, n, w, T_CZ, G_c.z);
-    acc_add(acc, n, w, T_RAD, g_rad);
   } else {
-    const float g_num = g_t / sd;
-    acc_add(acc, n, w, T_PD, g_num);
+    g_num = g_t / sd;
     G_pn = sub(G_pn, scale(o, g_num));
     go = sub(go, scale(pn, g_num));
     if (denom_ok) {
@@ -434,12 +470,26 @@ __device__ void bounce(const float* __restrict__ table, int n, int w, V3 bg,
       G_pn = add(G_pn, scale(d, g_sd));
       gd = add(gd, scale(pn, g_sd));
     }
-    acc_add(acc, n, w, T_NX, G_pn.x);
-    acc_add(acc, n, w, T_NY, G_pn.y);
-    acc_add(acc, n, w, T_NZ, G_pn.z);
   }
   // a = d . d
   gd = add(gd, scale(d, 2.0f * g_a));
+
+  // the winner's column of dtable
+  const V3 g_geo = is_sph ? G_c : G_pn;
+  const V3 h = p;
+  const int rows[COLUMN_ROWS] = {
+      T_EMI0, T_EMI1, T_EMI2, T_ALB0, T_ALB1, T_ALB2,
+      is_sph ? T_CX : T_NX, is_sph ? T_CY : T_NY, is_sph ? T_CZ : T_NZ, is_sph ? T_RAD : T_PD,
+      is_die ? T_IR : T_FUZZ, T_ABS0, T_ABS1, T_ABS2,
+      T_AX, T_AY, T_AZ, T_BA, T_BX, T_BY, T_BZ, T_BB};
+  float vals[COLUMN_ROWS] = {
+      g_f.x * b.x, g_f.y * b.y, g_f.z * b.z,
+      G_albedo.x * mult.x, G_albedo.y * mult.y, G_albedo.z * mult.z,
+      g_geo.x, g_geo.y, g_geo.z, is_sph ? g_rad : g_num,
+      g_mat, g_abs.x, g_abs.y, g_abs.z,
+      g_du_pl * h.x, g_du_pl * h.y, g_du_pl * h.z, -g_du_pl,
+      g_dv_pl * h.x, g_dv_pl * h.y, g_dv_pl * h.z, -g_dv_pl};
+  add_column(acc, n, w, rows, vals);
 
   g.o = go;
   g.d = gd;
@@ -553,13 +603,13 @@ __device__ void bwd_pixel(const float* __restrict__ table, int n, const float* c
 }
 
 template <bool SHARED_ACC>
-__global__ void __launch_bounds__(128) bwd_kernel(
+__global__ void __launch_bounds__(THREADS, BWD_MIN_BLOCKS) bwd_kernel(
     const float* __restrict__ table, int n, const float* __restrict__ camv,
     const int* __restrict__ idx, const float* __restrict__ gfb,
     const float* __restrict__ tape, int tape_f, int want_tex, int width, int npx, int spp,
     int max_depth, int row_offset, uint32_t sample_start, int quirk, int rr_start,
     float* __restrict__ dtable, float* __restrict__ dcam, float* __restrict__ fb,
-    float* __restrict__ gtex, float* __restrict__ scratch) {
+    float* __restrict__ gtex, float* __restrict__ scratch, int* __restrict__ next) {
   extern __shared__ float sh[];
   float* cam_acc = sh;  // [V_ROWS]
   float* acc = SHARED_ACC ? sh + V_ROWS : dtable;
@@ -574,10 +624,19 @@ __global__ void __launch_bounds__(128) bwd_kernel(
   }
   const size_t tid = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t pix = tid; pix < (size_t)npx; pix += stride) {
-    bwd_pixel(table, n, cam, idx, gfb, tape, tape_f, want_tex != 0, width, npx, (int)pix, spp,
-              max_depth, row_offset, sample_start, quirk, rr_start, acc, g_cam, fb, gtex,
-              scratch, stride, tid);
+  // each warp takes the next 32 pixels from the launch's counter until
+  // none are left, so the resident blocks end together
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int first = 0;
+    if (lane == 0) first = atomicAdd(next, 32);
+    first = __shfl_sync(0xffffffffu, first, 0);
+    if (first >= npx) break;
+    if (first + lane < npx) {
+      bwd_pixel(table, n, cam, idx, gfb, tape, tape_f, want_tex != 0, width, npx, first + lane,
+                spp, max_depth, row_offset, sample_start, quirk, rr_start, acc, g_cam, fb, gtex,
+                scratch, stride, tid);
+    }
   }
   for (int k = 0; k < V_ROWS; ++k) {
     if (g_cam[k] != 0.0f) atomicAdd(cam_acc + k, g_cam[k]);
@@ -596,33 +655,62 @@ __global__ void __launch_bounds__(128) bwd_kernel(
 
 }  // namespace
 
+// Dynamic shared memory of one block: dcam's and, with shared_acc, dtable's
+// accumulators.
+static size_t shared_bytes(int shared_acc, int n) {
+  return sizeof(float) * (V_ROWS + (shared_acc ? (size_t)T_ROWS * n : 0));
+}
+
+// Resident blocks an SM of THREADS threads each, for the accumulator
+// variant and table width the wrapper will launch, into *blocks_per_sm.
+extern "C" int tracer_bwd_occupancy(int shared_acc, int n, int* blocks_per_sm) {
+  const size_t bytes = shared_bytes(shared_acc, n);
+  cudaError_t e;
+  if (shared_acc) {
+    e = cudaFuncSetAttribute(bwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_kernel<true>, THREADS,
+                                                        bytes);
+    }
+  } else {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, bwd_kernel<false>, THREADS,
+                                                      bytes);
+  }
+  return static_cast<int>(e);
+}
+
 // Plain C entry point, loaded with ctypes by tracer_torch/kernels/bwd.py.
 // dtable [T_ROWS, n], dcam [V_ROWS], fb [npx, 3] and gtex [3*spp*D, npx]
-// come zeroed; scratch holds STATE_FLOATS*max_depth rows of blocks*threads
-// floats. shared_acc picks the shared-memory dtable accumulator (the
-// wrapper checks that the table fits). Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError().
+// come zeroed; scratch holds STATE_FLOATS*max_depth rows of blocks*THREADS
+// floats (threads must be THREADS). shared_acc picks the shared-memory
+// dtable accumulator (the wrapper checks that the table fits). next is a
+// zeroed counter from which each warp takes its next 32 pixels. Launches
+// on `stream`, does not synchronise, and returns cudaGetLastError().
 extern "C" int tracer_bwd(const float* table, int n, const float* camv, const int* idx,
                           const float* gfb, const float* tape, int tape_f, int want_tex,
                           int width, int npx, int spp, int max_depth, int row_offset,
                           unsigned int sample_start, int quirk, int rr_start, int shared_acc,
                           float* dtable, float* dcam, float* fb, float* gtex, float* scratch,
-                          int blocks, int threads, int scratch_rows, void* stream) {
-  if (scratch_rows < STATE_FLOATS * max_depth) return static_cast<int>(cudaErrorInvalidValue);
+                          int blocks, int threads, int scratch_rows, void* stream,
+                          int* next) {
+  if (scratch_rows < STATE_FLOATS * max_depth || threads != THREADS || next == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (shared_acc) {
-    const size_t bytes = sizeof(float) * (V_ROWS + (size_t)T_ROWS * n);
+    const size_t bytes = shared_bytes(1, n);
     cudaError_t e = cudaFuncSetAttribute(bwd_kernel<true>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     bwd_kernel<true><<<blocks, threads, bytes, st>>>(
         table, n, camv, idx, gfb, tape, tape_f, want_tex, width, npx, spp, max_depth,
-        row_offset, sample_start, quirk, rr_start, dtable, dcam, fb, gtex, scratch);
+        row_offset, sample_start, quirk, rr_start, dtable, dcam, fb, gtex, scratch, next);
   } else {
-    bwd_kernel<false><<<blocks, threads, sizeof(float) * V_ROWS, st>>>(
+    bwd_kernel<false><<<blocks, threads, shared_bytes(0, n), st>>>(
         table, n, camv, idx, gfb, tape, tape_f, want_tex, width, npx, spp, max_depth,
-        row_offset, sample_start, quirk, rr_start, dtable, dcam, fb, gtex, scratch);
+        row_offset, sample_start, quirk, rr_start, dtable, dcam, fb, gtex, scratch, next);
   }
   return static_cast<int>(cudaGetLastError());
 }

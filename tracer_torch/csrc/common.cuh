@@ -23,11 +23,17 @@ constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
 
 // Forward tables: must match tracer_torch/kernels/pack.py (a CPU test checks).
+// A sphere's and a plane's fields are one row each of an array-of-records
+// table, read as float4s: a sphere is one float4 (centre, radius), a plane
+// five (normal and d first: the test's early exits read only that one).
 enum SphereRow { S_CX, S_CY, S_CZ, S_RADIUS, S_ROWS };
 enum PlaneRow {
-  P_BX, P_BY, P_BZ, P_UX, P_UY, P_UZ, P_VX, P_VY, P_VZ,
-  P_NX, P_NY, P_NZ, P_WX, P_WY, P_WZ, P_D, P_PTYPE, P_ROWS
+  P_NX, P_NY, P_NZ, P_D, P_BX, P_BY, P_BZ, P_PTYPE, P_UX, P_UY, P_UZ, P_PAD0,
+  P_VX, P_VY, P_VZ, P_PAD1, P_WX, P_WY, P_WZ, P_PAD2, P_ROWS
 };
+constexpr int SPHERE_F4 = S_ROWS / 4;  // float4s per record
+constexpr int PLANE_F4 = P_ROWS / 4;
+static_assert(S_ROWS % 4 == 0 && P_ROWS % 4 == 0, "records are whole float4s");
 enum JoinRow {
   J_MTYPE, J_FUZZ, J_IR, J_ABS0, J_ABS1, J_ABS2, J_ALB0, J_ALB1, J_ALB2,
   J_EMI0, J_EMI1, J_EMI2, J_TEX_ID, J_ROWS

@@ -35,6 +35,9 @@ from tracer_torch.scene.types import Scene
 LAUNCHES = 0  # launches of the CUDA backward kernel since import (or since reset to 0)
 SHARED_BYTES_MAX = 200 * 1024  # a dtable up to this size accumulates in shared memory
 THREADS = 128
+# blocks an SM in the grid: None sizes it from the kernel's occupancy (one
+# wave of resident blocks); an int overrides it
+BLOCKS_PER_SM = None
 
 
 def pack_bwd_tables(scene: Scene) -> torch.Tensor:
@@ -232,9 +235,25 @@ def _fn():
     fn = nvcc.library("bwd").tracer_bwd
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_uint, i, i, i,
-                   p, p, p, p, p, i, i, i, p]
+                   p, p, p, p, p, i, i, i, p, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def blocks_per_sm(shared: bool, num_prims: int) -> int:
+    """Resident blocks an SM of the kernel variant with these arguments
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or BLOCKS_PER_SM."""
+    if BLOCKS_PER_SM is not None:
+        return BLOCKS_PER_SM
+    fn = nvcc.library("bwd").tracer_bwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(int(shared), num_prims, ctypes.byref(out))
+    if err != 0 or out.value < 1:
+        raise RuntimeError(f"backward kernel occupancy query failed: CUDA error {err}, "
+                           f"{out.value} blocks")
+    return out.value
 
 
 def scratch_floats_per_thread(max_depth: int) -> int:
@@ -252,7 +271,9 @@ def bwd_kernel(table, camv, idx2, g2, width: int, spp: int, max_depth: int, *,
 
     `dtable` accumulates per block in shared memory and is added to the
     output with one atomicAdd per entry; a table above SHARED_BYTES_MAX
-    (about 1700 primitives) takes the kernel's global-atomic variant."""
+    (about 1700 primitives) takes the kernel's global-atomic variant. The
+    grid is one wave of the blocks the card holds at once (`blocks_per_sm`
+    on every SM), whose warps take their next 32 pixels from a counter."""
     dev = table.device
     rows, n = idx2.shape
     trows, num_prims = table.shape
@@ -289,19 +310,20 @@ def bwd_kernel(table, camv, idx2, g2, width: int, spp: int, max_depth: int, *,
     fb = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     gtex = (torch.zeros((3 * rows, n), dtype=torch.float32, device=dev)
             if want_texgrad else None)
-    props = torch.cuda.get_device_properties(dev)
-    blocks = max(1, min(-(-n // THREADS), props.multi_processor_count * 8))
+    shared = table.numel() * 4 <= SHARED_BYTES_MAX
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, min(-(-n // THREADS), sms * blocks_per_sm(shared, num_prims)))
     scratch = torch.empty((scratch_floats_per_thread(max_depth), blocks * THREADS),
                           dtype=torch.float32, device=dev)
-    shared = table.numel() * 4 <= SHARED_BYTES_MAX
     stream = torch.cuda.current_stream(dev).cuda_stream
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the warps' pixel counter
     err = _fn()(table.data_ptr(), num_prims, camv.data_ptr(), idx2.data_ptr(), g2.data_ptr(),
                 None if t2 is None else t2.data_ptr(), tape_f, int(want_texgrad), width, n,
                 spp, max_depth, row_offset, sample_start, int(reference_quirk),
                 -1 if rr_start is None else rr_start, int(shared),
                 dtable.data_ptr(), dcam.data_ptr(), fb.data_ptr(),
                 None if gtex is None else gtex.data_ptr(), scratch.data_ptr(), blocks,
-                THREADS, scratch.shape[0], stream)
+                THREADS, scratch.shape[0], stream, nxt.data_ptr())
     if err != 0:
         raise RuntimeError(f"backward kernel launch failed: CUDA error {err}")
     global LAUNCHES

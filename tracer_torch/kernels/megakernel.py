@@ -23,6 +23,17 @@ render_frame_pallas_record), whose plain version is
 `tracer_torch.render.renderer.render_frame_record`: the same frame plus
 the winner-index and texture tapes the backward kernel replays.
 
+`loop_work` and `cluster_work` launch the counted instantiation of the
+same kernels and return the launch's work (nearest-hit queries, hits, warp
+passes and active lanes; cluster visits and primitive tests); the plain
+query count is `tracer_torch.render.renderer.query_count`.
+
+The scene's sphere and plane records (kernels/pack.py) are staged in
+shared memory when they take at most `TABLE_SHARED_BYTES_MAX` bytes (the
+canonical scene, about 10 KB); a larger scene, such as the 2000-sphere
+field (32 KB), takes the kernel's variant that reads them from global
+memory.
+
 The kernels are compiled at first use by `nvcc` (tracer_torch.kernels.
 nvcc) into shared libraries with plain C entry points, loaded with ctypes.
 `LAUNCHES`, `LAUNCHES_RECORD` and `LAUNCHES_CLUSTERED` count the three
@@ -32,6 +43,7 @@ kernels' launches, so a run can show that its main path went through them.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -43,6 +55,26 @@ from tracer_torch.render import integrator, renderer
 LAUNCHES = 0  # launches of the forward kernel since import (or since reset to 0)
 LAUNCHES_RECORD = 0  # launches of the record-mode kernel
 LAUNCHES_CLUSTERED = 0  # launches of the cluster-culled kernel
+# scene records up to this many bytes are staged in shared memory: on the
+# H100 that was faster for the canonical scene (10 KB) and slower for the
+# 2000-sphere field (32 KB, fewer resident blocks); PERF.md has the times
+TABLE_SHARED_BYTES_MAX = 16 * 1024
+# the counted instantiation's counters (COUNTS in csrc/megakernel.cu)
+COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes")
+MODE_RENDER, MODE_RECORD, MODE_CLUSTERED = 0, 1, 2
+
+
+class LoopWork(NamedTuple):
+    """One launch's bounce-loop work, counted by the kernel."""
+    queries: int  # nearest-hit queries (one per pass of a lane)
+    hits: int  # queries that hit a primitive
+    passes: int  # warp passes: loop passes, each counted once per warp
+    active_lanes: int  # the active lanes of those passes, summed
+
+    @property
+    def lane_utilisation(self) -> float:
+        """Active lanes per warp pass over the warp's 32."""
+        return self.active_lanes / (32 * self.passes) if self.passes else 0.0
 
 
 def library_path():
@@ -54,16 +86,13 @@ def build() -> nvcc.Build:
     return nvcc.build_all()["megakernel"]
 
 
-def _fns():
-    lib = build().lib
+def _fn():
+    fn = build().lib.tracer_megakernel_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    common = [p, i, p, i, p, p, i, i, p, p, i, i, i, i, ctypes.c_uint, i, i]
-    fns = lib.tracer_megakernel_render, lib.tracer_megakernel_record, \
-        lib.tracer_megakernel_render_clustered
-    for fn, extra in zip(fns, ([p], [p, p, i, p], [p, p, i, i, p, p])):
-        fn.argtypes = common + extra
-        fn.restype = i
-    return fns
+    fn.argtypes = [i, p, i, p, i, p, p, i, i, p, p, i, i, i, i, ctypes.c_uint, i, i, p, p, i,
+                   p, p, i, i, i, p, p]
+    fn.restype = i
+    return fn
 
 
 def _check(name, t, device, shape=None):
@@ -106,17 +135,28 @@ def _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start):
     return device, tex
 
 
-def _args(scene, cam, tex, out, width, height, spp, max_depth, sample_start, reference_quirk,
-          rr_start):
+def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_start,
+            reference_quirk, rr_start, idx=None, ttape=None, tape_f=0, tables=None,
+            counts=None):
+    """Pack the scene and camera and launch `mode` on the current stream."""
     packed = pack_mod.pack_scene(scene)
     cam_t = pack_mod.pack_camera(cam)
     th, tw = (0, 0) if tex is None else (int(tex.shape[0]), int(tex.shape[1]))
-    # the caller holds the packed tensors until the launch is enqueued
-    keep = (packed, cam_t)
-    return keep, [packed.sph.data_ptr(), packed.num_s, packed.pla.data_ptr(), packed.num_p,
-                  packed.join.data_ptr(), tex.data_ptr() if tex is not None else None, th, tw,
-                  cam_t.data_ptr(), out.data_ptr(), width, height, spp, max_depth,
-                  sample_start, int(reference_quirk), -1 if rr_start is None else rr_start]
+    table_bytes = 4 * (packed.sph.numel() + packed.pla.numel())
+    ptr = lambda t: None if t is None else t.data_ptr()
+    if counts is not None and (counts.dtype != torch.int64 or counts.numel() < len(COUNT_NAMES)):
+        raise ValueError(f"counts must be {len(COUNT_NAMES)} int64 counters")
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    # the packed tensors live until the call returns, after the launch is enqueued
+    return _fn()(mode, ptr(packed.sph), packed.num_s, ptr(packed.pla), packed.num_p,
+                 ptr(packed.join), ptr(tex), th, tw, ptr(cam_t), ptr(out), width, height, spp,
+                 max_depth, sample_start, int(reference_quirk),
+                 -1 if rr_start is None else rr_start, ptr(idx), ptr(ttape), tape_f,
+                 None if tables is None else ptr(tables.boxes),
+                 None if tables is None else ptr(tables.slots),
+                 0 if tables is None else tables.num_clusters,
+                 0 if tables is None else tables.k, int(table_bytes <= TABLE_SHARED_BYTES_MAX),
+                 ptr(counts), stream)
 
 
 def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth: int,
@@ -140,11 +180,16 @@ def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth
     if cluster_mod.check_k(cluster_k):
         return _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk,
                                  rr_start, sample_start, cluster_k, None)
+    return _render(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
+                   sample_start, None)
+
+
+def _render(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start,
+            counts):
     device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    _keep, args = _args(scene, cam, tex, out, width, height, spp, max_depth, sample_start,
-                        reference_quirk, rr_start)
-    err = _fns()[0](*args, torch.cuda.current_stream(device).cuda_stream)
+    err = _launch(MODE_RENDER, scene, cam, tex, out, width, height, spp, max_depth,
+                  sample_start, reference_quirk, rr_start, counts=counts)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     global LAUNCHES
@@ -157,11 +202,8 @@ def _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk
     device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
     tables = cluster_mod.pack_clustered(scene, cluster_k)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    _keep, args = _args(scene, cam, tex, out, width, height, spp, max_depth, sample_start,
-                        reference_quirk, rr_start)
-    err = _fns()[2](*args, tables.boxes.data_ptr(), tables.slots.data_ptr(),
-                    tables.num_clusters, tables.k, None if counts is None else counts.data_ptr(),
-                    torch.cuda.current_stream(device).cuda_stream)
+    err = _launch(MODE_CLUSTERED, scene, cam, tex, out, width, height, spp, max_depth,
+                  sample_start, reference_quirk, rr_start, tables=tables, counts=counts)
     if err != 0:
         raise RuntimeError(f"clustered megakernel launch failed: CUDA error {err}")
     global LAUNCHES_CLUSTERED
@@ -169,19 +211,49 @@ def _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk
     return out
 
 
+def _counted(launch, scene):
+    if scene.device.type != "cuda":
+        raise ValueError("the work is counted inside the CUDA kernel: the scene must be on CUDA")
+    counts = torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=scene.device)
+    launch(counts)
+    return dict(zip(COUNT_NAMES, (int(c) for c in counts.tolist())))
+
+
 def cluster_work(scene, cam, width: int, height: int, spp: int, max_depth: int, cluster_k: int,
                  reference_quirk: bool = True, rr_start=None, sample_start: int = 0):
     """The work of one cluster-culled launch with these arguments, counted
     by the kernel: (nearest-hit queries, clusters visited, primitives
     tested), as Python ints. CUDA scenes only; synchronises."""
-    if scene.device.type != "cuda":
-        raise ValueError("cluster_work counts inside the CUDA kernel: the scene must be on CUDA")
     if not cluster_mod.check_k(cluster_k):
         raise ValueError("cluster_work needs cluster_k >= 1")
-    counts = torch.zeros(3, dtype=torch.int64, device=scene.device)
-    _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
-                      sample_start, cluster_k, counts)
-    return tuple(int(c) for c in counts.tolist())
+    c = _counted(lambda counts: _render_clustered(
+        scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start,
+        cluster_k, counts), scene)
+    return c["queries"], c["visits"], c["tests"]
+
+
+def loop_work(scene, cam, width: int, height: int, spp: int, max_depth: int,
+              reference_quirk: bool = True, rr_start=None, sample_start: int = 0,
+              cluster_k: int = 0, record: bool = False) -> LoopWork:
+    """The bounce-loop work of one launch of K1 (or K1-cl with `cluster_k`
+    > 0, or K1-rec with `record`) with these arguments, counted by the
+    kernel's counted instantiation: the counterpart of the TPU kernel's
+    `debug_iters`. CUDA scenes only; synchronises. Its plain counterpart
+    for the queries is `renderer.query_count`."""
+    if record and cluster_mod.check_k(cluster_k):
+        raise ValueError("the record kernel is brute force only: cluster_k must be 0")
+    if record:
+        launch = lambda counts: _record(scene, cam, width, height, spp, max_depth,
+                                        reference_quirk, rr_start, sample_start, 9, counts)
+    elif cluster_mod.check_k(cluster_k):
+        launch = lambda counts: _render_clustered(scene, cam, width, height, spp, max_depth,
+                                                  reference_quirk, rr_start, sample_start,
+                                                  cluster_k, counts)
+    else:
+        launch = lambda counts: _render(scene, cam, width, height, spp, max_depth,
+                                        reference_quirk, rr_start, sample_start, counts)
+    c = _counted(launch, scene)
+    return LoopWork(c["queries"], c["hits"], c["passes"], c["active_lanes"])
 
 
 def tape_bytes(width: int, height: int, spp: int, max_depth: int, tape_fields: int,
@@ -208,6 +280,12 @@ def render_frame_kernel_record(scene, cam, width: int, height: int, spp: int, ma
                                             tape_fields=tape_fields)
     if scene.device.type != "cuda":
         raise ValueError(f"render_frame_kernel_record: no kernel for device {scene.device}")
+    return _record(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
+                   sample_start, tape_fields, None)
+
+
+def _record(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start,
+            tape_fields, counts):
     if tape_fields not in integrator.TAPE_FIELDS:
         raise ValueError(f"tape_fields must be one of {integrator.TAPE_FIELDS}, got {tape_fields}")
     device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
@@ -223,11 +301,9 @@ def render_frame_kernel_record(scene, cam, width: int, height: int, spp: int, ma
     if tex is not None:
         neutral = torch.tensor(integrator.TAPE_NEUTRAL[:tape_fields], device=device)
         ttape = neutral[:, None, None, None].expand(tape_fields, spp, max_depth, npx).contiguous()
-    _keep, args = _args(scene, cam, tex, out, width, height, spp, max_depth, sample_start,
-                        reference_quirk, rr_start)
-    err = _fns()[1](*args, idx.data_ptr(), None if ttape is None else ttape.data_ptr(),
-                    tape_fields if ttape is not None else 0,
-                    torch.cuda.current_stream(device).cuda_stream)
+    err = _launch(MODE_RECORD, scene, cam, tex, out, width, height, spp, max_depth,
+                  sample_start, reference_quirk, rr_start, idx=idx, ttape=ttape,
+                  tape_f=tape_fields if ttape is not None else 0, counts=counts)
     if err != 0:
         raise RuntimeError(f"record kernel launch failed: CUDA error {err}")
     global LAUNCHES_RECORD

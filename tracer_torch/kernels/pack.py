@@ -1,18 +1,21 @@
 """Scene packing for the CUDA megakernel (port of
 tracer/pallas/kernel_lib.py:pack_scene).
 
-Flat struct-of-arrays float32 tables, one row per field and one column per
-primitive, on the scene's device:
+Float32 tables on the scene's device. The nearest-hit loop reads each
+sphere and plane as one row of an array-of-records table of whole float4s
+(16-byte aligned), the shading reads its winner's materials from a
+struct-of-arrays table:
 
-  sph  [len(SPHERE_ROWS), S]  sphere center and radius
-  pla  [len(PLANE_ROWS), P]   plane base, u, v, normal, w, d and type
+  sph  [S, len(SPHERE_ROWS)]  sphere center and radius: one float4
+  pla  [P, len(PLANE_ROWS)]   plane normal and d, base and type, u, v, w,
+                              each a float4 padded with 0: five float4s
   join [len(JOIN_ROWS), S+P]  each primitive's material (spheres first)
 
 The kernel keeps the direct plane and sphere fields, so the bf16 hi/lo
 split rows and the precombined projection tables of the TPU packing (which
-exist for its matrix unit) have no counterpart. The row order is part of
-the kernel's interface: `csrc/common.cuh` declares the same rows in its
-`SphereRow`, `PlaneRow`, `JoinRow` and `CameraRow` enums.
+exist for its matrix unit) have no counterpart. The field order is part
+of the kernel's interface: `csrc/common.cuh` declares the same fields in
+its `SphereRow`, `PlaneRow`, `JoinRow` and `CameraRow` enums.
 
 The backward kernel reads one combined table instead (`BWD_ROWS`, built
 differentiably by tracer_torch.kernels.bwd.pack_bwd_tables): the join rows
@@ -32,8 +35,8 @@ import torch
 from tracer_torch.scene.types import Scene
 
 SPHERE_ROWS = ("cx", "cy", "cz", "radius")
-PLANE_ROWS = ("bx", "by", "bz", "ux", "uy", "uz", "vx", "vy", "vz",
-              "nx", "ny", "nz", "wx", "wy", "wz", "d", "ptype")
+PLANE_ROWS = ("nx", "ny", "nz", "d", "bx", "by", "bz", "ptype", "ux", "uy", "uz", "pad0",
+              "vx", "vy", "vz", "pad1", "wx", "wy", "wz", "pad2")
 JOIN_ROWS = ("mtype", "fuzz", "ir", "abs0", "abs1", "abs2", "alb0", "alb1", "alb2",
              "emi0", "emi1", "emi2", "tex_id")
 CAMERA_ROWS = ("ox", "oy", "oz", "p00x", "p00y", "p00z", "dux", "duy", "duz",
@@ -64,12 +67,18 @@ def _rows(*cols):
     return torch.stack([c.to(torch.float32) for c in cols]).contiguous()
 
 
+def _records(*cols):
+    """[N, len(cols)] float32 records, one column per field."""
+    return torch.stack([c.to(torch.float32) for c in cols], dim=1).contiguous()
+
+
 def pack_scene(scene: Scene) -> PackedScene:
     """The kernel's tables for `scene`, on the scene's device."""
     sp, pl, mats = scene.spheres, scene.planes, scene.materials
-    sph = _rows(sp.center[:, 0], sp.center[:, 1], sp.center[:, 2], sp.radius)
-    pla = _rows(*pl.base.unbind(1), *pl.u.unbind(1), *pl.v.unbind(1),
-                *pl.normal.unbind(1), *pl.w.unbind(1), pl.d, pl.ptype)
+    sph = _records(*sp.center.unbind(1), sp.radius)
+    pad = torch.zeros_like(pl.d)
+    pla = _records(*pl.normal.unbind(1), pl.d, *pl.base.unbind(1), pl.ptype,
+                   *pl.u.unbind(1), pad, *pl.v.unbind(1), pad, *pl.w.unbind(1), pad)
     midx = torch.cat([sp.material_idx, pl.material_idx]).long()
     join = _rows(mats.mtype[midx], mats.fuzz[midx], mats.ir[midx],
                  *mats.absorption[midx].unbind(1), *mats.albedo[midx].unbind(1),

@@ -94,20 +94,24 @@ def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields
 
 
 def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_start=None,
-          tape_fields=None, clusters=None):
+          tape_fields=None, clusters=None, queries=None):
     """Radiance `[R, 3]` for a batch of rays; `seed` is `[R]` int64 holding
     uint32, already advanced past ray generation. `clusters` (the scene's
     kernels.cluster.ClusterTables, or None for brute force) selects the
     cluster-culled nearest hit. Returns (final, seed), or
     with `tape_fields` (9 or 13; ignored for an untextured scene) (final,
     seed, slots): one (winner `[R]` int32, texture fields `[R, F]` or None)
-    per bounce executed."""
+    per bounce executed. `queries`, a list, receives per bounce executed the
+    count (a 0-d tensor) of rays alive at its start: its nearest-hit
+    queries."""
     beta = torch.ones_like(origin)
     final = torch.zeros_like(origin)
     alive = torch.ones(origin.shape[0], dtype=torch.bool, device=origin.device)
     carry = (origin, direction, beta, final, seed, alive)
     slots = []
     for depth in range(max_depth):
+        if queries is not None:
+            queries.append(carry[-1].sum())
         if tape_fields is None:
             carry = _bounce(scene, background, carry, rr_start=rr_start, depth=depth,
                             clusters=clusters)

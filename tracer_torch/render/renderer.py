@@ -23,7 +23,7 @@ DEFAULT_CHUNK = 16384
 def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base_seed,
                   spp: int, max_depth: int, chunk: int = DEFAULT_CHUNK,
                   sample_start: int = 0, rr_start=None, tape_fields=None,
-                  cluster_k: int = 0):
+                  cluster_k: int = 0, queries=None):
     """Raw sample sums `[N, 3]` for a flat list of pixels.
 
     i_flat/j_flat: `[N]` pixel column/row; base_seed: `[N]` per-pixel seed
@@ -38,6 +38,9 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
     miss or a bounce the path never reached, tex `[spp, max_depth, N, F]`
     or None for an untextured scene); unvisited texture slots hold the
     neutral values (multipliers 1, every other field 0).
+
+    `queries`, a list, receives the nearest-hit query counts of every
+    bounce (see `integrator.trace`).
     """
     n, dev = i_flat.shape[0], i_flat.device
     clusters = None
@@ -65,7 +68,7 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
             seed, origin, direction = camera_mod.get_rays(cam, i, j, seed)
             res = integrator.trace(scene, cam.background, origin, direction, seed, max_depth,
                                    rr_start=rr_start, tape_fields=tape_fields,
-                                   clusters=clusters)
+                                   clusters=clusters, queries=queries)
             for d, (w, t) in enumerate(res[2] if idx is not None else ()):
                 idx[s, d, c0:c1] = w
                 if tex is not None:
@@ -102,6 +105,20 @@ def render_frame(scene: Scene, cam: camera_mod.CameraData, width: int, height: i
     fb = render_pixels(scene, cam, i_flat, j_flat, base_seed, spp, max_depth,
                        sample_start=sample_start, rr_start=rr_start, cluster_k=cluster_k)
     return fb.reshape(height, width, 3)
+
+
+def query_count(scene: Scene, cam: camera_mod.CameraData, width: int, height: int, spp: int,
+                max_depth: int, reference_quirk: bool = True, rr_start=None,
+                sample_start: int = 0, cluster_k: int = 0) -> int:
+    """The nearest-hit queries of `render_frame` with these arguments: one
+    per bounce a path starts, its miss included. The plain count beside the
+    kernels' counted instantiation (`kernels.megakernel.loop_work`)."""
+    i_flat, j_flat, base_seed = pixel_grid(width, height, reference_quirk, scene.device)
+    queries = []
+    render_pixels(scene, cam, i_flat, j_flat, base_seed, spp, max_depth,
+                  sample_start=sample_start, rr_start=rr_start, cluster_k=cluster_k,
+                  queries=queries)
+    return int(torch.stack(queries).sum())
 
 
 def total_rays(width: int, height: int, sqrt_spp: int) -> int:
