@@ -70,10 +70,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      1e-3;
    - their times beside K1's (depth 8), the plain versions' and one
      index_add_ of the pre-weighted corners, and the fwd+bwd rate of one
-     render_frame_diff step; K1's and K1-rec's lane utilisation; K2 with
-     its one wave of resident blocks and with SMs x 8 blocks (the grid
-     before the occupancy sizing); the mean number of distinct winners
-     per group of 32 neighbouring pixels and tape row;
+     render_frame_diff step; K1's and K1-rec's lane utilisation; K2's
+     grid (one wave of resident blocks); the mean number of distinct
+     winners per group of 32 neighbouring pixels and tape row;
    - each kernel's bound (the larger of its FP32 operations over 67
      TFLOP/s and its bytes over 3.35 TB/s, counting the queries the
      counted instantiation saw and the slots this run's tapes hold).
@@ -85,8 +84,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      its bound there (the larger of FP32 operations over 67 TFLOP/s and
      bytes over 3.35 TB/s: per nearest-hit query one slab test per
      cluster, plus the primitive tests of the visited clusters, both
-     counted by the kernel's counted instantiation in one launch, which is
-     also timed beside the uncounted one);
+     counted by the kernel's counted instantiation (megakernel.loop_work)
+     in one launch, which is also timed beside the uncounted one);
    - the main path of this phase: render_frame_kernel(cluster_k=16) at
      800x600, spp 8, depth 20 on camera path frames 1-3 (bench.py's
      2000-sphere line), each frame against K1's on the same inputs by
@@ -333,8 +332,8 @@ def clustered_phase(dev, kind, card, cams, W, H, PSPP):
     if not compare(f"K1-cl vs plain, {W}x{H} spp{PSPP} d{CD} camera frame 1", got,
                    plain.pop("cl"), cl_errs):
         return "cluster-culled kernel and plain version disagree", None
-    queries, visits, tested = mk.cluster_work(field, cams[1], W, H, PSPP, CD, CK)
-    hits = mk.loop_work(field, cams[1], W, H, PSPP, CD, cluster_k=CK).hits
+    work = mk.loop_work(field, cams[1], W, H, PSPP, CD, cluster_k=CK)
+    queries, visits, tested, hits = work.queries, work.visits, work.tests, work.hits
     counts = torch.zeros(len(mk.COUNT_NAMES), dtype=torch.int64, device=dev)
     cnt_ms = cuda_ms(lambda: mk._render_clustered(field, cams[1], W, H, PSPP, CD, True, None, 0,
                                                   CK, counts), reps=3)
@@ -802,9 +801,6 @@ def main() -> int:
     bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2)
     bwd_ms = cuda_ms(lambda: bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2), reps=3)
     per_sm = bwd.blocks_per_sm(True, table.shape[1])
-    bwd.BLOCKS_PER_SM = 8  # the grid of SMs x 8 blocks, as before the occupancy sizing
-    bwd_ms8 = cuda_ms(lambda: bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2), reps=3)
-    bwd.BLOCKS_PER_SM = None
     distinct, hit_lanes = winners_per_group(idx2)
     got = bwd.bwd_kernel(table, camv, idx2, g2, GW, GSPP, GD, t2=t2)
     pbwd_ms = cuda_ms(lambda: plain.update(
@@ -817,14 +813,13 @@ def main() -> int:
     del out, idx2, t2, got
     fwd_work = mk.loop_work(canon, cam_g, GW, GH, GSPP, GD)
     rec_work = mk.loop_work(canon, cam_g, GW, GH, GSPP, GD, record=True)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"    K1 forward {fwd_ms:.3f} ms (lane utilisation {fwd_work.lane_utilisation:.4f}); "
           f"K1-rec {rec_ms:.3f} ms (tapes {tape_b} bytes, {rec_work.queries} nearest-hit "
           f"queries, {rec_work.hits} hits = {hits_g} tape hit slots, {miss_g} primary misses; "
           f"lane utilisation {rec_work.lane_utilisation:.4f}), K1-rec - K1 "
           f"{rec_ms - fwd_ms:.3f} ms; plain record {prec_ms:.3f} ms", flush=True)
     print(f"    K2 {bwd_ms:.3f} ms with one wave of {per_sm} resident blocks an SM "
-          f"({sms * per_sm} blocks), {bwd_ms8:.3f} ms with {sms} x 8 blocks; plain replay "
+          f"({bwd.grid_blocks(GW * GH, True, table.shape[1], dev)} blocks); plain replay "
           f"{pbwd_ms:.3f} ms; "
           f"distinct winners per 32-pixel group and tape row {distinct:.4f}, among "
           f"{hit_lanes:.4f} lanes that hit (groups with a hit)", flush=True)

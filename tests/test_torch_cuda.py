@@ -129,13 +129,14 @@ def test_cluster_work_counts_the_plain_visits(dev):
     from tracer_torch.render import hit
 
     scene, cam = _clustered_case("big300", dev)
-    queries, visits, tests = megakernel.cluster_work(scene, cam, 64, 48, 1, 1, 16)
+    work = megakernel.loop_work(scene, cam, 64, 48, 1, 1, cluster_k=16)
     i, j, seeds = renderer.pixel_grid(64, 48, device=dev)
     _, o, d = camera.get_rays(cam, i, j, rng.sample_seed(seeds, 0))
     tables = cluster.pack_clustered(scene, 16)
     vis = hit.cluster_visibility(tables, o, d)
     filled = (tables.slots.reshape(tables.num_clusters, -1) >= 0).sum(dim=1)
-    assert (queries, visits, tests) == (64 * 48, int(vis.sum()), int((vis * filled).sum()))
+    assert (work.queries, work.visits, work.tests) == (64 * 48, int(vis.sum()),
+                                                       int((vis * filled).sum()))
 
 
 def test_counted_instantiation_renders_the_same_frame(dev):
@@ -380,26 +381,15 @@ def test_backward_kernel_groups_lanes_by_winner(dev, name):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), leaf
 
 
-def test_backward_kernel_grid_size_leaves_the_cotangents(dev, monkeypatch):
-    """The warps take their pixels from a counter, so one wave of resident
-    blocks and a grid of SMs x 8 blocks give the same cotangents."""
-    scene = full_scene(dev)
-    cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 40, 30, 55.0,
-                                   background=SKY, device=dev)
-    out = megakernel.render_frame_kernel_record(scene, cam, 40, 30, 2, 5, tape_fields=9)
-    table, camv = bwd.pack_tables(scene, cam)
-    idx2, t2 = out[1].reshape(10, -1), bwd._field_major(out[2], 2, 5, 1200)
-    g2 = torch.randn((1200, 3), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
-    wave = bwd.bwd_kernel(table, camv, idx2, g2, 40, 2, 5, t2=t2)
-    monkeypatch.setattr(bwd, "BLOCKS_PER_SM", 8)
-    more = bwd.bwd_kernel(table, camv, idx2, g2, 40, 2, 5, t2=t2)
-    for a, b in zip(more[:3], wave[:3]):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
-
-
 def test_backward_grid_is_one_wave_of_resident_blocks(dev):
+    """The register budget (__launch_bounds__(128, 4)) keeps 4 blocks an SM
+    resident; the grid is that wave on every SM, or a block for each 128
+    pixels of a smaller band."""
     scene = full_scene(dev)
     table, _ = bwd.pack_tables(scene, camera.build_camera_data(
         [5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 8, 8, 55.0, device=dev))
     per_sm = bwd.blocks_per_sm(True, table.shape[1])
-    assert 1 <= per_sm <= 2048 // bwd.THREADS
+    assert 4 <= per_sm <= 2048 // bwd.THREADS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert bwd.grid_blocks(1200, True, table.shape[1], dev) == 10
+    assert bwd.grid_blocks(800 * 600, True, table.shape[1], dev) == sms * per_sm

@@ -53,11 +53,10 @@
 // forward recompute plus adjoint is a few hundred FP32 operations per
 // reached bounce; in practice latency: each bounce's loads wait on its
 // winner index, and few warps are resident. __launch_bounds__ caps the
-// registers for BWD_MIN_BLOCKS resident blocks an SM (128 registers, with
-// spills), the fastest of 3, 4 and 5 blocks on the H100. Per-lane atomics
-// into the winner's column serialise where lanes share the winner.
-// Warps diverge on path length and material, as the forward kernel's did
-// before it regenerated paths.
+// registers for MIN_BLOCKS resident blocks an SM (128 registers, with
+// spills), the fastest of 3, 4 and 5 blocks on the H100. Warps diverge on
+// path length and material, as the forward kernel's did before it
+// regenerated paths.
 //
 // Float semantics: IEEE division and sqrtf, and no FMA contraction (the
 // build passes -fmad=false for this file): the replay then rounds as its
@@ -76,12 +75,7 @@ namespace {
 
 constexpr int STATE_FLOATS = 10;  // o, d, beta, seed per bounce in the scratch
 constexpr int THREADS = 128;
-#ifndef BWD_MIN_BLOCKS
-#define BWD_MIN_BLOCKS 4  // resident blocks an SM the register budget allows
-#endif
-#ifndef BWD_GROUP_LANES
-#define BWD_GROUP_LANES 1  // 0: every lane adds its own column (for timing the grouping)
-#endif
+constexpr int MIN_BLOCKS = 4;  // resident blocks an SM the register budget allows
 
 // d max(a, b) / d a, with jnp.maximum's and torch.maximum's tie rule
 __device__ __forceinline__ float dmax(float a, float b) {
@@ -121,7 +115,7 @@ __device__ __forceinline__ void add_column(float* acc, int n, int w, const int (
                                            float (&v)[COLUMN_ROWS]) {
   const unsigned m = __activemask();
   const int lane = threadIdx.x & 31;
-  const unsigned peers = BWD_GROUP_LANES ? __match_any_sync(m, w) : 1u << lane;
+  const unsigned peers = __match_any_sync(m, w);
   int rel = __popc(peers & ((1u << lane) - 1u));  // position among the peers
   const bool lowest = rel == 0;
   unsigned above = peers & ~((2u << lane) - 1u);  // the peers above this lane
@@ -603,7 +597,7 @@ __device__ void bwd_pixel(const float* __restrict__ table, int n, const float* c
 }
 
 template <bool SHARED_ACC>
-__global__ void __launch_bounds__(THREADS, BWD_MIN_BLOCKS) bwd_kernel(
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) bwd_kernel(
     const float* __restrict__ table, int n, const float* __restrict__ camv,
     const int* __restrict__ idx, const float* __restrict__ gfb,
     const float* __restrict__ tape, int tape_f, int want_tex, int width, int npx, int spp,

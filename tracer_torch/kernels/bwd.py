@@ -22,6 +22,7 @@ backward kernel's launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,9 +36,6 @@ from tracer_torch.scene.types import Scene
 LAUNCHES = 0  # launches of the CUDA backward kernel since import (or since reset to 0)
 SHARED_BYTES_MAX = 200 * 1024  # a dtable up to this size accumulates in shared memory
 THREADS = 128
-# blocks an SM in the grid: None sizes it from the kernel's occupancy (one
-# wave of resident blocks); an int overrides it
-BLOCKS_PER_SM = None
 
 
 def pack_bwd_tables(scene: Scene) -> torch.Tensor:
@@ -240,11 +238,11 @@ def _fn():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
 def blocks_per_sm(shared: bool, num_prims: int) -> int:
     """Resident blocks an SM of the kernel variant with these arguments
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or BLOCKS_PER_SM."""
-    if BLOCKS_PER_SM is not None:
-        return BLOCKS_PER_SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), queried once per
+    variant and table width."""
     fn = nvcc.library("bwd").tracer_bwd_occupancy
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -254,6 +252,13 @@ def blocks_per_sm(shared: bool, num_prims: int) -> int:
         raise RuntimeError(f"backward kernel occupancy query failed: CUDA error {err}, "
                            f"{out.value} blocks")
     return out.value
+
+
+def grid_blocks(num_pixels: int, shared: bool, num_prims: int, device) -> int:
+    """The launch's blocks: one wave of resident blocks on every SM, or
+    one block for each THREADS pixels of a smaller band."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-num_pixels // THREADS), sms * blocks_per_sm(shared, num_prims)))
 
 
 def scratch_floats_per_thread(max_depth: int) -> int:
@@ -272,8 +277,8 @@ def bwd_kernel(table, camv, idx2, g2, width: int, spp: int, max_depth: int, *,
     `dtable` accumulates per block in shared memory and is added to the
     output with one atomicAdd per entry; a table above SHARED_BYTES_MAX
     (about 1700 primitives) takes the kernel's global-atomic variant. The
-    grid is one wave of the blocks the card holds at once (`blocks_per_sm`
-    on every SM), whose warps take their next 32 pixels from a counter."""
+    grid is one wave of the blocks the card holds at once (`grid_blocks`),
+    whose warps take their next 32 pixels from a counter."""
     dev = table.device
     rows, n = idx2.shape
     trows, num_prims = table.shape
@@ -311,8 +316,7 @@ def bwd_kernel(table, camv, idx2, g2, width: int, spp: int, max_depth: int, *,
     gtex = (torch.zeros((3 * rows, n), dtype=torch.float32, device=dev)
             if want_texgrad else None)
     shared = table.numel() * 4 <= SHARED_BYTES_MAX
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-n // THREADS), sms * blocks_per_sm(shared, num_prims)))
+    blocks = grid_blocks(n, shared, num_prims, dev)
     scratch = torch.empty((scratch_floats_per_thread(max_depth), blocks * THREADS),
                           dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -23,9 +23,9 @@ render_frame_pallas_record), whose plain version is
 `tracer_torch.render.renderer.render_frame_record`: the same frame plus
 the winner-index and texture tapes the backward kernel replays.
 
-`loop_work` and `cluster_work` launch the counted instantiation of the
-same kernels and return the launch's work (nearest-hit queries, hits, warp
-passes and active lanes; cluster visits and primitive tests); the plain
+`loop_work` launches the counted instantiation of the same kernels and
+returns the launch's work (nearest-hit queries, hits, warp passes and
+active lanes, and K1-cl's cluster visits and primitive tests); the plain
 query count is `tracer_torch.render.renderer.query_count`.
 
 The scene's sphere and plane records (kernels/pack.py) are staged in
@@ -68,6 +68,8 @@ class LoopWork(NamedTuple):
     """One launch's bounce-loop work, counted by the kernel."""
     queries: int  # nearest-hit queries (one per pass of a lane)
     hits: int  # queries that hit a primitive
+    visits: int  # K1-cl: clusters whose box a query's ray may hit (0 for K1, K1-rec)
+    tests: int  # K1-cl: primitives tested in those clusters (0 for K1, K1-rec)
     passes: int  # warp passes: loop passes, each counted once per warp
     active_lanes: int  # the active lanes of those passes, summed
 
@@ -211,27 +213,6 @@ def _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk
     return out
 
 
-def _counted(launch, scene):
-    if scene.device.type != "cuda":
-        raise ValueError("the work is counted inside the CUDA kernel: the scene must be on CUDA")
-    counts = torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=scene.device)
-    launch(counts)
-    return dict(zip(COUNT_NAMES, (int(c) for c in counts.tolist())))
-
-
-def cluster_work(scene, cam, width: int, height: int, spp: int, max_depth: int, cluster_k: int,
-                 reference_quirk: bool = True, rr_start=None, sample_start: int = 0):
-    """The work of one cluster-culled launch with these arguments, counted
-    by the kernel: (nearest-hit queries, clusters visited, primitives
-    tested), as Python ints. CUDA scenes only; synchronises."""
-    if not cluster_mod.check_k(cluster_k):
-        raise ValueError("cluster_work needs cluster_k >= 1")
-    c = _counted(lambda counts: _render_clustered(
-        scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start,
-        cluster_k, counts), scene)
-    return c["queries"], c["visits"], c["tests"]
-
-
 def loop_work(scene, cam, width: int, height: int, spp: int, max_depth: int,
               reference_quirk: bool = True, rr_start=None, sample_start: int = 0,
               cluster_k: int = 0, record: bool = False) -> LoopWork:
@@ -240,6 +221,8 @@ def loop_work(scene, cam, width: int, height: int, spp: int, max_depth: int,
     kernel's counted instantiation: the counterpart of the TPU kernel's
     `debug_iters`. CUDA scenes only; synchronises. Its plain counterpart
     for the queries is `renderer.query_count`."""
+    if scene.device.type != "cuda":
+        raise ValueError("the work is counted inside the CUDA kernel: the scene must be on CUDA")
     if record and cluster_mod.check_k(cluster_k):
         raise ValueError("the record kernel is brute force only: cluster_k must be 0")
     if record:
@@ -252,8 +235,9 @@ def loop_work(scene, cam, width: int, height: int, spp: int, max_depth: int,
     else:
         launch = lambda counts: _render(scene, cam, width, height, spp, max_depth,
                                         reference_quirk, rr_start, sample_start, counts)
-    c = _counted(launch, scene)
-    return LoopWork(c["queries"], c["hits"], c["passes"], c["active_lanes"])
+    counts = torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=scene.device)
+    launch(counts)
+    return LoopWork(**dict(zip(COUNT_NAMES, (int(c) for c in counts.tolist()))))
 
 
 def tape_bytes(width: int, height: int, spp: int, max_depth: int, tape_fields: int,
