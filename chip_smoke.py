@@ -10,7 +10,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. Device: the card's name and power limit.
 2. Build: compiles every tracer_torch/csrc/*.cu with nvcc, one process per
    source, all started together (megakernel.cu, bwd.cu, tex_scatter.cu),
-   and prints ptxas's registers and spills for every instantiation.
+   and prints ptxas's registers and spills for every instantiation (K1-cl's
+   four: primitive records and tree nodes each in shared or global memory).
 3. Each kernel against its plain PyTorch version, on the card, on the same
    inputs:
    - the forward megakernel (K1): smoke scene (quirk on and off), a partial
@@ -81,11 +82,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
     scene), k = 16:
    - against its plain version (render_frame(cluster_k=16)) at 800x600,
      spp 2, depth 20, camera path frame 1, by phase 3's rules, both timed;
-     its bound there (the larger of FP32 operations over 67 TFLOP/s and
-     bytes over 3.35 TB/s: per nearest-hit query one slab test per
-     cluster, plus the primitive tests of the visited clusters, both
-     counted by the kernel's counted instantiation (megakernel.loop_work)
-     in one launch, which is also timed beside the uncounted one);
+     the walk's work there, counted by the kernel's counted instantiation
+     (megakernel.loop_work) in one launch, which is also timed beside the
+     uncounted one: node tests, leaves reached and primitive tests per
+     nearest-hit query, beside the visit-every-box work of the flat loop
+     it replaced (a slab test of every cluster per query); its bound (the
+     larger of FP32 operations over 67 TFLOP/s and bytes over 3.35 TB/s)
+     from work that does not depend on the traversal: one primitive test
+     per query and the shading of every hit, and the tables and the frame
+     read or written once;
    - the main path of this phase: render_frame_kernel(cluster_k=16) at
      800x600, spp 8, depth 20 on camera path frames 1-3 (bench.py's
      2000-sphere line), each frame against K1's on the same inputs by
@@ -95,12 +100,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      paths amplify the last-bit differences); K1-cl's launch count;
    - K1 and K1-cl times at that shape, with and without rr_start=3 (best
      of 3 frames after a warm-up), with their lane utilisation, and again
-     with the field's records in shared memory instead of global; and on
+     with the field's records in shared memory instead of global and with
+     K1-cl's tree nodes in global memory instead of shared; and on
      prim_scaling.py's sweep (records in shared memory up to n = 1000,
-     in global memory above): n in
-     {2000, 5000, 10000, 20000} spheres and, for the crossing point, 250,
-     500 and 1000; 800x600, spp 4, depth 10, rr_start=3, its camera (best
-     of 3 after a warm-up).
+     in global memory above; nodes in shared memory up to
+     megakernel.NODE_SHARED_BYTES_MAX): n in {2000, 5000, 10000, 20000}
+     spheres and, for the crossing point, 250, 500 and 1000; 800x600, spp
+     4, depth 10, rr_start=3, its camera (best of 3 after a warm-up), with
+     K1-cl's node tests, leaves reached and primitive tests per query and
+     its time with the nodes in the other memory.
 
 The line before the last is a JSON object describing the kernels, with the
 card's name and power limit on the line before it; the last is
@@ -144,11 +152,12 @@ def instantiation(line: str) -> str:
     """A ptxas 'Compiling entry' line's kernel, by name and template arguments."""
     import re
 
-    m = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+    m = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
     if m:
-        rec, clu, smem, count = (x == "1" for x in m.groups())
+        rec, clu, smem, nsmem, count = (x == "1" for x in m.groups())
         name = "K1-rec" if rec else ("K1-cl" if clu else "K1")
         return (f"{name}, records in {'shared' if smem else 'global'} memory"
+                + (f", nodes in {'shared' if nsmem else 'global'} memory" if clu else "")
                 + (", counted" if count else ""))
     m = re.search(r"bwd_kernelILb(\d)E", line)
     if m:
@@ -303,6 +312,33 @@ def compare_grads(name, scene, cam, got, want, fb_rec, errs):
     return ok
 
 
+def node_bytes(tables):
+    return 4 * tables.nodes.numel()
+
+
+def node_memory(mk, tables):
+    """Where K1-cl reads these tables' tree nodes from."""
+    return "shared" if node_bytes(tables) <= mk.NODE_SHARED_BYTES_MAX else "global"
+
+
+def other_node_memory(mk, tables, timed):
+    """(ms of `timed()` with K1-cl's nodes in the other memory, its name)."""
+    saved = mk.NODE_SHARED_BYTES_MAX
+    other = "global" if node_memory(mk, tables) == "shared" else "shared"
+    mk.NODE_SHARED_BYTES_MAX = node_bytes(tables) if other == "shared" else -1
+    try:
+        return timed(), other
+    finally:
+        mk.NODE_SHARED_BYTES_MAX = saved
+
+
+def walk_line(work, n_clusters):
+    """K1-cl's walk per nearest-hit query, from a LoopWork."""
+    q = max(work.queries, 1)
+    return (f"{work.node_tests / q:.3f} node tests (flat loop: {n_clusters} boxes), "
+            f"{work.visits / q:.3f} leaves reached, {work.tests / q:.3f} primitive tests")
+
+
 def clustered_phase(dev, kind, card, cams, W, H, PSPP):
     """Phase 10: K1-cl on the sphere field. Returns (error or None, the
     kernel's entry of the `kernels` line)."""
@@ -321,7 +357,9 @@ def clustered_phase(dev, kind, card, cams, W, H, PSPP):
     n_fs, n_fp, n_c = field.num_spheres, field.num_planes, tables.num_clusters
     print(f"[10] cluster-culled kernel (K1-cl) on {kind} ({card}): sphere field of {n_fs} "
           f"spheres + {n_fp} floor quad, k {CK}: {n_c} clusters, "
-          f"{int((tables.slots >= 0).sum())} filled slots of {tables.slots.numel()}", flush=True)
+          f"{int((tables.slots >= 0).sum())} filled slots of {tables.slots.numel()}, "
+          f"{tables.nodes.shape[0]} tree nodes ({node_bytes(tables)} bytes) in "
+          f"{node_memory(mk, tables)} memory", flush=True)
     cl_errs = []
     mk.render_frame_kernel(field, cams[0], W, H, PSPP, CD, cluster_k=CK)  # warm-up
     cl_ms = cuda_ms(lambda: mk.render_frame_kernel(field, cams[1], W, H, PSPP, CD, cluster_k=CK),
@@ -333,23 +371,29 @@ def clustered_phase(dev, kind, card, cams, W, H, PSPP):
                    plain.pop("cl"), cl_errs):
         return "cluster-culled kernel and plain version disagree", None
     work = mk.loop_work(field, cams[1], W, H, PSPP, CD, cluster_k=CK)
-    queries, visits, tested, hits = work.queries, work.visits, work.tests, work.hits
+    queries, tested, hits = work.queries, work.tests, work.hits
     counts = torch.zeros(len(mk.COUNT_NAMES), dtype=torch.int64, device=dev)
     cnt_ms = cuda_ms(lambda: mk._render_clustered(field, cams[1], W, H, PSPP, CD, True, None, 0,
                                                   CK, counts), reps=3)
-    # every query slab-tests all clusters; every tested primitive costs at
-    # least a plane test; a hit shades
-    cl_ops = queries * n_c * OPS_SLAB + tested * OPS_PLANE + hits * OPS_SHADE
+    # the bound reads work no traversal avoids: every query tests one
+    # primitive at least (a plane test, the cheaper), every hit shades; the
+    # bytes are the tables and the frame, each once
+    cl_ops = queries * OPS_PLANE + hits * OPS_SHADE
     cl_bytes = (4 * (n_fs * 4 + n_fp * 20 + (n_fs + n_fp) * 13) + 4 * n_c * 6
                 + 4 * tables.slots.numel() + 15 * 4 + W * H * 3 * 4)
     cl_bound = bound(cl_ops, cl_bytes)
+    # the walk's own work, and that of the flat loop it replaced (a slab
+    # test of every cluster box per query), each tested primitive at least
+    # a plane test
+    walk_ops = work.node_tests * OPS_SLAB + tested * OPS_PLANE + hits * OPS_SHADE
+    flat_ops = queries * n_c * OPS_SLAB + tested * OPS_PLANE + hits * OPS_SHADE
     print(f"    kernel {cl_ms:.3f} ms (counted instantiation {cnt_ms:.3f} ms), plain "
-          f"{pcl_ms:.3f} ms; work: {queries} nearest-hit "
-          f"queries, {visits} cluster visits ({visits / queries:.3f} per query), {tested} "
-          f"primitive tests ({tested / queries:.3f} per query, brute: {n_fs + n_fp}), {hits} "
-          f"hits; bound "
-          f"{cl_bound[0]:.3f} ms ({cl_bound[1]}: {cl_ops:.4g} FP32 ops, {cl_bytes} bytes)",
-          flush=True)
+          f"{pcl_ms:.3f} ms; work: {queries} nearest-hit queries, {hits} hits; per query "
+          f"{walk_line(work, n_c)}, brute {n_fs + n_fp} tests", flush=True)
+    print(f"    the walk's work {walk_ops:.4g} FP32 ops = {walk_ops / PEAK_FP32 * 1e3:.3f} ms at "
+          f"peak; visit-every-box work {flat_ops:.4g} FP32 ops = "
+          f"{flat_ops / PEAK_FP32 * 1e3:.3f} ms; bound {cl_bound[0]:.6f} ms ({cl_bound[1]}: "
+          f"{cl_ops:.4g} FP32 ops, {cl_bytes} bytes)", flush=True)
 
     # the main path of this phase, each frame against K1's
     print(f"    main path: render_frame_kernel(cluster_k={CK}) at {W}x{H} spp{CSPP} d{CD}, "
@@ -381,13 +425,15 @@ def clustered_phase(dev, kind, card, cams, W, H, PSPP):
     for rr in (None, 3):
         t_k1 = best_ms(field, cams, CSPP, CD, rr_start=rr)
         t_cl = best_ms(field, cams, CSPP, CD, rr_start=rr, cluster_k=CK)
-        u_k1, u_cl = (mk.loop_work(field, cams[1], W, H, CSPP, CD, rr_start=rr, cluster_k=k)
-                      .lane_utilisation for k in (0, CK))
+        u_k1 = mk.loop_work(field, cams[1], W, H, CSPP, CD, rr_start=rr).lane_utilisation
+        w_cl = mk.loop_work(field, cams[1], W, H, CSPP, CD, rr_start=rr, cluster_k=CK)
         print(f"    {W}x{H} spp{CSPP} d{CD} rr_start={rr}: K1 {t_k1:.3f} ms = "
               f"{crays / t_k1 / 1e3:.3f} Mrays/s; K1-cl {t_cl:.3f} ms = "
               f"{crays / t_cl / 1e3:.3f} Mrays/s; K1/K1-cl {t_k1 / t_cl:.3f}; lane utilisation "
-              f"K1 {u_k1:.4f}, K1-cl {u_cl:.4f}", flush=True)
-    # the same frames with the field's records in shared memory
+              f"K1 {u_k1:.4f}, K1-cl {w_cl.lane_utilisation:.4f}; K1-cl per query "
+              f"{walk_line(w_cl, n_c)}", flush=True)
+    # the same frames with the field's records in shared memory, and with
+    # K1-cl's nodes in the other memory
     saved, mk.TABLE_SHARED_BYTES_MAX = mk.TABLE_SHARED_BYTES_MAX, 48 * 1024
     try:
         t_k1 = best_ms(field, cams, CSPP, CD)
@@ -396,22 +442,32 @@ def clustered_phase(dev, kind, card, cams, W, H, PSPP):
         mk.TABLE_SHARED_BYTES_MAX = saved
     print(f"    records in shared memory instead of global ({(n_fs * 4 + n_fp * 20) * 4} bytes): "
           f"K1 {t_k1:.3f} ms, K1-cl {t_cl:.3f} ms", flush=True)
+    t_other, other = other_node_memory(mk, tables, lambda: best_ms(field, cams, CSPP, CD,
+                                                                   cluster_k=CK))
+    print(f"    K1-cl with its nodes in {other} memory instead: {t_other:.3f} ms", flush=True)
 
     SW_SPP, SW_D = 4, 10
     print(f"    sweep (benchmarks/prim_scaling.py): {W}x{H} spp{SW_SPP} d{SW_D} rr_start=3, its "
           f"camera, best of 3 after a warm-up; records in shared memory up to "
-          f"{mk.TABLE_SHARED_BYTES_MAX} bytes, else global:", flush=True)
-    print("      n | records | clusters | K1 ms | K1 Mrays/s | K1-cl ms | K1-cl Mrays/s | K1/K1-cl")
+          f"{mk.TABLE_SHARED_BYTES_MAX} bytes, nodes up to {mk.NODE_SHARED_BYTES_MAX}, else "
+          f"global; K1-cl's work per query from the counted instantiation:", flush=True)
+    print("      n | records | clusters | nodes | K1 ms | K1 Mrays/s | K1-cl ms | K1-cl Mrays/s | "
+          "K1/K1-cl | per query | K1-cl ms, nodes in the other memory")
     srays = W * H * SW_SPP
     for n in (250, 500, 1000, 2000, 5000, 10000, 20000):
         scene_n, cols_n = sphere_field(n, dev)
         cam_n = sphere_field_camera(cols_n, W, H, dev)
-        c_n = cluster.pack_clustered(scene_n, CK).num_clusters
+        tables_n = cluster.pack_clustered(scene_n, CK)
+        c_n = tables_n.num_clusters
         t_k1 = best_ms(scene_n, [cam_n] * 4, SW_SPP, SW_D, rr_start=3)
         t_cl = best_ms(scene_n, [cam_n] * 4, SW_SPP, SW_D, rr_start=3, cluster_k=CK)
+        w_n = mk.loop_work(scene_n, cam_n, W, H, SW_SPP, SW_D, rr_start=3, cluster_k=CK)
+        t_other, other = other_node_memory(mk, tables_n, lambda: best_ms(
+            scene_n, [cam_n] * 4, SW_SPP, SW_D, rr_start=3, cluster_k=CK))
         where = "shared" if (n * 4 + 20) * 4 <= mk.TABLE_SHARED_BYTES_MAX else "global"
-        print(f"      {n} | {where} | {c_n} | {t_k1:.3f} | {srays / t_k1 / 1e3:.3f} | {t_cl:.3f} | "
-              f"{srays / t_cl / 1e3:.3f} | {t_k1 / t_cl:.3f}", flush=True)
+        print(f"      {n} | {where} | {c_n} | {node_memory(mk, tables_n)} | {t_k1:.3f} | "
+              f"{srays / t_k1 / 1e3:.3f} | {t_cl:.3f} | {srays / t_cl / 1e3:.3f} | "
+              f"{t_k1 / t_cl:.3f} | {walk_line(w_n, c_n)} | {other} {t_other:.3f}", flush=True)
     print(f"    card: {card}", flush=True)
 
     return None, dict(name="megakernel_clustered", route="cuda",

@@ -122,8 +122,10 @@ def test_clustered_kernel_sample_chunks_add_up(dev):
 
 
 def test_cluster_work_counts_the_plain_visits(dev):
-    """At depth 1 every query is a primary ray: the kernel's counts equal
-    the plain version's visited clusters and their primitives."""
+    """At depth 1 every query is a primary ray: the kernel's leaves reached
+    and primitive tests are at most the plain version's visible clusters
+    and their primitives, and equal those of tests/cluster_walk.py's
+    emulation of the walk."""
     from tracer_torch.core import rng
     from tracer_torch.kernels import cluster
     from tracer_torch.render import hit
@@ -135,8 +137,38 @@ def test_cluster_work_counts_the_plain_visits(dev):
     tables = cluster.pack_clustered(scene, 16)
     vis = hit.cluster_visibility(tables, o, d)
     filled = (tables.slots.reshape(tables.num_clusters, -1) >= 0).sum(dim=1)
-    assert (work.queries, work.visits, work.tests) == (64 * 48, int(vis.sum()),
-                                                       int((vis * filled).sum()))
+    assert work.queries == 64 * 48
+    assert work.visits <= int(vis.sum()) and work.tests <= int((vis * filled).sum())
+    _, _, _, leaves, tests = _walk(scene, tables, o, d)
+    assert (work.visits, work.tests) == (leaves.sum(), tests.sum())
+
+
+def _walk(scene, tables, o, d):
+    """tests/cluster_walk.py's walk of these rays, over the plain roots."""
+    from cluster_walk import walk
+
+    from tracer_torch.core import T_MAX, T_MIN
+    from tracer_torch.render import hit
+
+    t_all = hit._all_ts(scene, o, d, T_MIN, T_MAX)
+    return walk(tables.nodes.cpu().numpy(), tables.slots.cpu().numpy(), tables.k,
+                o.cpu().numpy(), d.cpu().numpy(), t_all.cpu().numpy())
+
+
+def test_node_tests_count_the_walk(dev):
+    """The counted instantiation's node tests on big300's primary rays equal
+    the emulated walk's, and stay below the cluster count per query."""
+    from tracer_torch.core import rng
+    from tracer_torch.kernels import cluster
+
+    scene, cam = _clustered_case("big300", dev)
+    work = megakernel.loop_work(scene, cam, 64, 48, 1, 1, cluster_k=16)
+    i, j, seeds = renderer.pixel_grid(64, 48, device=dev)
+    _, o, d = camera.get_rays(cam, i, j, rng.sample_seed(seeds, 0))
+    tables = cluster.pack_clustered(scene, 16)
+    _, _, node_tests, _, _ = _walk(scene, tables, o, d)
+    assert work.node_tests == node_tests.sum()
+    assert work.node_tests < tables.num_clusters * work.queries
 
 
 def test_counted_instantiation_renders_the_same_frame(dev):

@@ -59,27 +59,38 @@
 // kernel with cluster_k > 0: its nearest hit tracer/pallas/culling.py:
 // _intersect_clustered (and _intersect_culled, which finds the same hit
 // with other TPU visiting mechanics). Primitives are grouped into clusters
-// of at most K (tracer_torch/kernels/cluster.py); per bounce each thread
-// slab-tests its own ray against every cluster box and runs the sphere or
-// plane test of the brute block on the primitives of the clusters it may
-// hit, reading their records through the clusters' slot indices. Culling
-// is per ray, not per 128-ray bundle as on the TPU, so the answer does not
-// depend on the launch layout. Clusters and slots are visited in
-// ascending order with strict <, so ties go to the lowest (cluster, slot),
-// as in the TPU's legacy intersector. The slab's upper bound stays
-// K_INFINITY, as on the TPU. What bounds it: FP32 work, C slab tests per
-// bounce (every thread reads the same box at the same time, so the box
-// loads are broadcasts from L1) plus the primitive tests of the visited
-// clusters; divergence between threads that visit different clusters.
+// of at most K (tracer_torch/kernels/cluster.py) by a median split, whose
+// binary tree the kernel walks without a stack: the nodes are stored in
+// preorder, lower half first, so the leaves come in ascending cluster id,
+// and each node holds its box and the index of the node after its
+// subtree. Per bounce each thread slab-tests its own ray against node i;
+// if the test fails, or the box's entry lies beyond the running nearest
+// hit by more than PRUNE allows, it jumps past the subtree, else it goes
+// to node i + 1. At a leaf it stops walking and runs the sphere or plane
+// test of the brute block on the primitives of the leaf's cluster (read
+// through its slot indices), so that the lanes of a warp that reached
+// leaves at different steps test their primitives together.
+// Rounding is monotone, so a node's slab interval holds its children's:
+// a leaf is reached exactly where the flat loop over every cluster box
+// would have tested it, unless the running best proves that none of its
+// primitives can win. Culling is per ray, not per 128-ray bundle as on the
+// TPU, so the answer does not depend on the launch layout. Leaves and
+// slots are met in ascending order with strict <, so ties go to the lowest
+// (cluster, slot), as in the TPU's legacy intersector; the slab's upper
+// bound stays K_INFINITY, as on the TPU. The node records are staged in
+// shared memory with the primitive records (NSMEM) when the wrapper's
+// threshold allows. What bounds it: FP32 work, a few dozen node tests and
+// the primitive tests of the reached leaves per bounce; divergence, since
+// the threads of a warp walk different paths.
 //
 // All three run one bounce loop, trace_pixel<RECORD, CLUSTERED, SMEM,
-// COUNT>, and call the same sphere_t / plane_hit; only the nearest-hit
-// block's loop and the tape stores are chosen at compile time. The
-// counted instantiations (COUNT; the debug_iters counterpart of
+// NSMEM, COUNT>, and call the same sphere_t / plane_hit; only the
+// nearest-hit block's loop and the tape stores are chosen at compile time.
+// The counted instantiations (COUNT; the debug_iters counterpart of
 // tracer/pallas/kernels.py:62, :107-110) add up the launch's nearest-hit
-// queries, hits, cluster visits, primitive tests, warp passes and the
-// active lanes of each pass (__popc(__activemask())); timed launches take
-// the uncounted ones.
+// queries, hits, leaves reached, primitive tests, warp passes, the active
+// lanes of each pass (__popc(__activemask())) and node tests; timed
+// launches take the uncounted ones.
 //
 // Float semantics: IEEE division and sqrtf (no --use_fast_math); nvcc's
 // default FMA contraction is kept, so a ray on a razor-edge tie (polyhedron
@@ -94,7 +105,14 @@ namespace {
 
 constexpr float K_INFINITY = 1e32f;
 constexpr int THREADS = 128;
-constexpr int COUNTS = 6;  // COUNT's counters, see Launch::counts
+constexpr int COUNTS = 7;  // COUNT's counters, see Launch::counts
+// The walk skips a subtree whose box's entry exceeds best * PRUNE: a
+// primitive's root rounds below the entry of a box that holds it by about
+// 2^-24 x its distance over its size (a sphere hit where it touches its
+// box), so a margin of 2^-12 keeps every box that may hold the winner up
+// to a distance of 4096 radii, at the cost of boxes whose entry lies within
+// 0.025% behind the nearest hit. tests/cluster_walk.py reads this value.
+constexpr float PRUNE = 1.000244140625f;  // 1 + 2^-12
 static_assert(P_NX == 0 && P_D == 3 && P_BX == 4 && P_PTYPE == 7 && P_UX == 8 && P_VX == 12 &&
                   P_WX == 16 && S_RADIUS == 3,
               "plane_hit and sphere_t read the records in this order");
@@ -123,11 +141,11 @@ struct Launch {
   int* idx_tape;      // RECORD: [spp * max_depth, npx]
   float* tex_tape;    // RECORD: [tape_f * spp * max_depth, npx] or nullptr
   int tape_f;
-  const float* boxes;  // CLUSTERED: [6, num_clusters] lo x, y, z, hi x, y, z
-  const int* slots;    // CLUSTERED: [num_clusters * k], -1 pads a cluster's end
-  int num_clusters, k;
+  const float4* nodes;  // CLUSTERED: [num_nodes * 2] (lo, skip), (hi, cluster) records
+  const int* slots;    // CLUSTERED: [clusters * k], -1 pads a cluster's end
+  int num_nodes, k;
   // COUNT: [COUNTS] sums over the launch: nearest-hit queries, hits,
-  // clusters visited, primitives tested, warp passes, active lanes
+  // leaves reached, primitives tested, warp passes, active lanes, node tests
   unsigned long long* counts;
 };
 
@@ -143,6 +161,19 @@ struct Prims {
   }
   __device__ __forceinline__ float4 plane(int k, int q) const {
     if constexpr (SMEM) return pla[k * PLANE_F4 + q]; else return __ldg(pla + k * PLANE_F4 + q);
+  }
+};
+
+// The cluster tree's node records (kernels/cluster.py), in shared memory
+// (NSMEM) or read through the read-only cache.
+template <bool NSMEM>
+struct Nodes {
+  const float4* rec;
+  __device__ __forceinline__ float4 lo(int i) const {
+    if constexpr (NSMEM) return rec[2 * i]; else return __ldg(rec + 2 * i);
+  }
+  __device__ __forceinline__ float4 hi(int i) const {
+    if constexpr (NSMEM) return rec[2 * i + 1]; else return __ldg(rec + 2 * i + 1);
   }
 };
 
@@ -258,10 +289,11 @@ __device__ __forceinline__ float guarded_inv(float x) {
 // per pass of one loop (see the note at the top). With RECORD, every
 // reached slot also stores its winner into the index tape and, for a
 // textured hit, its tape_f texture fields into the texture tape. With
-// CLUSTERED, the nearest hit visits the clusters instead of every
-// primitive. With COUNT, the launch's work is added to L.counts.
-template <bool RECORD, bool CLUSTERED, bool SMEM, bool COUNT>
-__device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& P, int lin) {
+// CLUSTERED, the nearest hit walks the cluster tree N instead of testing
+// every primitive. With COUNT, the launch's work is added to L.counts.
+template <bool RECORD, bool CLUSTERED, bool SMEM, bool NSMEM, bool COUNT>
+__device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& P,
+                                            const Nodes<NSMEM>& N, int lin) {
   const int width = L.width, max_depth = L.max_depth, num_s = P.num_s, num_p = P.num_p;
   const int npx = width * L.height;
   const int i = lin % width;  // column
@@ -282,7 +314,7 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
                                                     : (uint32_t)j * w32 + (uint32_t)i);
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  uint32_t cnt[COUNTS] = {0, 0, 0, 0, 0, 0};  // COUNT's (dead code without it)
+  uint32_t cnt[COUNTS] = {0, 0, 0, 0, 0, 0, 0};  // COUNT's (dead code without it)
   // the lane's path: sample s at bounce `depth`, ray (o, d), throughput
   // beta, radiance fin, RNG state seed; `ended` starts the next sample
   int s = -1, depth = 0;
@@ -322,24 +354,38 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
     int widx = -1;
     float best_alpha = 0.0f, best_beta = 0.0f;
     if constexpr (CLUSTERED) {
-      // -- clustered nearest hit: the ray's own slab test against each
-      //    cluster box (culling.py:40-60), then the primitives of the
-      //    clusters it passes; strict < in (cluster, slot) order
+      // -- clustered nearest hit: the stackless walk of the cluster tree;
+      //    each node's slab test is culling.py:40-60's, then the
+      //    primitives of the leaves it reaches; strict < in (cluster,
+      //    slot) order
       const float ivx = guarded_inv(d.x), ivy = guarded_inv(d.y), ivz = guarded_inv(d.z);
-      const int nc = L.num_clusters;
-      const float* __restrict__ boxes = L.boxes;
-      for (int c = 0; c < nc; ++c) {
-        const float tx1 = (__ldg(boxes + c) - o.x) * ivx;
-        const float tx2 = (__ldg(boxes + 3 * nc + c) - o.x) * ivx;
-        const float ty1 = (__ldg(boxes + nc + c) - o.y) * ivy;
-        const float ty2 = (__ldg(boxes + 4 * nc + c) - o.y) * ivy;
-        const float tz1 = (__ldg(boxes + 2 * nc + c) - o.z) * ivz;
-        const float tz2 = (__ldg(boxes + 5 * nc + c) - o.z) * ivz;
-        const float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
-                                 fmaxf(fminf(tz1, tz2), T_MIN));
-        const float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
-                                 fminf(fmaxf(tz1, tz2), K_INFINITY));
-        if (!(tmax > tmin)) continue;
+      const int nn = L.num_nodes;
+      for (int node = 0;;) {
+        // walk to the next leaf to visit, then visit it (while-while: the
+        // lanes of a warp test their leaves' primitives together)
+        int c = -1;
+        while (node < nn) {
+          const float4 lo = N.lo(node), hi = N.hi(node);
+          if constexpr (COUNT) ++cnt[6];
+          const float tx1 = (lo.x - o.x) * ivx;
+          const float tx2 = (hi.x - o.x) * ivx;
+          const float ty1 = (lo.y - o.y) * ivy;
+          const float ty2 = (hi.y - o.y) * ivy;
+          const float tz1 = (lo.z - o.z) * ivz;
+          const float tz2 = (hi.z - o.z) * ivz;
+          const float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
+                                   fmaxf(fminf(tz1, tz2), T_MIN));
+          const float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
+                                   fminf(fmaxf(tz1, tz2), K_INFINITY));
+          if (!(tmax > tmin) || tmin > best * PRUNE) {
+            node = __float_as_int(lo.w);  // past the subtree
+            continue;
+          }
+          ++node;
+          c = __float_as_int(hi.w);  // -1: an internal node, its lower child is next
+          if (c >= 0) break;
+        }
+        if (c < 0) break;  // past the last node
         if constexpr (COUNT) ++cnt[2];
         const int* slot = L.slots + (size_t)c * L.k;
         for (int q = 0; q < L.k; ++q) {
@@ -526,53 +572,62 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
 // ---- the kernel ----
 
 // K1 (RECORD = CLUSTERED = false), K1-rec (RECORD) and K1-cl (CLUSTERED).
-// With SMEM the block first stages the records in dynamic shared memory.
-template <bool RECORD, bool CLUSTERED, bool SMEM, bool COUNT>
+// With SMEM the block first stages the primitive records in dynamic shared
+// memory, with NSMEM K1-cl's node records (after them), in one loop.
+template <bool RECORD, bool CLUSTERED, bool SMEM, bool NSMEM, bool COUNT>
 __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
   extern __shared__ float4 records[];
   Prims<SMEM> P{L.sph, L.pla, L.num_s, L.num_p};
-  if constexpr (SMEM) {
-    const int n4 = L.num_s * SPHERE_F4 + L.num_p * PLANE_F4;
-    const int ns4 = L.num_s * SPHERE_F4;
+  Nodes<NSMEM> N{L.nodes};
+  if constexpr (SMEM || NSMEM) {
+    const int ns4 = SMEM ? L.num_s * SPHERE_F4 : 0;
+    const int np4 = ns4 + (SMEM ? L.num_p * PLANE_F4 : 0);
+    const int n4 = np4 + (NSMEM ? 2 * L.num_nodes : 0);
     for (int q = threadIdx.x; q < n4; q += blockDim.x) {
       if (q < ns4) {
         records[q] = __ldg(L.sph + q);
-      } else {
+      } else if (q < np4) {
         records[q] = __ldg(L.pla + (q - ns4));
+      } else {
+        records[q] = __ldg(L.nodes + (q - np4));
       }
     }
     __syncthreads();
-    P.sph = records;
-    P.pla = records + ns4;
+    if constexpr (SMEM) {
+      P.sph = records;
+      P.pla = records + ns4;
+    }
+    if constexpr (NSMEM) N.rec = records + np4;
   }
   const int lin = blockIdx.x * blockDim.x + threadIdx.x;
   if (lin >= L.width * L.height) return;  // ragged last block
-  trace_pixel<RECORD, CLUSTERED, SMEM, COUNT>(L, P, lin);
+  trace_pixel<RECORD, CLUSTERED, SMEM, NSMEM, COUNT>(L, P, N, lin);
 }
 
-template <bool RECORD, bool CLUSTERED, bool SMEM, bool COUNT>
+template <bool RECORD, bool CLUSTERED, bool SMEM, bool NSMEM, bool COUNT>
 int launch(const Launch& L, cudaStream_t st) {
   const int blocks = (L.width * L.height + THREADS - 1) / THREADS;
-  const size_t bytes = SMEM ? sizeof(float4) * ((size_t)L.num_s * SPHERE_F4 +
-                                                (size_t)L.num_p * PLANE_F4) : 0;
+  const size_t bytes = sizeof(float4) * ((SMEM ? (size_t)L.num_s * SPHERE_F4 +
+                                                     (size_t)L.num_p * PLANE_F4 : 0) +
+                                         (NSMEM ? 2 * (size_t)L.num_nodes : 0));
   if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(trace_kernel<RECORD, CLUSTERED, SMEM, COUNT>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)bytes);
+    const cudaError_t e =
+        cudaFuncSetAttribute(trace_kernel<RECORD, CLUSTERED, SMEM, NSMEM, COUNT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  trace_kernel<RECORD, CLUSTERED, SMEM, COUNT><<<blocks, THREADS, bytes, st>>>(L);
+  trace_kernel<RECORD, CLUSTERED, SMEM, NSMEM, COUNT><<<blocks, THREADS, bytes, st>>>(L);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool RECORD, bool CLUSTERED>
+template <bool RECORD, bool CLUSTERED, bool NSMEM>
 int launch_mode(const Launch& L, bool smem, cudaStream_t st) {
   if (L.counts != nullptr) {
-    return smem ? launch<RECORD, CLUSTERED, true, true>(L, st)
-                : launch<RECORD, CLUSTERED, false, true>(L, st);
+    return smem ? launch<RECORD, CLUSTERED, true, NSMEM, true>(L, st)
+                : launch<RECORD, CLUSTERED, false, NSMEM, true>(L, st);
   }
-  return smem ? launch<RECORD, CLUSTERED, true, false>(L, st)
-              : launch<RECORD, CLUSTERED, false, false>(L, st);
+  return smem ? launch<RECORD, CLUSTERED, true, NSMEM, false>(L, st)
+              : launch<RECORD, CLUSTERED, false, NSMEM, false>(L, st);
 }
 
 }  // namespace
@@ -581,31 +636,32 @@ int launch_mode(const Launch& L, bool smem, cudaStream_t st) {
 // mode 0 renders (K1), 1 records (K1-rec: idx_tape [spp*max_depth,
 // width*height] and tex_tape [tape_f*spp*max_depth, width*height], nullptr
 // when tex is, come filled with their neutral values; tape_f is 9 or 13),
-// 2 renders cluster-culled (K1-cl: boxes [6, num_clusters] and slots
-// [num_clusters * k] as tracer_torch/kernels/cluster.py packs them). sph
+// 2 renders cluster-culled (K1-cl: nodes [num_nodes, 2] float4 records and
+// slots [clusters * k] as tracer_torch/kernels/cluster.py packs them). sph
 // and pla are 16-byte aligned record tables (tracer_torch/kernels/pack.py);
-// shared_tables stages them in shared memory. counts is nullptr (the
-// uncounted kernels) or COUNTS zeroed counters (the counted ones).
-// rr_start < 0 turns roulette off; tex == nullptr renders untextured.
-// Launches on `stream`, does not synchronise, and returns
+// shared_tables stages them in shared memory, shared_nodes the nodes.
+// counts is nullptr (the uncounted kernels) or COUNTS zeroed counters (the
+// counted ones). rr_start < 0 turns roulette off; tex == nullptr renders
+// untextured. Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() so a refused launch reaches the caller.
 extern "C" int tracer_megakernel_launch(
     int mode, const float* sph, int num_s, const float* pla, int num_p, const float* join,
     const float* tex, int th, int tw, const float* cam, float* out,
     int width, int height, int spp, int max_depth, unsigned int sample_start,
     int reference_quirk, int rr_start, int* idx_tape, float* tex_tape, int tape_f,
-    const float* boxes, const int* slots, int num_clusters, int k, int shared_tables,
-    unsigned long long* counts, void* stream) {
+    const float* nodes, const int* slots, int num_nodes, int k, int shared_tables,
+    int shared_nodes, unsigned long long* counts, void* stream) {
   const Launch L{reinterpret_cast<const float4*>(sph), reinterpret_cast<const float4*>(pla),
                  num_s, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
                  sample_start, reference_quirk, rr_start, idx_tape, tex_tape, tape_f,
-                 boxes, slots, num_clusters, k, counts};
+                 reinterpret_cast<const float4*>(nodes), slots, num_nodes, k, counts};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool smem = shared_tables != 0;
   switch (mode) {
-    case 0: return launch_mode<false, false>(L, smem, st);
-    case 1: return launch_mode<true, false>(L, smem, st);
-    case 2: return launch_mode<false, true>(L, smem, st);
+    case 0: return launch_mode<false, false, false>(L, smem, st);
+    case 1: return launch_mode<true, false, false>(L, smem, st);
+    case 2: return shared_nodes != 0 ? launch_mode<false, true, true>(L, smem, st)
+                                     : launch_mode<false, true, false>(L, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -25,14 +25,15 @@ the winner-index and texture tapes the backward kernel replays.
 
 `loop_work` launches the counted instantiation of the same kernels and
 returns the launch's work (nearest-hit queries, hits, warp passes and
-active lanes, and K1-cl's cluster visits and primitive tests); the plain
-query count is `tracer_torch.render.renderer.query_count`.
+active lanes, and K1-cl's node tests, leaves reached and primitive tests);
+the plain query count is `tracer_torch.render.renderer.query_count`.
 
 The scene's sphere and plane records (kernels/pack.py) are staged in
 shared memory when they take at most `TABLE_SHARED_BYTES_MAX` bytes (the
 canonical scene, about 10 KB); a larger scene, such as the 2000-sphere
 field (32 KB), takes the kernel's variant that reads them from global
-memory.
+memory. K1-cl's cluster-tree nodes (kernels/cluster.py) are staged there
+too when they take at most `NODE_SHARED_BYTES_MAX` bytes.
 
 The kernels are compiled at first use by `nvcc` (tracer_torch.kernels.
 nvcc) into shared libraries with plain C entry points, loaded with ctypes.
@@ -59,8 +60,13 @@ LAUNCHES_CLUSTERED = 0  # launches of the cluster-culled kernel
 # H100 that was faster for the canonical scene (10 KB) and slower for the
 # 2000-sphere field (32 KB, fewer resident blocks); PERF.md has the times
 TABLE_SHARED_BYTES_MAX = 16 * 1024
+# K1-cl's tree nodes up to this many bytes (32 a node) are staged in shared
+# memory: on the H100 that was faster for the 2000-sphere field's 8 KB and
+# slower for the 5000-sphere field's 32 KB (fewer resident blocks); PERF.md
+# has the times
+NODE_SHARED_BYTES_MAX = 16 * 1024
 # the counted instantiation's counters (COUNTS in csrc/megakernel.cu)
-COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes")
+COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests")
 MODE_RENDER, MODE_RECORD, MODE_CLUSTERED = 0, 1, 2
 
 
@@ -68,10 +74,11 @@ class LoopWork(NamedTuple):
     """One launch's bounce-loop work, counted by the kernel."""
     queries: int  # nearest-hit queries (one per pass of a lane)
     hits: int  # queries that hit a primitive
-    visits: int  # K1-cl: clusters whose box a query's ray may hit (0 for K1, K1-rec)
+    visits: int  # K1-cl: leaves (clusters) the queries' walks reached (0 for K1, K1-rec)
     tests: int  # K1-cl: primitives tested in those clusters (0 for K1, K1-rec)
     passes: int  # warp passes: loop passes, each counted once per warp
     active_lanes: int  # the active lanes of those passes, summed
+    node_tests: int  # K1-cl: the walks' slab tests of tree nodes (0 for K1, K1-rec)
 
     @property
     def lane_utilisation(self) -> float:
@@ -92,7 +99,7 @@ def _fn():
     fn = build().lib.tracer_megakernel_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [i, p, i, p, i, p, p, i, i, p, p, i, i, i, i, ctypes.c_uint, i, i, p, p, i,
-                   p, p, i, i, i, p, p]
+                   p, p, i, i, i, i, p, p]
     fn.restype = i
     return fn
 
@@ -154,10 +161,11 @@ def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_st
                  ptr(packed.join), ptr(tex), th, tw, ptr(cam_t), ptr(out), width, height, spp,
                  max_depth, sample_start, int(reference_quirk),
                  -1 if rr_start is None else rr_start, ptr(idx), ptr(ttape), tape_f,
-                 None if tables is None else ptr(tables.boxes),
+                 None if tables is None else ptr(tables.nodes),
                  None if tables is None else ptr(tables.slots),
-                 0 if tables is None else tables.num_clusters,
+                 0 if tables is None else tables.nodes.shape[0],
                  0 if tables is None else tables.k, int(table_bytes <= TABLE_SHARED_BYTES_MAX),
+                 int(tables is not None and 4 * tables.nodes.numel() <= NODE_SHARED_BYTES_MAX),
                  ptr(counts), stream)
 
 
