@@ -110,9 +110,56 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      K1-cl's node tests, leaves reached and primitive tests per query and
      its time with the nodes in the other memory.
 
-The line before the last is a JSON object describing the kernels, with the
+11. The depth-50 gradient path (kernels/bwd.py:scene_grads_chunked,
+    l2_grads_deep; the 3-field tape; render_frame_diff's modes "replay"
+    and "replay-sample"), on the canonical scene with the texture:
+   - K1-rec's 3-field tape bit-equal to fields 0-2 of its 9-field tape
+     (and the same frame and index tape), 256x192 spp4 d8;
+   - scene_grads_chunked(spp_chunk=2) against render_frame_diff and its
+     backward at 256x192 spp8 d50, where the one-shot tapes fit, by
+     compare_grads's rule (every leaf within TOL_GRAD of its max|g|: the
+     chunks record the same paths, so only the addition order differs);
+   - scene_grads_chunked(spp_chunk=2, texture_grads=True) at 64x48 spp4
+     d50 against the plain replay and the plain scatter fed each chunk's
+     kernel-recorded tapes, by the same rule, the texture's cotangent
+     included;
+   - l2_grads_deep's loss against the loss of a K1 frame (relative 1e-6);
+   - modes "replay" and "replay-sample" against "replay-kernel" at 64x48
+     spp2 d8: the material colours' gradients by the same rule (the
+     other leaves' worst relative difference is printed; "replay" freezes
+     the texel, and "replay-sample" samples it where the replay's last-bit
+     hit point lands on the 1330x2000 texture);
+   - the main path of this phase: l2_grads_deep(texture_grads=True) at
+     800x600 spp32 d50, spp_chunk 8, with every kernel's launches (K1 1,
+     K1-rec, K2 and K3 one a chunk) and the peak device memory; then one
+     chunk's 13-field tape (2.5 G elements, past 2^31): fields 0-8
+     bit-equal to the 9-field tape, the addressing fields 9-12 fetching the
+     recorded texel (1e-5), K3 against the plain scatter on it;
+   - l2_grads_deep at 800x600 spp32 d50 textured and 1080x720 spp64 d50
+     untextured, spp_chunk 8, best of 3 by host clock, with K1, K1-rec and
+     K2 at their shapes in the step (CUDA events, best of 3), K1 at spp 8
+     and the tapes' neutral fill alone (K1-rec's other parts), the
+     launches, a chunk's tape bytes; and the tapes' share of slots with a
+     winner, the mean last live bounce, its mean maximum over warps of 32
+     pixels and the depth a 128-pixel tile needs (tracer/pallas/bwd.py:
+     _needed_depth_per_tile), beside 800x600 d8's: whether depth buckets
+     would pay;
+   - at each of those two shapes, K1, K1-rec and K2 against their plain
+     versions on the same inputs: K1's frame and the last chunk's tapes
+     (13 fields textured) on 16384 sampled pixels by phase 3's rules (the
+     frame on its per-sample estimate); K2 on that chunk's tapes against
+     the plain replay over the last 40 image rows (row_offset), launched
+     on those rows and over the whole grid (its replayed frame and texel
+     cotangents there within TOL_GRAD of the plain version's max), and the
+     whole-grid launch's dtable and dcam against the sum of its launches on
+     those rows and the rows above them.
+
+The line before the last is a JSON object describing the kernels (with
+`launches_d50`, each kernel's launches on phase 11's main path; each
+`max_abs_err` is the largest over its checks in every phase), with the
 card's name and power limit on the line before it; the last is
-`{"ok": true, "device": {...}}`.
+`{"ok": true, "device": {...}}`. The script's own time is printed before
+those lines.
 """
 
 from __future__ import annotations
@@ -279,16 +326,14 @@ def compare_record(name, got, want, errs, spp=1):
     return ok
 
 
-def compare_grads(name, scene, cam, got, want, fb_rec, errs):
-    """K2's (dtable, dcam, fb, gtex) against the plain replay's."""
+def compare_leaves(names, got, want):
+    """(ok, worst max|diff|/max|g|, worst max|diff|): every leaf of `got`
+    finite and within TOL_GRAD of the max|g| of its leaf in `want`."""
     import torch
-
-    from tracer_torch.kernels import bwd
 
     ok = True
     worst, worst_abs = 0.0, 0.0
-    for (leaf, a), (_, b) in zip(bwd.leaf_grads(scene, cam, got[0], got[1]),
-                                 bwd.leaf_grads(scene, cam, want[0], want[1])):
+    for leaf, a, b in zip(names, got, want):
         scale = float(b.abs().max())
         err = float((a - b).abs().max())
         if not (torch.isfinite(a).all() and err <= TOL_GRAD * scale + 1e-30):
@@ -296,6 +341,16 @@ def compare_grads(name, scene, cam, got, want, fb_rec, errs):
             ok = False
         worst = max(worst, err / scale if scale else 0.0)
         worst_abs = max(worst_abs, err)
+    return ok, worst, worst_abs
+
+
+def compare_grads(name, scene, cam, got, want, fb_rec, errs):
+    """K2's (dtable, dcam, fb, gtex) against the plain replay's."""
+    from tracer_torch.kernels import bwd
+
+    ok, worst, worst_abs = compare_leaves(bwd.leaf_names(scene, cam),
+                                          bwd.leaf_cotangents(scene, cam, got[0], got[1]),
+                                          bwd.leaf_cotangents(scene, cam, want[0], want[1]))
     fb_scale = float(want[2].abs().max())
     fb_err = float((got[2] - fb_rec.reshape(-1, 3)).abs().max())
     ok &= fb_err <= TOL_GRAD * fb_scale
@@ -477,8 +532,400 @@ def clustered_phase(dev, kind, card, cams, W, H, PSPP):
                       bound_ms=cl_bound[0], bound_by=cl_bound[1], library_ms=None)
 
 
+def bit_equal(a, b):
+    """Two float32 tensors equal bit for bit."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def path_depths(idx, tile=128):
+    """(share of slots with a winner, mean last live bounce, mean over warps
+    of 32 neighbouring pixels of their longest path, mean over 128-pixel
+    tiles of the depth they need) of an index tape [spp, D, N]. A path's
+    last live bounce is 1 + the depth of its last winner (0 when its
+    primary ray misses); a tile needs, as tracer/pallas/bwd.py:
+    _needed_depth_per_tile counts it, its longest path's last live bounce +
+    1 (the miss after it), at most D, over every sample."""
+    import torch
+
+    spp, depth, n = idx.shape
+    hit = idx >= 0
+    live = hit.double().mean().item()
+    steps = torch.arange(1, depth + 1, dtype=torch.int16, device=idx.device)[None, :, None]
+    last = (hit.to(torch.int16) * steps).amax(dim=1)  # [spp, N]
+    mean_last = last.double().mean().item()
+    warp = last.reshape(spp, n // 32, 32).amax(dim=-1).double().mean().item()
+    need = torch.clamp(last + 1, max=depth)
+    pad = -n % tile
+    if pad:
+        need = torch.nn.functional.pad(need, (0, pad))
+    tiles = need.reshape(spp, -1, tile).amax(dim=-1).amax(dim=0).double().mean().item()
+    return live, mean_last, warp, tiles
+
+
+def hold_deep_shape(name, scene, cam, w, h, spp, chunk, depth, g, errs, band=40):
+    """K1, K1-rec and K2 against their plain versions at one of phase 11's
+    timed shapes, on the same inputs: K1's frame (all `spp` samples) and
+    the last chunk's K1-rec tapes (13 fields textured) on 16384 pixels
+    sampled over the frame (renderer.render_pixels, the same seeds), by
+    phase 3's rules with the frame judged on its per-sample estimate; K2 on
+    that chunk's tapes against the plain replay over the last `band` rows
+    (row_offset): K2 launched on the band by compare_grads's rule, the
+    whole-grid launch's replayed frame and texel cotangents on the band's
+    pixels within TOL_GRAD of the plain version's max, and the whole-grid
+    launch's dtable and dcam against the sum of its launches on the band
+    and on the rows above it by compare_leaves's rule. Appends each
+    comparison's max|diff| to `errs[kernel entry name]`; returns the
+    verdict."""
+    import torch
+
+    from tracer_torch.kernels import bwd, replay
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import renderer
+
+    dev, tex, n = scene.device, scene.textures is not None, w * h
+    fields, start = (13 if tex else 9), spp - chunk
+    i_all, j_all, seeds = renderer.pixel_grid(w, h, device=dev)
+    sel = torch.randperm(n, generator=torch.Generator().manual_seed(0))[:16384].to(dev)
+    npx = sel.numel()
+    px = (i_all[sel], j_all[sel], seeds[sel])
+    fb = mk.render_frame_kernel(scene, cam, w, h, spp, depth).reshape(-1, 3)
+    ok = compare(f"K1 {name}: {npx} pixels vs plain (per-sample estimate)", fb[sel][:, None],
+                 renderer.render_pixels(scene, cam, *px, spp, depth)[:, None],
+                 errs["megakernel"], spp)
+    del fb
+    out = mk.render_frame_kernel_record(scene, cam, w, h, chunk, depth, sample_start=start,
+                                        tape_fields=fields)
+    want = renderer.render_pixels(scene, cam, *px, chunk, depth, sample_start=start,
+                                  tape_fields=fields)
+    got = (out[0].reshape(-1, 3)[sel][:, None], out[1][:, :, sel]) + (
+        (out[2][:, :, sel],) if tex else ())
+    want = (want[0][:, None], want[1]) + ((want[2],) if tex else ())
+    ok &= compare_record(f"K1-rec {name}, samples {start}-{spp - 1}"
+                         f"{f', {fields} fields' if tex else ''}: {npx} pixels vs plain", got,
+                         want, errs["megakernel_record"], spp=chunk)
+    del got, want
+
+    table, camv = (t.detach() for t in bwd.pack_tables(scene, cam))
+    rows, r0 = chunk * depth, h - band
+    c0 = r0 * w
+    idx2 = out[1].reshape(rows, n)
+    t2 = bwd._field_major(out[2], chunk, depth, n) if tex else None
+    g2 = torch.randn((n, 3), generator=g, device=dev)
+    cols = lambda x, a, b: None if x is None else x[:, a:b].contiguous()
+    kw = dict(sample_start=start, want_texgrad=tex)
+    full = bwd.bwd_kernel(table, camv, idx2, g2, w, chunk, depth, t2=t2, **kw)
+    b_idx, b_t2 = cols(idx2, c0, n), cols(t2, c0, n)
+    k2_band = bwd.bwd_kernel(table, camv, b_idx, g2[c0:], w, chunk, depth, t2=b_t2,
+                             row_offset=r0, **kw)
+    plain = replay.replay_cotangents(table, camv, b_idx, g2[c0:], w, chunk, depth, t2=b_t2,
+                                     row_offset=r0, **kw)
+    ok &= compare_grads(f"K2 {name}, samples {start}-{spp - 1}, rows {r0}-{h - 1} "
+                        f"(row_offset) vs the plain replay", scene, cam, k2_band, plain,
+                        out[0].reshape(-1, 3)[c0:], errs["bwd"])
+    del b_idx, b_t2
+    fb_err, fb_scale = float((full[2][c0:] - plain[2]).abs().max()), float(plain[2].abs().max())
+    col_ok = fb_err <= TOL_GRAD * fb_scale
+    errs["bwd"].append(fb_err)
+    gt = ""
+    if tex:
+        gt_err = float((full[3][:, c0:] - plain[3]).abs().max())
+        gt_scale = float(plain[3].abs().max())
+        col_ok &= gt_err <= TOL_GRAD * gt_scale and gt_scale > 0
+        errs["bwd"].append(gt_err)
+        gt = f", texel cotangents max|diff| {gt_err:.3g} (max {gt_scale:.3g})"
+    rest = bwd.bwd_kernel(table, camv, cols(idx2, 0, c0), g2[:c0], w, chunk, depth,
+                          t2=cols(t2, 0, c0), sample_start=start)
+    s_ok, s_worst, s_abs = compare_leaves(
+        bwd.leaf_names(scene, cam), bwd.leaf_cotangents(scene, cam, full[0], full[1]),
+        bwd.leaf_cotangents(scene, cam, rest[0] + k2_band[0], rest[1] + k2_band[1]))
+    errs["bwd"].append(s_abs)
+    ok &= col_ok and s_ok
+    print(f"    K2 {name}, whole grid: on rows {r0}-{h - 1} vs the plain replay, replayed frame "
+          f"max|diff| {fb_err:.3g} (max {fb_scale:.3g}){gt}; dtable and dcam vs its launches on "
+          f"rows 0-{r0 - 1} and {r0}-{h - 1} summed, worst leaf max|diff|/max|g| {s_worst:.3g} "
+          f"(<= {TOL_GRAD}) -> {'ok' if col_ok and s_ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def deep_phase(dev, kind, card, canon, canon_p, g):
+    """Phase 11: the depth-50 gradient path (scene_grads_chunked,
+    l2_grads_deep, the 3-field tape and the replay modes). Returns (error or
+    None, its main path's launches {kernel entry name: n}, its comparisons'
+    max|diff| {kernel entry name: [x, ...]})."""
+    import torch
+
+    from tracer_torch.kernels import bwd, diff, replay, tex_scatter
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import camera as C
+    from tracer_torch.render import integrator
+
+    D = 50
+    errs = {k: [] for k in ("megakernel", "megakernel_record", "bwd", "tex_scatter")}
+    cam_at = lambda w, h: C.camera_at(canon_p.camera_path, 0, canon_p.num_frames, w, h,
+                                      canon_p.fov_degrees, device=dev)
+    th, tw = canon.textures.shape[1:3]
+    print(f"[11] depth-{D} gradient path on {kind} ({card}): canonical scene + {th}x{tw} "
+          f"texture, camera path frame 0", flush=True)
+
+    # the 3-field tape: fields 0-2 of the 9-field tape, bit for bit
+    cam = cam_at(256, 192)
+    three = mk.render_frame_kernel_record(canon, cam, 256, 192, 4, 8, tape_fields=3)
+    nine = mk.render_frame_kernel_record(canon, cam, 256, 192, 4, 8, tape_fields=9)
+    ok = (bit_equal(three[0], nine[0]) and torch.equal(three[1], nine[1])
+          and bit_equal(three[2], nine[2][..., :3]) and bool((three[2] != 1.0).any()))
+    print(f"  K1-rec 3-field tape vs fields 0-2 of the 9-field tape, 256x192 spp4 d8: "
+          f"frame, index tape and texel fields bit-equal -> {'ok' if ok else 'FAIL'}", flush=True)
+    del three, nine
+    if not ok:
+        return "the 3-field tape is not the head of the 9-field tape", None, None
+
+    # chunked kernels against the one-shot kernels
+    w, h, spp = 256, 192, 8
+    cam = cam_at(w, h)
+    g_fb = torch.randn((h, w, 3), generator=g, device=dev)
+    names = bwd.leaf_names(canon, cam)
+    got = bwd.float_grads(canon, *bwd.scene_grads_chunked(canon, cam, g_fb, w, h, spp, D,
+                                                         spp_chunk=2))
+    leaves = [x.detach().clone().requires_grad_() for x in bwd.float_leaves(canon, cam)]
+    fb = diff.render_frame_diff(*bwd.with_float_leaves(canon, cam, leaves), w, h, spp, D)
+    want = torch.autograd.grad(fb, leaves, g_fb)
+    ok, worst, worst_abs = compare_leaves(names, got, want)
+    errs["bwd"].append(worst_abs)
+    print(f"  scene_grads_chunked(spp_chunk=2) vs render_frame_diff + backward, {w}x{h} spp{spp} "
+          f"d{D}: worst leaf max|diff|/max|g| {worst:.3g} (<= {TOL_GRAD}) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        return "chunked and one-shot gradients disagree", None, None
+    del fb, want, leaves
+
+    # chunked kernels against the chunked plain version, fed the same tapes
+    w, h, spp, chunk = 64, 48, 4, 2
+    cam = cam_at(w, h)
+    g_fb = torch.randn((h, w, 3), generator=g, device=dev)
+    g_scene, g_cam = bwd.scene_grads_chunked(canon, cam, g_fb, w, h, spp, D, spp_chunk=chunk,
+                                             texture_grads=True)
+    table, camv = (t.detach() for t in bwd.pack_tables(canon, cam))
+    dtable, dcam = torch.zeros_like(table), torch.zeros_like(camv)
+    dtex = torch.zeros((th, tw, 3), device=dev)
+    for c in range(spp // chunk):
+        out = mk.render_frame_kernel_record(canon, cam, w, h, chunk, D, sample_start=c * chunk,
+                                            tape_fields=13)
+        t2 = bwd._field_major(out[2], chunk, D, w * h)
+        r = replay.replay_cotangents(table, camv, out[1].reshape(chunk * D, -1),
+                                     g_fb.reshape(-1, 3), w, chunk, D, sample_start=c * chunk,
+                                     t2=t2, want_texgrad=True)
+        dtable += r[0]
+        dcam += r[1]
+        dtex += bwd.texture_image_grads(r[3], t2, chunk, D, th, tw)
+    ok, worst, worst_abs = compare_leaves(names, bwd.float_grads(canon, g_scene, g_cam),
+                                          bwd.leaf_cotangents(canon, cam, dtable, dcam))
+    t_err, t_scale = float((g_scene.textures[0] - dtex).abs().max()), float(dtex.abs().max())
+    ok &= t_err <= TOL_GRAD * t_scale and t_scale > 0
+    errs["bwd"].append(worst_abs)
+    errs["tex_scatter"].append(t_err)
+    print(f"  scene_grads_chunked(spp_chunk={chunk}, texture_grads=True) vs the plain replay and "
+          f"scatter on each chunk's tapes, {w}x{h} spp{spp} d{D}: worst leaf max|diff|/max|g| "
+          f"{worst:.3g}, texture max|diff| {t_err:.3g} (max {t_scale:.3g}) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        return "chunked kernels and chunked plain version disagree", None, None
+
+    # l2_grads_deep's loss against the loss of a K1 frame
+    target = torch.rand((h, w, 3), generator=g, device=dev)
+    loss, _, _ = bwd.l2_grads_deep(canon, cam, target, w, h, spp, D, spp_chunk=chunk)
+    ref = torch.mean((mk.render_frame_kernel(canon, cam, w, h, spp, D) / spp - target) ** 2)
+    rel = abs(float(loss) - float(ref)) / float(ref)
+    print(f"  l2_grads_deep loss {float(loss):.9g}, from a K1 frame {float(ref):.9g}: rel "
+          f"{rel:.3g} (<= 1e-6) -> {'ok' if rel <= 1e-6 else 'FAIL'}", flush=True)
+    if rel > 1e-6:
+        return "l2_grads_deep's loss is not the K1 frame's", None, None
+
+    # the replay modes against replay-kernel: the material colours' gradients
+    w, h, spp, d8 = 64, 48, 2, 8
+    cam = cam_at(w, h)
+    g_fb = torch.randn((h, w, 3), generator=g, device=dev)
+    grads = {}
+    for mode in ("replay-kernel", "replay", "replay-sample"):
+        leaves = [x.detach().clone().requires_grad_() for x in bwd.float_leaves(canon, cam)]
+        fb = diff.render_frame_diff(*bwd.with_float_leaves(canon, cam, leaves), w, h, spp, d8,
+                                    mode=mode)
+        grads[mode] = torch.autograd.grad(fb, leaves, g_fb)
+    colours = [k for k, n in enumerate(names) if n in ("materials.albedo", "materials.emit")]
+    for mode in ("replay", "replay-sample"):
+        ok, worst, _ = compare_leaves([names[k] for k in colours],
+                                      [grads[mode][k] for k in colours],
+                                      [grads["replay-kernel"][k] for k in colours])
+        rest = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(grads[mode], grads["replay-kernel"]))
+        print(f"  mode {mode!r} vs 'replay-kernel', {w}x{h} spp{spp} d{d8}: materials.albedo and "
+              f"emit worst max|diff|/max|g| {worst:.3g} (<= {TOL_GRAD}); every leaf {rest:.3g} "
+              f"-> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            return f"mode {mode!r} and replay-kernel disagree on the material colours", None, None
+    del grads, leaves, fb
+
+    # the main path of this phase: one l2_grads_deep with texture-image
+    # gradients at 800x600 spp32 d50, chunks of 8 (13-field tapes of more
+    # than 2^31 elements)
+    w, h, spp, chunk = 800, 600, 32, 8
+    cam = cam_at(w, h)
+    truth = canon._replace(materials=canon.materials._replace(albedo=canon.materials.albedo * 0.85))
+    target = mk.render_frame_kernel(truth, cam, w, h, spp, D) / spp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    mk.LAUNCHES = mk.LAUNCHES_RECORD = mk.LAUNCHES_CLUSTERED = 0
+    bwd.LAUNCHES = tex_scatter.LAUNCHES = 0
+    t0 = time.perf_counter()
+    loss, g_scene, g_cam = bwd.l2_grads_deep(canon, cam, target, w, h, spp, D, spp_chunk=chunk,
+                                             texture_grads=True)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = dict(megakernel=mk.LAUNCHES, megakernel_record=mk.LAUNCHES_RECORD,
+                    bwd=bwd.LAUNCHES, tex_scatter=tex_scatter.LAUNCHES,
+                    megakernel_clustered=mk.LAUNCHES_CLUSTERED)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    tape13 = mk.tape_bytes(w, h, chunk, D, 13, True)
+    flat = bwd.float_grads(canon, g_scene, g_cam)
+    finite = math.isfinite(float(loss)) and all(bool(torch.isfinite(x).all()) for x in flat)
+    tex_nz = float((g_scene.textures != 0).double().mean())
+    print(f"  main path: l2_grads_deep(texture_grads=True) at {w}x{h} spp{spp} d{D}, spp_chunk "
+          f"{chunk}: loss {float(loss):.9g}, {step_s * 1e3:.3f} ms (host clock, first call); "
+          f"launches {launches}; gradients finite {finite}, {tex_nz:.4f} of texels touched; "
+          f"a chunk's tapes {tape13} bytes ({13 * chunk * D * w * h} texture-tape elements), "
+          f"peak device memory above the inputs {peak} bytes", flush=True)
+    want = dict(megakernel=1, megakernel_record=spp // chunk, bwd=spp // chunk,
+                tex_scatter=spp // chunk, megakernel_clustered=0)
+    if launches != want:
+        return f"the d{D} main path launched {launches}, not {want}", None, None
+    if not finite or tex_nz == 0.0:
+        return f"the d{D} gradients are not finite, or the texture got none", None, None
+    del g_scene, g_cam, flat
+
+    # one chunk's 13-field tape past 2^31 elements: fields 0-8 are the
+    # 9-field tape's bit for bit, the addressing fields 9-12 fetch the
+    # recorded texel, and K3 agrees with the plain scatter on them
+    out13 = mk.render_frame_kernel_record(canon, cam, w, h, chunk, D, tape_fields=13)
+    out9 = mk.render_frame_kernel_record(canon, cam, w, h, chunk, D, tape_fields=9)
+    ok = (bit_equal(out13[0], out9[0]) and torch.equal(out13[1], out9[1])
+          and bit_equal(out13[2][..., :9], out9[2]))
+    del out9
+    tex0 = canon.textures[0]
+    fetched = worst_fetch = 0
+    for s in range(chunk):
+        f = out13[2][s].reshape(-1, 13)
+        sel = f[:, 9:].ne(0).any(dim=1)
+        f = f[sel]
+        x0, y0, fu, fv = f[:, 9].long(), f[:, 10].long(), f[:, 11:12], f[:, 12:13]
+        x1, y1 = torch.where(x0 + 1 < tw, x0 + 1, 0), torch.where(y0 + 1 < th, y0 + 1, 0)
+        top = tex0[y0, x0] * (1.0 - fu) + tex0[y0, x1] * fu
+        bot = tex0[y1, x0] * (1.0 - fu) + tex0[y1, x1] * fu
+        err = float((top * (1.0 - fv) + bot * fv - f[:, :3]).abs().max()) if len(f) else 0.0
+        fetched += len(f)
+        worst_fetch = max(worst_fetch, err)
+    ok &= fetched > 0 and worst_fetch <= 1e-5
+    table, camv = (t.detach() for t in bwd.pack_tables(canon, cam))
+    t2 = bwd._field_major(out13[2], chunk, D, w * h)
+    idx2 = out13[1].reshape(chunk * D, -1)
+    g2 = torch.randn((w * h, 3), generator=g, device=dev)
+    gtex = bwd.bwd_kernel(table, camv, idx2, g2, w, chunk, D, t2=t2, want_texgrad=True)[3]
+    k3 = tex_scatter.texture_image_grads_kernel(gtex, t2, chunk, D, th, tw)
+    plain3 = bwd.texture_image_grads(gtex, t2, chunk, D, th, tw)
+    k3_ok = torch.allclose(k3, plain3, rtol=1e-5, atol=1e-5) and float(plain3.abs().max()) > 0
+    errs["tex_scatter"].append(float((k3 - plain3).abs().max()))
+    ok &= k3_ok
+    print(f"  one chunk's 13-field tape at {w}x{h} spp{chunk} d{D} ({t2.numel()} elements): "
+          f"fields 0-8 bit-equal to the 9-field tape's; {fetched} textured slots' addressing "
+          f"fetches their texel to {worst_fetch:.3g} (<= 1e-5); K3 vs the plain scatter max|diff| "
+          f"{float((k3 - plain3).abs().max()):.3g} -> {'ok' if ok else 'FAIL'}", flush=True)
+    del out13, t2, idx2, gtex, k3, plain3
+    if not ok:
+        return "the 13-field tape past 2^31 elements is wrong", None, None
+
+    # times: l2_grads_deep best of 3 (host clock), each kernel best of 3
+    # (CUDA events) at its shape in the step; the tapes' live slots
+    untex = canon._replace(textures=None)
+    print(f"  times on {kind} ({card}), best of 3 after the main path's warm-up:", flush=True)
+    print(f"    shape | fwd+bwd ms | fwd+bwd Mrays/s | K1 ms | K1 ms at spp{chunk} | K1-rec ms a "
+          f"chunk | the tapes' neutral fill ms a chunk | K2 ms a chunk | chunks | a chunk's tapes "
+          f"bytes | launches K1/K1-rec/K2 | peak bytes", flush=True)
+    stats, checks = {}, []
+    for name, scene, w, h, spp, tex in (("800x600 spp32 d50 textured", canon, 800, 600, 32, True),
+                                        ("1080x720 spp64 d50 untextured", untex, 1080, 720, 64,
+                                         False)):
+        cam = cam_at(w, h)
+        truth = scene._replace(materials=scene.materials._replace(
+            albedo=scene.materials.albedo * 0.85))
+        target = mk.render_frame_kernel(truth, cam, w, h, spp, D) / spp
+        step_s = math.inf
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            mk.LAUNCHES = mk.LAUNCHES_RECORD = bwd.LAUNCHES = 0
+            t0 = time.perf_counter()
+            bwd.l2_grads_deep(scene, cam, target, w, h, spp, D, spp_chunk=chunk)
+            torch.cuda.synchronize()
+            step_s = min(step_s, time.perf_counter() - t0)
+        counts = (mk.LAUNCHES, mk.LAUNCHES_RECORD, bwd.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        k1_ms = cuda_ms(lambda: mk.render_frame_kernel(scene, cam, w, h, spp, D), reps=3)
+        k1c_ms = cuda_ms(lambda: mk.render_frame_kernel(scene, cam, w, h, chunk, D), reps=3)
+        rec_ms = cuda_ms(lambda: mk.render_frame_kernel_record(scene, cam, w, h, chunk, D),
+                         reps=3)
+        # the tapes' neutral fill alone, as megakernel._record makes them
+        fill = lambda: (
+            torch.full((chunk, D, w * h), -1, dtype=torch.int32, device=dev),
+            torch.tensor(integrator.TAPE_NEUTRAL[:9], device=dev)[:, None, None, None]
+            .expand(9, chunk, D, w * h).contiguous() if tex else None)
+        fill_ms = cuda_ms(fill, reps=3)
+        out = mk.render_frame_kernel_record(scene, cam, w, h, chunk, D)
+        table, camv = (t.detach() for t in bwd.pack_tables(scene, cam))
+        idx2 = out[1].reshape(chunk * D, -1)
+        t2 = bwd._field_major(out[2], chunk, D, w * h) if tex else None
+        g2 = torch.randn((w * h, 3), generator=g, device=dev)
+        k2_ms = cuda_ms(lambda: bwd.bwd_kernel(table, camv, idx2, g2, w, chunk, D, t2=t2), reps=3)
+        stats[name] = path_depths(out[1])
+        rays = w * h * spp
+        print(f"    {name} | {step_s * 1e3:.3f} | {rays / step_s / 1e6:.3f} | {k1_ms:.3f} | "
+              f"{k1c_ms:.3f} | {rec_ms:.3f} | {fill_ms:.3f} | {k2_ms:.3f} | {spp // chunk} | "
+              f"{mk.tape_bytes(w, h, chunk, D, 9, tex)} | {'/'.join(map(str, counts))} | {peak}",
+              flush=True)
+        del out, idx2, t2, target
+        checks.append((name, scene, cam, w, h, spp))
+    # the same chunk at depth 8: K2's time where no path outlives bounce 8
+    cam = cam_at(800, 600)
+    out = mk.render_frame_kernel_record(canon, cam, 800, 600, chunk, 8)
+    table, camv = (t.detach() for t in bwd.pack_tables(canon, cam))
+    idx2 = out[1].reshape(chunk * 8, -1)
+    t2 = bwd._field_major(out[2], chunk, 8, 800 * 600)
+    g2 = torch.randn((800 * 600, 3), generator=g, device=dev)
+    k2_d8 = cuda_ms(lambda: bwd.bwd_kernel(table, camv, idx2, g2, 800, chunk, 8, t2=t2), reps=3)
+    print(f"    K2 on a chunk of 8 samples at 800x600 d8 textured: {k2_d8:.3f} ms", flush=True)
+    stats["800x600 spp8 d8 textured"] = path_depths(out[1])
+    del out, idx2, t2
+    print("    tape slots (one chunk of 8 samples, camera frame 0) | with a winner | mean last live "
+          "bounce | mean over 32-pixel warps of the longest | mean over 128-pixel tiles of the "
+          "depth needed (tracer/pallas/bwd.py:_needed_depth_per_tile)", flush=True)
+    for name, (live, last, warp, tiles) in stats.items():
+        print(f"    {name} | {live:.6f} | {last:.4f} | {warp:.4f} | {tiles:.4f}", flush=True)
+    print(f"    card: {card}", flush=True)
+
+    # K1, K1-rec and K2 against their plain versions at the timed shapes
+    print("  K1, K1-rec and K2 vs plain at the timed shapes, camera frame 0:", flush=True)
+    for name, scene, cam, w, h, spp in checks:
+        if not hold_deep_shape(name, scene, cam, w, h, spp, chunk, D, g, errs):
+            return f"a kernel and its plain version disagree at {name}", None, None
+    return None, launches, errs
+
+
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     # ---- 1. device ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -772,7 +1219,7 @@ def main() -> int:
     print(f"[6] main gradient path: fit(engine='cuda') on the canonical scene + 1330x2000 "
           f"texture, {GW}x{GH} spp{GSPP} d{GD}, {STEPS} Adam steps on {','.join(paths)} "
           f"toward a target from albedo*0.85, centres+0.02; reduced: depth 50 -> {GD} "
-          f"(tape memory: the d50 tapes wait for the chunked backward)", flush=True)
+          f"(the one-shot tapes; phase 11 takes the d50 gradients in spp chunks)", flush=True)
     mk.LAUNCHES_RECORD = bwd.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -954,6 +1401,11 @@ def main() -> int:
     if err:
         return fail(err)
 
+    # ---- 11. the depth-50 gradient path ------------------------------------
+    err, deep_launches, deep_errs = deep_phase(dev, kind, card, canon, canon_p, g)
+    if err:
+        return fail(err)
+
     kernels = [
         dict(name="megakernel", route="cuda", source="tracer_torch/csrc/megakernel.cu",
              replaces="tracer/pallas/kernels.py:33", launches=launches, max_abs_err=max_abs_err,
@@ -972,6 +1424,10 @@ def main() -> int:
              bound_by=k3_bound[1], library_ms=lib_ms),
         cl_entry,
     ]
+    for k in kernels:  # each kernel's launches on phase 11's main path, and its checks there
+        k["launches_d50"] = deep_launches[k["name"]]
+        k["max_abs_err"] = max([k["max_abs_err"], *deep_errs.get(k["name"], [])])
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

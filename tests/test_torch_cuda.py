@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from tracer_torch.kernels import bwd, megakernel, replay, tex_scatter
+from tracer_torch.kernels import bwd, diff, megakernel, replay, tex_scatter
 from tracer_torch.render import camera, renderer
 from tracer_torch.scene import builders, config
 
@@ -425,3 +425,91 @@ def test_backward_grid_is_one_wave_of_resident_blocks(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert bwd.grid_blocks(1200, True, table.shape[1], dev) == 10
     assert bwd.grid_blocks(800 * 600, True, table.shape[1], dev) == sms * per_sm
+
+
+# ---- the depth-independent gradient path and the replay modes -------------
+
+def _full_cam(dev, w, h):
+    return camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], w, h, 55.0,
+                                    background=SKY, device=dev)
+
+
+def test_record_kernel_three_field_tape_is_the_nine_field_head(dev):
+    scene, cam = full_scene(dev), _full_cam(dev, 64, 48)
+    three = megakernel.render_frame_kernel_record(scene, cam, 64, 48, 4, 8, rr_start=3,
+                                                  tape_fields=3)
+    nine = megakernel.render_frame_kernel_record(scene, cam, 64, 48, 4, 8, rr_start=3,
+                                                 tape_fields=9)
+    bits = lambda t: t.contiguous().view(torch.int32)
+    assert torch.equal(bits(three[0]), bits(nine[0])) and torch.equal(three[1], nine[1])
+    assert torch.equal(bits(three[2]), bits(nine[2][..., :3]))
+    assert (three[2] != 1.0).any()
+
+
+def test_record_kernel_zero_fields_is_the_index_tape_alone(dev):
+    scene, cam = full_scene(dev), _full_cam(dev, 64, 48)
+    zero = megakernel.render_frame_kernel_record(scene, cam, 64, 48, 4, 8, rr_start=3,
+                                                 tape_fields=0)
+    nine = megakernel.render_frame_kernel_record(scene, cam, 64, 48, 4, 8, rr_start=3,
+                                                 tape_fields=9)
+    bits = lambda t: t.contiguous().view(torch.int32)
+    assert len(zero) == 2
+    assert torch.equal(bits(zero[0]), bits(nine[0])) and torch.equal(zero[1], nine[1])
+
+
+@pytest.mark.parametrize("texture_grads", [False, True], ids=["9-fields", "13-fields"])
+def test_chunked_kernels_match_one_shot(dev, texture_grads):
+    """scene_grads_chunked on the card against render_frame_diff's one-shot
+    backward: the chunks record the same paths, so every leaf agrees to 1e-4
+    of its max|g| (atomic addition order)."""
+    scene, cam = full_scene(dev), _full_cam(dev, 40, 30)
+    g_fb = torch.randn((30, 40, 3), generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    before = (megakernel.LAUNCHES_RECORD, bwd.LAUNCHES, tex_scatter.LAUNCHES)
+    g_scene, g_cam = bwd.scene_grads_chunked(scene, cam, g_fb, 40, 30, 4, 12, spp_chunk=2,
+                                             rr_start=3, texture_grads=texture_grads)
+    assert (megakernel.LAUNCHES_RECORD, bwd.LAUNCHES, tex_scatter.LAUNCHES) == (
+        before[0] + 2, before[1] + 2, before[2] + 2 * texture_grads)
+    leaves = [x.detach().clone().requires_grad_() for x in bwd.float_leaves(scene, cam)]
+    sc, cm = bwd.with_float_leaves(scene, cam, leaves)
+    if texture_grads:
+        sc = sc._replace(textures=sc.textures.detach().clone().requires_grad_())
+        leaves.append(sc.textures)
+    fb = diff.render_frame_diff(sc, cm, 40, 30, 4, 12, rr_start=3, texture_grads=texture_grads)
+    want = torch.autograd.grad(fb, leaves, g_fb)
+    got = bwd.float_grads(scene, g_scene, g_cam) + ([g_scene.textures] if texture_grads else [])
+    for name, a, b in zip(bwd.leaf_names(scene, cam) + ["textures"], got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+
+
+def test_l2_grads_deep_loss_is_the_kernel_frame_loss(dev):
+    scene, cam = full_scene(dev), _full_cam(dev, 40, 30)
+    target = torch.rand((30, 40, 3), generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    before = megakernel.LAUNCHES
+    loss, g_scene, g_cam = bwd.l2_grads_deep(scene, cam, target, 40, 30, 4, 50, spp_chunk=2,
+                                             fwd_spp_chunk=2)
+    assert megakernel.LAUNCHES == before + 2
+    fb = megakernel.render_frame_kernel(scene, cam, 40, 30, 4, 50)
+    np.testing.assert_allclose(float(loss), float(torch.mean((fb / 4 - target) ** 2)), rtol=1e-5)
+    assert all(bool(torch.isfinite(x).all()) for x in bwd.float_grads(scene, g_scene, g_cam))
+
+
+@pytest.mark.parametrize("mode", ["replay", "replay-sample"])
+def test_replay_modes_on_the_card(dev, mode):
+    """The plain replay backward on CUDA tensors (no backward-kernel
+    launch): the material colours' gradients equal replay-kernel's."""
+    scene, cam = full_scene(dev), _full_cam(dev, 40, 30)
+    g_fb = torch.randn((30, 40, 3), generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev)
+    grads = {}
+    for m in ("replay-kernel", mode):
+        leaves = [x.detach().clone().requires_grad_() for x in bwd.float_leaves(scene, cam)]
+        before = bwd.LAUNCHES
+        fb = diff.render_frame_diff(*bwd.with_float_leaves(scene, cam, leaves), 40, 30, 2, 8,
+                                    mode=m, rr_start=3)
+        grads[m] = dict(zip(bwd.leaf_names(scene, cam), torch.autograd.grad(fb, leaves, g_fb)))
+        assert bwd.LAUNCHES == before + (m == "replay-kernel")
+    for name in ("materials.albedo", "materials.emit"):
+        a, b = grads[mode][name], grads["replay-kernel"][name]
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name

@@ -95,6 +95,15 @@ def test_cli_bad_config_exits_2(text, monkeypatch, capsys):
     assert capsys.readouterr().err.startswith("tracer: bad config:")
 
 
+def test_cli_retries_zero_renders(tmp_path, capsys):
+    """--retries 0, tracer's default, retries nothing: the frame renders."""
+    cfg = _small_config(tmp_path)
+    assert cli.main(["--cpu", "--config", str(cfg), "--retries", "0"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1 and TSV.match(lines[0]).group(1) == "0"
+    assert image_io.read_binary(str(tmp_path / "out_0.bin")).any()
+
+
 UNPORTED = [
     ["--bvh"], ["--ref-rng"], ["--stratify"], ["--fast-math"], ["--retries", "2"],
     ["--backend", "tpu"],

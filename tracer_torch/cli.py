@@ -31,7 +31,7 @@ _UNPORTED = {
     "--ref-rng": lambda a: a.ref_rng,
     "--stratify": lambda a: a.stratify,
     "--fast-math": lambda a: a.fast_math,
-    "--retries": lambda a: a.retries is not None,
+    "--retries": lambda a: a.retries > 0,  # 0, the default, retries nothing
     "--backend tpu": lambda a: a.backend == "tpu",
 }
 
@@ -73,7 +73,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--ref-rng", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--stratify", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--fast-math", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--retries", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--retries", type=int, default=0, help=argparse.SUPPRESS)
     return p
 
 

@@ -635,7 +635,8 @@ int launch_mode(const Launch& L, bool smem, cudaStream_t st) {
 // Plain C entry point, loaded with ctypes by tracer_torch/kernels/megakernel.py.
 // mode 0 renders (K1), 1 records (K1-rec: idx_tape [spp*max_depth,
 // width*height] and tex_tape [tape_f*spp*max_depth, width*height], nullptr
-// when tex is, come filled with their neutral values; tape_f is 9 or 13),
+// when tex is or tape_f is 0, come filled with their neutral values; tape_f
+// is 0, 3, 9 or 13),
 // 2 renders cluster-culled (K1-cl: nodes [num_nodes, 2] float4 records and
 // slots [clusters * k] as tracer_torch/kernels/cluster.py packs them). sph
 // and pla are 16-byte aligned record tables (tracer_torch/kernels/pack.py);

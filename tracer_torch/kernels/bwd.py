@@ -17,6 +17,12 @@ maps the kernel's `dtable` / `dcam` back onto the scene and camera leaves
 `texture_image_grads` is the plain version of the texture-gradient scatter
 (tracer_torch.kernels.tex_scatter holds its kernel). `LAUNCHES` counts the
 backward kernel's launches.
+
+`scene_grads_chunked` and `l2_grads_deep` (tracer/pallas/bwd.py:937,
+:1012) take gradients at any depth, the reference's 50 included, with
+tape memory bounded by an spp chunk: each chunk is recorded by the record
+kernel and back-propagated by the backward kernel, and its tapes are
+freed before the next chunk is recorded.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import functools
 import torch
 
 from tracer_torch.core import vec
-from tracer_torch.kernels import nvcc
+from tracer_torch.kernels import megakernel, nvcc
 from tracer_torch.kernels import pack as P
 from tracer_torch.kernels import replay
 from tracer_torch.render import camera as camera_mod
@@ -122,6 +128,9 @@ def band_cotangents(table, camv, idx, g_fb, width: int, band_rows: int, spp: int
     idx2 = idx.reshape(rows, n)
     g2 = g_fb.reshape(n, 3).to(torch.float32)
     t2 = None if tex_tape is None else _field_major(tex_tape, spp, max_depth, n)
+    if t2 is not None and t2.shape[0] not in (9 * rows, 13 * rows):
+        raise ValueError(f"the backward takes a 9- or 13-field texture tape, got "
+                         f"{t2.shape[0] // rows} fields")
     if texture_grads:
         if t2 is None or t2.shape[0] != 13 * rows or tex_shape is None:
             raise ValueError("texture_grads needs a 13-field tape and tex_shape")
@@ -224,6 +233,114 @@ def scene_cam_grads(scene: Scene, cam: camera_mod.CameraData, idx, g_fb, width: 
             g_tex[0] += dtex
         g_scene = g_scene._replace(textures=g_tex)
     return g_scene, g_cam, fb
+
+
+def float_grads(scene: Scene, g_scene: Scene, g_cam) -> list:
+    """The gradients of `float_leaves(scene, cam)` out of a (d(scene),
+    d(cam)) pair, in that order."""
+    return [getattr(g_scene, g)[k] for g in _GROUPS for k, x in enumerate(getattr(scene, g))
+            if x.is_floating_point()] + list(g_cam)
+
+
+def _add_grads(a, b):
+    """Sum two (d(scene), d(cam)) pairs leaf by leaf; None (the integer
+    leaves) stays None."""
+    add = lambda x, y: None if x is None else x + y
+    g_scene = a[0]._replace(**{g: getattr(a[0], g)._make(
+        map(add, getattr(a[0], g), getattr(b[0], g))) for g in _GROUPS},
+        textures=add(a[0].textures, b[0].textures))
+    return g_scene, type(a[1])(*map(add, a[1], b[1]))
+
+
+def scene_grads_chunked(scene: Scene, cam: camera_mod.CameraData, g_fb, width: int,
+                        height: int, spp: int, max_depth: int, spp_chunk: int = 4,
+                        reference_quirk: bool = True, rr_start=None,
+                        texture_grads: bool = False):
+    """(d(scene), d(cam)) for the cotangent `g_fb` `[H, W, 3]` on the raw
+    sample sums of `spp` samples, with tape memory bounded by `spp_chunk`
+    (tracer/pallas/bwd.py:scene_grads_chunked).
+
+    Samples are independent, so each chunk's output cotangent is `g_fb`
+    unchanged: chunk c is recorded by `megakernel.render_frame_kernel_record
+    (..., sample_start=c * spp_chunk)` (9 texture fields on a textured
+    scene, 13 with `texture_grads`) and back-propagated by `scene_cam_grads`
+    with the same `sample_start`, and the chunks' gradients are summed
+    (None stays None for the integer leaves). Each chunk's tapes are freed
+    before the next is recorded, so that the peak tape memory is one
+    chunk's (`megakernel.tape_bytes(width, height, spp_chunk, ...)`). The
+    sum equals the one-shot gradients up to float32 addition order.
+
+    Dispatch goes by the scene's device, as its two calls' does: the plain
+    versions for CPU tensors, the kernels for CUDA tensors.
+
+    The JAX function's TPU knobs are left out: `interpret`, `fast_math`,
+    and the depth buckets (`bucketed`, `scene_grads_bucketed`,
+    `_needed_depth_per_tile`), which skip a tile's dead tape rows because
+    the TPU kernel's unrolled bounces cannot. The backward kernel stops
+    each path at its last bounce, and its scratch holds 10 floats a bounce
+    only up to where the path dies (csrc/bwd.cu); whether depth buckets
+    would still pay on the GPU is measured by chip_smoke.py (phase 11:
+    the share of tape slots with a winner and the last live bounce), not
+    assumed."""
+    if not (isinstance(spp_chunk, int) and spp_chunk > 0 and spp % spp_chunk == 0):
+        raise ValueError(f"spp_chunk must be a positive int dividing spp {spp}, "
+                         f"got {spp_chunk!r}")
+    texture_grads = bool(texture_grads) and scene.textures is not None
+    total = None
+    for c in range(spp // spp_chunk):
+        start = c * spp_chunk
+        out = megakernel.render_frame_kernel_record(
+            scene, cam, width, height, spp_chunk, max_depth, reference_quirk=reference_quirk,
+            rr_start=rr_start, sample_start=start, tape_fields=13 if texture_grads else 9)
+        idx, tex = out[1], (out[2] if len(out) == 3 else None)
+        del out
+        part = scene_cam_grads(scene, cam, idx, g_fb, width, height, spp_chunk, max_depth,
+                               reference_quirk=reference_quirk, rr_start=rr_start,
+                               sample_start=start, tex_tape=tex,
+                               texture_grads=texture_grads)[:2]
+        del idx, tex  # this chunk's tapes go before the next chunk's are made
+        total = part if total is None else _add_grads(total, part)
+    return total
+
+
+def l2_grads_deep(scene: Scene, cam: camera_mod.CameraData, target, width: int, height: int,
+                  spp: int, max_depth: int, spp_chunk: int = 4, reference_quirk: bool = True,
+                  rr_start=None, fwd_spp_chunk=None, texture_grads: bool = False):
+    """(loss, d(scene), d(cam)) of `mean((fb / spp - target) ** 2)` at any
+    depth (tracer/pallas/bwd.py:l2_grads_deep); `target` is `[H, W, 3]`.
+
+    The loss frame `fb` is rendered first by the forward kernel
+    (`megakernel.render_frame_kernel`; with `fwd_spp_chunk` < spp, as a sum
+    of frames of that many samples each, through `sample_start`); its
+    cotangent then goes to `scene_grads_chunked`. The loss is a 0-d
+    float32 tensor on the scene's device.
+
+    `fwd_spp_chunk` is kept for parity with tracer's API, where it bounds
+    the length of one TPU dispatch: on the card the forward kernel holds
+    no tapes, so splitting it buys nothing, and no caller in this package
+    passes it."""
+    if fwd_spp_chunk and fwd_spp_chunk < spp:
+        if spp % fwd_spp_chunk:
+            raise ValueError(f"fwd_spp_chunk {fwd_spp_chunk} does not divide spp {spp}")
+        fb = None
+        for c in range(spp // fwd_spp_chunk):
+            part = megakernel.render_frame_kernel(
+                scene, cam, width, height, fwd_spp_chunk, max_depth,
+                reference_quirk=reference_quirk, rr_start=rr_start,
+                sample_start=c * fwd_spp_chunk)
+            fb = part if fb is None else fb + part
+    else:
+        fb = megakernel.render_frame_kernel(scene, cam, width, height, spp, max_depth,
+                                            reference_quirk=reference_quirk, rr_start=rr_start)
+    target = torch.as_tensor(target, dtype=torch.float32, device=fb.device)
+    err = fb / spp - target
+    loss = torch.mean(err * err)
+    g_fb = err * (2.0 / (spp * err.numel()))
+    del fb, err
+    g_scene, g_cam = scene_grads_chunked(
+        scene, cam, g_fb, width, height, spp, max_depth, spp_chunk,
+        reference_quirk=reference_quirk, rr_start=rr_start, texture_grads=texture_grads)
+    return loss, g_scene, g_cam
 
 
 # ---- the CUDA kernel ---------------------------------------------------------

@@ -258,8 +258,8 @@ def render_frame_kernel_record(scene, cam, width: int, height: int, spp: int, ma
                                reference_quirk: bool = True, rr_start=None,
                                sample_start: int = 0, tape_fields: int = 9):
     """The recording forward: (fb `[H, W, 3]`, idx `[spp, D, H*W]` int32)
-    for an untextured scene and (fb, idx, tex `[spp, D, H*W, F]`) for a
-    textured one, with the contract of
+    for an untextured scene or `tape_fields=0` and (fb, idx, tex `[spp, D,
+    H*W, F]`) for a textured one, with the contract of
     `tracer_torch.render.renderer.render_frame_record`, which it calls for
     a scene on the CPU. For a CUDA scene the tex tape it returns is a view
     of a field-major `[F, spp, D, H*W]` tensor, the layout the backward
@@ -290,7 +290,7 @@ def _record(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     idx = torch.full((spp, max_depth, npx), -1, dtype=torch.int32, device=device)
     ttape = None
-    if tex is not None:
+    if tex is not None and tape_fields:
         neutral = torch.tensor(integrator.TAPE_NEUTRAL[:tape_fields], device=device)
         ttape = neutral[:, None, None, None].expand(tape_fields, spp, max_depth, npx).contiguous()
     err = _launch(MODE_RECORD, scene, cam, tex, out, width, height, spp, max_depth,

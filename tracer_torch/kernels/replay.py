@@ -18,12 +18,29 @@ ahead of a long hop onto a noisy texture) gets the same gradient from
 both: inner products summed x, y, z in that order, `1 / sqrt` for the
 unit direction, and Schlick's fifth power as `x2 * x2 * x`.
 
-With a 9- or 13-field texture tape the texel is linearised around the
-recorded hit, `mult = T + dT/du (u - sg u) + dT/dv (v - sg v)`: the value
-is the recorded texel, the gradient carries d(texel)/d(uv). u and v are
-recomputed from the hit point: planes from their A/B frame rows, spheres
-from the outward normal with atan2/acos (analytic derivatives; pole and
-off-case lanes get constant inputs, so derivative 0).
+A textured hit's multiplier comes from one of three sources, by what the
+caller passes:
+
+  - a 9- or 13-field texture tape (`t2`, the backward kernel's replay):
+    the texel is linearised around the recorded hit,
+    `mult = T + dT/du (u - sg u) + dT/dv (v - sg v)`: the value is the
+    recorded texel, the gradient carries d(texel)/d(uv);
+  - a 3-field tape (mode "replay", the frozen texel): `mult = T`, the
+    recorded texel as a constant, with no d(texel)/d(uv) term;
+  - no tape and the scene's texture layers (`textures`, mode
+    "replay-sample", live sampling): `mult` is the bilinear sample
+    (tracer_torch.materials.texture.sample_bilinear) of the layer the
+    winner's `tex_id` row names, at the replayed (u, v). The caller
+    passes the image detached, so d(texel)/d(uv) flows and nothing
+    reaches the image.
+
+u and v are recomputed from the hit point: planes from their A/B frame
+rows (the projection form `A.h - A.base`), spheres from the outward
+normal with atan2/acos (analytic derivatives; pole and off-case lanes get
+constant inputs, so derivative 0, and the polar clamp of v is 1e-6 inside
+[-1, 1]). The forward computes them in the direct form, so the sampled
+texel may differ from the recorded one by the texture's slope times a
+last-bit change of (u, v).
 """
 
 from __future__ import annotations
@@ -34,6 +51,7 @@ import torch
 
 from tracer_torch.core import rng, vec
 from tracer_torch.kernels import pack as J
+from tracer_torch.materials import texture as texture_mod
 from tracer_torch.materials.scatter import max3
 from tracer_torch.render.integrator import roulette_p
 from tracer_torch.scene.types import K_INFINITY
@@ -57,10 +75,31 @@ def _dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
-def _bounce(rec, bg, state, hit, seed, alive, tm, tm3, rr_start, depth):
+def _hit_uv(rec, o, d, t, hit, c, rad, is_sph, textured):
+    """(u, v) `[n]` of the recorded winner's hit, differentiable (see the
+    module docstring)."""
+    t_hit = torch.where(hit, t, 1.0)
+    h = o + t_hit[..., None] * d
+    g = lambda r: rec[J.JROWS + r]
+    u_p = g(J.G_AX) * h[:, 0] + g(J.G_AY) * h[:, 1] + g(J.G_AZ) * h[:, 2] - g(J.G_BA)
+    v_p = g(J.G_BX) * h[:, 0] + g(J.G_BY) * h[:, 1] + g(J.G_BZ) * h[:, 2] - g(J.G_BB)
+    sph_tex = textured & is_sph
+    on = (h - c) * (1.0 / rad)[..., None]
+    r2_ok = sph_tex & (on[:, 0] * on[:, 0] + on[:, 2] * on[:, 2] > 1e-12)
+    onx = torch.where(r2_ok, on[:, 0], 1.0)
+    onz = torch.where(r2_ok, on[:, 2], 0.0)
+    ony = _mn(_mx(torch.where(sph_tex, on[:, 1], 0.0), -1.0 + 1e-6), 1.0 - 1e-6)
+    u_s = (torch.atan2(-onz, onx) + math.pi) / (2.0 * math.pi)
+    v_s = torch.acos(ony) / math.pi
+    return torch.where(is_sph, u_s, u_p), torch.where(is_sph, v_s, v_p)
+
+
+def _bounce(rec, bg, state, hit, seed, alive, tm, tm3, rr_start, depth, textures=None):
     """One differentiable replay bounce (bwd.py:_bounce_fn + kernel_lib.py:
     _shade) over `[n]` lanes. `rec` is the winner's table column `[TROWS,
-    n]` (zero on misses), `state` = (o, d, beta, final) `[n, 3]` each.
+    n]` (zero on misses), `state` = (o, d, beta, final) `[n, 3]` each;
+    `tm` the slot's tape fields `[n, F]` or None, `textures` the image
+    layers to sample live when there is no tape (or None).
     Returns (state, seed, live)."""
     o, d, beta, final = state
     row = lambda r: rec[r]
@@ -90,30 +129,20 @@ def _bounce(rec, bg, state, hit, seed, alive, tm, tm3, rr_start, depth):
     t = torch.where(hit, torch.where(is_sph, t_s, t_p), K_INFINITY)
 
     albedo = torch.stack([row(J.J_ALB0), row(J.J_ALB1), row(J.J_ALB2)], dim=-1)
-    if tm is not None:
+    if tm is not None and tm.shape[-1] == 3:  # the frozen texel
+        albedo = albedo * tm
+    elif tm is not None or textures is not None:
         textured = hit & (row(J.J_TEXID) > -0.5)
-        if tm3 is not None:
-            mult = torch.where(textured[..., None], tm3, 1.0)
-        else:
-            mult = tm[:, 0:3]
-        t_hit = torch.where(hit, t, 1.0)
-        h = o + t_hit[..., None] * d
-        g = lambda r: rec[J.JROWS + r]
-        u_p = g(J.G_AX) * h[:, 0] + g(J.G_AY) * h[:, 1] + g(J.G_AZ) * h[:, 2] - g(J.G_BA)
-        v_p = g(J.G_BX) * h[:, 0] + g(J.G_BY) * h[:, 1] + g(J.G_BZ) * h[:, 2] - g(J.G_BB)
-        sph_tex = textured & is_sph
-        on = (h - c) * (1.0 / rad)[..., None]
-        r2_ok = sph_tex & (on[:, 0] * on[:, 0] + on[:, 2] * on[:, 2] > 1e-12)
-        onx = torch.where(r2_ok, on[:, 0], 1.0)
-        onz = torch.where(r2_ok, on[:, 2], 0.0)
-        ony = _mn(_mx(torch.where(sph_tex, on[:, 1], 0.0), -1.0 + 1e-6), 1.0 - 1e-6)
-        u_s = (torch.atan2(-onz, onx) + math.pi) / (2.0 * math.pi)
-        v_s = torch.acos(ony) / math.pi
-        u_r = torch.where(is_sph, u_s, u_p)
-        v_r = torch.where(is_sph, v_s, v_p)
-        du = (u_r - u_r.detach())[..., None]
-        dv = (v_r - v_r.detach())[..., None]
-        mult = mult + tm[:, 3:6] * du + tm[:, 6:9] * dv
+        u_r, v_r = _hit_uv(rec, o, d, t, hit, c, rad, is_sph, textured)
+        if tm is None:  # live sampling
+            tid = row(J.J_TEXID).round().long()
+            texel = texture_mod.sample_bilinear(textures, tid, u_r, v_r)
+            mult = torch.where(textured[..., None], texel, 1.0)
+        else:  # the texel linearised around the recorded hit
+            mult = torch.where(textured[..., None], tm3, 1.0) if tm3 is not None else tm[:, 0:3]
+            du = (u_r - u_r.detach())[..., None]
+            dv = (v_r - v_r.detach())[..., None]
+            mult = mult + tm[:, 3:6] * du + tm[:, 6:9] * dv
         albedo = albedo * mult
 
     # _shade (kernel_lib.py:724-963)
@@ -192,12 +221,13 @@ def _bounce(rec, bg, state, hit, seed, alive, tm, tm3, rr_start, depth):
 
 def replay_frame(table, camv, idx2, width: int, lin, spp: int, max_depth: int, *,
                  row_offset: int = 0, sample_start: int = 0, reference_quirk: bool = True,
-                 rr_start=None, t2=None, tape_f: int = 0, tm3=None):
+                 rr_start=None, t2=None, tape_f: int = 0, tm3=None, textures=None):
     """Replayed raw sample sums `[n, 3]` of the pixels `lin` (local linear
     ids of the band), differentiable in `table` `[TROWS, N]`, `camv` `[15]`
     and `tm3` (`[3*spp*D, n]`, the recorded texel values, or None).
     `idx2` `[spp*D, n]` and `t2` `[F*spp*D, n]` are the tapes' columns of
-    these pixels."""
+    these pixels; without `t2`, `textures` (`[T, H, W, 3]` or None) is
+    sampled live."""
     i = lin % width
     j = lin // width + row_offset
     base = rng.pixel_seed(i, j, width, reference_quirk)
@@ -228,7 +258,7 @@ def replay_frame(table, camv, idx2, width: int, lin, spp: int, max_depth: int, *
             if tm3 is not None:
                 tm3_s = torch.stack([tm3[c * rows + slot] for c in range(3)], dim=-1)
             state, seed, alive = _bounce(rec, bg, state, hit, seed, alive, tm, tm3_s,
-                                         rr_start, depth)
+                                         rr_start, depth, textures)
         fb = fb + state[3]
     return fb
 
@@ -236,11 +266,16 @@ def replay_frame(table, camv, idx2, width: int, lin, spp: int, max_depth: int, *
 def replay_cotangents(table, camv, idx2, g_fb, width: int, spp: int, max_depth: int, *,
                       row_offset: int = 0, sample_start: int = 0,
                       reference_quirk: bool = True, rr_start=None, t2=None,
-                      want_texgrad: bool = False, chunk: int = DEFAULT_CHUNK):
+                      want_texgrad: bool = False, textures=None,
+                      chunk: int = DEFAULT_CHUNK):
     """The backward kernel's function, computed by autograd through
     `replay_frame`: returns (dtable `[TROWS, N]`, dcam `[15]`, fb `[N, 3]`,
     gtex `[3*spp*D, N]` or None). `idx2` `[spp*D, N]` int32, `g_fb`
-    `[N, 3]`, `t2` the field-major texture tape `[F*spp*D, N]` or None."""
+    `[N, 3]`, `t2` the field-major texture tape `[F*spp*D, N]` (F = 3, 9
+    or 13) or None; with no tape, `textures` are sampled live (they take
+    no gradient)."""
+    if textures is not None:
+        textures = textures.detach()
     n = idx2.shape[1]
     dev = table.device
     tape_f = 0 if t2 is None else t2.shape[0] // (spp * max_depth)
@@ -263,7 +298,8 @@ def replay_cotangents(table, camv, idx2, g_fb, width: int, spp: int, max_depth: 
             part = replay_frame(
                 tab, cv, idx2[:, c0:c1], width, lin, spp, max_depth, row_offset=row_offset,
                 sample_start=sample_start, reference_quirk=reference_quirk, rr_start=rr_start,
-                t2=None if t2 is None else t2[:, c0:c1], tape_f=tape_f, tm3=tm3)
+                t2=None if t2 is None else t2[:, c0:c1], tape_f=tape_f, tm3=tm3,
+                textures=textures)
             loss = torch.sum(part * g_fb[c0:c1])
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         if grads[0] is not None:

@@ -9,8 +9,9 @@ their state.
 With `tape_fields` set, `trace` also returns what the recording kernel
 (tracer/pallas/kernels.py:_kernel, `record_idx=True`) writes per bounce:
 the winner index of every ray alive at that bounce (-1 for a miss) and,
-in a textured scene, the texture tape fields (multipliers, d(texel)/du,
-d(texel)/dv and, with 13 fields, the bilinear addressing).
+in a textured scene, the texture tape fields (multipliers; with 9 or 13
+fields d(texel)/du and d(texel)/dv; with 13 the bilinear addressing; with
+0 none, the winner index alone).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from tracer_torch.render import hit as hit_mod
 from tracer_torch.scene.types import Scene
 
 RR_MIN_P = 0.05  # Russian-roulette survival floor (== the kernel's RR_MIN_P)
-TAPE_FIELDS = (9, 13)  # texture tape widths the recording path writes
+TAPE_FIELDS = (0, 3, 9, 13)  # texture tape widths the recording path writes
 # a tape slot's value where nothing textured was hit: multipliers 1, the rest 0
 TAPE_NEUTRAL = (1.0,) * 3 + (0.0,) * 10
 
@@ -54,7 +55,7 @@ def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields
     albedo = rec.albedo
     tex_slot = None
     if scene.textures is not None:
-        if tape_fields is None:
+        if not tape_fields:
             tex_rgb = texture_mod.sample_bilinear(scene.textures, rec.tex_id, rec.u, rec.v)
         else:
             tex_rgb, d_u, d_v, addr = texture_mod.bilinear_tape(scene.textures, rec.tex_id,
@@ -99,8 +100,9 @@ def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_
     uint32, already advanced past ray generation. `clusters` (the scene's
     kernels.cluster.ClusterTables, or None for brute force) selects the
     cluster-culled nearest hit. Returns (final, seed), or
-    with `tape_fields` (9 or 13; ignored for an untextured scene) (final,
-    seed, slots): one (winner `[R]` int32, texture fields `[R, F]` or None)
+    with `tape_fields` (0, 3, 9 or 13; ignored for an untextured scene)
+    (final, seed, slots): one (winner `[R]` int32, texture fields `[R, F]`,
+    or None with no texture or no fields)
     per bounce executed. `queries`, a list, receives per bounce executed the
     count (a 0-d tensor) of rays alive at its start: its nearest-hit
     queries."""

@@ -33,11 +33,12 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
     hit over clusters of at most that many primitives (the plain version
     of the clustered kernel); 0 takes brute force.
 
-    With `tape_fields` (9 or 13) it also records the recording kernel's
-    tapes and returns (sums, idx `[spp, max_depth, N]` int32 with -1 for a
-    miss or a bounce the path never reached, tex `[spp, max_depth, N, F]`
-    or None for an untextured scene); unvisited texture slots hold the
-    neutral values (multipliers 1, every other field 0).
+    With `tape_fields` (0, 3, 9 or 13) it also records the recording
+    kernel's tapes and returns (sums, idx `[spp, max_depth, N]` int32 with
+    -1 for a miss or a bounce the path never reached, tex `[spp, max_depth,
+    N, F]`, or None for an untextured scene or 0 fields); unvisited
+    texture slots hold the neutral values (multipliers 1, every other
+    field 0).
 
     `queries`, a list, receives the nearest-hit query counts of every
     bounce (see `integrator.trace`).
@@ -55,7 +56,7 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
             raise ValueError(f"tape_fields must be one of {integrator.TAPE_FIELDS}, "
                              f"got {tape_fields}")
         idx = torch.full((spp, max_depth, n), -1, dtype=torch.int32, device=dev)
-        if scene.textures is not None:
+        if scene.textures is not None and tape_fields:
             neutral = torch.tensor(integrator.TAPE_NEUTRAL[:tape_fields], device=dev)
             tex = neutral.expand(spp, max_depth, n, tape_fields).clone()
     out = []
@@ -132,8 +133,11 @@ def render_frame_record(scene: Scene, cam: camera_mod.CameraData, width: int, he
     """The plain version of the recording kernel (tracer/pallas/megakernel.py:
     render_frame_pallas_record): returns (fb `[H, W, 3]`, idx `[spp, D, H*W]`
     int32) for an untextured scene and (fb, idx, tex `[spp, D, H*W, F]`)
-    for a textured one, F = `tape_fields` (9, or 13 with the addressing
-    rows the texture-image gradient needs)."""
+    for a textured one, F = `tape_fields`: 3 (the texel multipliers,
+    what mode "replay" replays), 9 (and their d(texel)/du, d(texel)/dv,
+    what the backward kernel linearises) or 13 (and the addressing rows
+    the texture-image gradient needs). With 0 it returns (fb, idx) for
+    any scene: the index tape alone, what mode "replay-sample" keeps."""
     i_flat, j_flat, base_seed = pixel_grid(width, height, reference_quirk, scene.device)
     fb, idx, tex = render_pixels(scene, cam, i_flat, j_flat, base_seed, spp, max_depth,
                                  sample_start=sample_start, rr_start=rr_start,
