@@ -11,7 +11,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. Build: compiles every tracer_torch/csrc/*.cu with nvcc, one process per
    source, all started together (megakernel.cu, bwd.cu, tex_scatter.cu),
    and prints ptxas's registers and spills for every instantiation (K1-cl's
-   four: primitive records and tree nodes each in shared or global memory).
+   and K1-bvh's four each: primitive records and nodes each in shared or
+   global memory).
 3. Each kernel against its plain PyTorch version, on the card, on the same
    inputs:
    - the forward megakernel (K1): smoke scene (quirk on and off), a partial
@@ -154,6 +155,51 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      whole-grid launch's dtable and dcam against the sum of its launches on
      those rows and the rows above them.
 
+12. Stratified jitter (strat_k; tracer's `stratify`):
+   - K1 and K1-cl (k = 16) stratified on the canonical scene with the
+     texture at 96x64 d50, spp 4 and a chunk of 5 samples from sample 4 on
+     a 3x3 grid, against their plain versions by phase 3's rules;
+   - K1-rec stratified, 3, 9 and 13 fields, all materials 64x48 spp4 d8
+     rr_start=3, against the plain record; K2 with strat_k 2 on the
+     stratified 13-field tape against the plain replay by compare_grads's
+     rule (its replayed frame is the recorded one), and without the grid
+     (it must replay other rays);
+   - render_animation(engine="cuda", stratify=True) on the canonical config
+     at 1080x720 sqrt_spp 4 d50 with spp_chunk 6 (chunks 6, 6, 4: not
+     square) against one stratified launch of the same 16 samples (rtol
+     1e-5, atol 1e-4: float32 addition order);
+   - K1 at 800x600 spp16 d50 textured, uniform and stratified in turns
+     (best of 3 after a warm-up): what the grid costs.
+13. The BVH path (`create_scene(with_bvh=True)`, `intersector="bvh"`, the
+    BVH kernel K1-bvh):
+   - build times of the native (g++) and NumPy builders for the canonical
+     scene and prim_scaling.py's field at n = 2000 and 20,000;
+   - K1-bvh against the plain traversal (tracer_torch/bvh/traverse.py) on
+     the canonical scene with the texture at 64x48 spp2 d5 and on the field
+     (n = 2000) at 256x192 spp2 d10, camera path frame 1 with a black
+     background (phase 10's view), by phase 3's rules, with the share of
+     bit-equal pixels and of pixels where K1-bvh agrees with K1, both
+     timed (the field's times are the kernels line's `ms` and
+     `plain_ms`), and K1 against the plain brute version beside it (at
+     64x48 the field's frame mean moves by 2e-3 between K1 and its plain
+     version already: the field turns last-bit differences, such as
+     torch's CUDA sqrt and sin against the kernel's, into other paths);
+   - the main path of this slice: render_animation(engine="cuda",
+     intersector="bvh", stratify=True) on the canonical config, 1080x720
+     d50, synthetic floor, 2 frames at sqrt_spp 4 in chunks of 6, every
+     launch count set to 0 before it and read after (K1-bvh 6, the others
+     0), the saved frames, and 512 sampled pixels of the last frame
+     against the plain traversal (the same samples); then `tracer_torch.cli
+     --gpu --bvh --stratify` once, as a subprocess;
+   - K1-bvh's times and work (node tests, leaves reached = primitive tests
+     per query, lane utilisation, from the counted instantiation): the
+     canonical scene at 800x600 spp32 d50 textured (beside phase 5's K1)
+     and untextured, and with its nodes in global memory; the field at
+     spp8 d20 with and without rr_start=3, beside K1-cl and K1; the sweep
+     of phase 10 (n 250-20,000, spp4 d10 rr_start=3) beside K1-cl; its
+     bound from work no traversal avoids (a plane test a query, each hit's
+     shading; tables, nodes and frame once), as K1-cl's.
+
 The line before the last is a JSON object describing the kernels (with
 `launches_d50`, each kernel's launches on phase 11's main path; each
 `max_abs_err` is the largest over its checks in every phase), with the
@@ -199,12 +245,13 @@ def instantiation(line: str) -> str:
     """A ptxas 'Compiling entry' line's kernel, by name and template arguments."""
     import re
 
-    m = re.search(r"trace_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+    m = re.search(r"trace_kernelILb(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
     if m:
-        rec, clu, smem, nsmem, count = (x == "1" for x in m.groups())
-        name = "K1-rec" if rec else ("K1-cl" if clu else "K1")
+        rec, isect = m.group(1) == "1", int(m.group(2))
+        smem, nsmem, count = (x == "1" for x in m.groups()[2:])
+        name = "K1-rec" if rec else ("K1", "K1-cl", "K1-bvh")[isect]
         return (f"{name}, records in {'shared' if smem else 'global'} memory"
-                + (f", nodes in {'shared' if nsmem else 'global'} memory" if clu else "")
+                + (f", nodes in {'shared' if nsmem else 'global'} memory" if isect else "")
                 + (", counted" if count else ""))
     m = re.search(r"bwd_kernelILb(\d)E", line)
     if m:
@@ -777,7 +824,7 @@ def deep_phase(dev, kind, card, canon, canon_p, g):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
-    mk.LAUNCHES = mk.LAUNCHES_RECORD = mk.LAUNCHES_CLUSTERED = 0
+    mk.LAUNCHES = mk.LAUNCHES_RECORD = mk.LAUNCHES_CLUSTERED = mk.LAUNCHES_BVH = 0
     bwd.LAUNCHES = tex_scatter.LAUNCHES = 0
     t0 = time.perf_counter()
     loss, g_scene, g_cam = bwd.l2_grads_deep(canon, cam, target, w, h, spp, D, spp_chunk=chunk,
@@ -786,7 +833,7 @@ def deep_phase(dev, kind, card, canon, canon_p, g):
     step_s = time.perf_counter() - t0
     launches = dict(megakernel=mk.LAUNCHES, megakernel_record=mk.LAUNCHES_RECORD,
                     bwd=bwd.LAUNCHES, tex_scatter=tex_scatter.LAUNCHES,
-                    megakernel_clustered=mk.LAUNCHES_CLUSTERED)
+                    megakernel_clustered=mk.LAUNCHES_CLUSTERED, megakernel_bvh=mk.LAUNCHES_BVH)
     peak = torch.cuda.max_memory_allocated(dev) - base
     tape13 = mk.tape_bytes(w, h, chunk, D, 13, True)
     flat = bwd.float_grads(canon, g_scene, g_cam)
@@ -798,7 +845,7 @@ def deep_phase(dev, kind, card, canon, canon_p, g):
           f"a chunk's tapes {tape13} bytes ({13 * chunk * D * w * h} texture-tape elements), "
           f"peak device memory above the inputs {peak} bytes", flush=True)
     want = dict(megakernel=1, megakernel_record=spp // chunk, bwd=spp // chunk,
-                tex_scatter=spp // chunk, megakernel_clustered=0)
+                tex_scatter=spp // chunk, megakernel_clustered=0, megakernel_bvh=0)
     if launches != want:
         return f"the d{D} main path launched {launches}, not {want}", None, None
     if not finite or tex_nz == 0.0:
@@ -920,6 +967,371 @@ def deep_phase(dev, kind, card, canon, canon_p, g):
         if not hold_deep_shape(name, scene, cam, w, h, spp, chunk, D, g, errs):
             return f"a kernel and its plain version disagree at {name}", None, None
     return None, launches, errs
+
+
+def stratify_phase(dev, kind, card, canon, canon_p, g):
+    """Phase 12: stratified jitter (strat_k) in K1, K1-rec (3, 9 and 13
+    fields), K1-cl and K2, each against its plain version by phase 3's
+    rules and TOL_GRAD, then a chunked stratified animation against a
+    one-launch frame of the same samples. Returns (error or None, the
+    comparisons' max|diff| {kernel entry name: [x, ...]})."""
+    import torch
+
+    from torch_scenes import SKY, full_scene
+
+    from tracer_torch.kernels import bwd, replay
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import camera as C
+    from tracer_torch.render import driver, renderer
+
+    errs = {k: [] for k in ("megakernel", "megakernel_record", "bwd", "megakernel_clustered")}
+    t0 = time.perf_counter()
+    print(f"[12] stratified jitter (strat_k) on {kind} ({card}):", flush=True)
+    cam_c = C.camera_at(canon_p.camera_path, 0, canon_p.num_frames, 96, 64, canon_p.fov_degrees,
+                        background=SKY, device=dev)
+    ok = True
+    for name, kw, key in (("K1", {}, "megakernel"),
+                          ("K1-cl", dict(cluster_k=CLUSTER_K), "megakernel_clustered")):
+        for spp, extra in ((4, {}), (5, dict(strat_sqrt_spp=3, sample_start=4))):
+            got = mk.render_frame_kernel(canon, cam_c, 96, 64, spp, 50, stratify=True, **kw,
+                                         **extra)
+            torch.cuda.synchronize()
+            want = renderer.render_frame(canon, cam_c, 96, 64, spp, 50, stratify=True, **kw,
+                                         **extra)
+            ok &= compare(f"{name} stratified, canonical + texture 96x64 spp{spp} d50 {extra}",
+                          got, want, errs[key])
+    if not ok:
+        return "a stratified kernel and its plain version disagree", None
+    full = full_scene(dev)
+    cam_f = C.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 64, 48, 55.0, background=SKY,
+                                device=dev)
+    for fields in (3, 9, 13):
+        got = mk.render_frame_kernel_record(full, cam_f, 64, 48, 4, 8, rr_start=3,
+                                            tape_fields=fields, stratify=True)
+        torch.cuda.synchronize()
+        want = renderer.render_frame_record(full, cam_f, 64, 48, 4, 8, rr_start=3,
+                                            tape_fields=fields, stratify=True)
+        ok &= compare_record(f"K1-rec stratified, all materials 64x48 spp4 d8 rr_start=3, "
+                             f"{fields} fields", got, want, errs["megakernel_record"])
+    if not ok:
+        return "the stratified record kernel and the plain record disagree", None
+    # K2 on the stratified 13-field tape (the last one recorded)
+    table, camv = bwd.pack_tables(full, cam_f)
+    idx2 = got[1].reshape(4 * 8, -1)
+    t2 = bwd._field_major(got[2], 4, 8, 64 * 48)
+    g2 = torch.randn((64 * 48, 3), generator=g, device=dev)
+    kw = dict(rr_start=3, t2=t2, want_texgrad=True, strat_k=2)
+    k2 = bwd.bwd_kernel(table, camv, idx2, g2, 64, 4, 8, **kw)
+    torch.cuda.synchronize()
+    plain = replay.replay_cotangents(table, camv, idx2, g2, 64, 4, 8, **kw)
+    if not compare_grads("K2 stratified (strat_k 2) on the stratified 13-field tape", full,
+                         cam_f, k2, plain, got[0], errs["bwd"]):
+        return "the stratified backward kernel and the plain replay disagree", None
+    uniform = bwd.bwd_kernel(table, camv, idx2, g2, 64, 4, 8, rr_start=3, t2=t2)
+    moved = float((uniform[2] - got[0].reshape(-1, 3)).abs().max())
+    print(f"    K2 without the grid replays other rays: replayed frame vs recorded max|diff| "
+          f"{moved:.3g}", flush=True)
+    if moved <= TOL_GRAD * float(got[0].abs().max()):
+        return "the backward kernel ignores strat_k", None
+    del got, want, k2, plain, uniform, t2, idx2
+
+    # a chunked stratified animation (chunks 6, 6, 4: not square) against
+    # one launch of the same 16 samples
+    params = config_copy(canon_p)
+    params.render.sqrt_rays_per_pixel = 4
+    w, h, d = params.width, params.height, params.render.max_depth
+    with tempfile.TemporaryDirectory() as tmp:
+        params.output_path = os.path.join(tmp, "frame_%d.bin")
+        mk.LAUNCHES = 0
+        fb = driver.render_animation(canon, params, saver="bin", out=io.StringIO(), frames=[0],
+                                     engine="cuda", stratify=True, spp_chunk=6)
+        chunks = mk.LAUNCHES
+    cam0 = C.camera_at(params.camera_path, 0, params.num_frames, w, h, params.fov_degrees,
+                       device=dev)
+    one = mk.render_frame_kernel(canon, cam0, w, h, 16, d, stratify=True)
+    got = torch.tensor(fb, device=dev)
+    diff = float((got - one).abs().max())
+    same = bool(torch.allclose(got, one, rtol=1e-5, atol=1e-4))
+    uniform = mk.render_frame_kernel(canon, cam0, w, h, 16, d)
+    print(f"    render_animation(stratify=True) at {w}x{h} sqrt_spp 4 d{d}, spp_chunk 6: "
+          f"{chunks} launches (chunks 6, 6, 4); against one stratified launch of the 16 "
+          f"samples max|diff| {diff:.3g} (max {float(one.abs().max()):.3g}; float32 addition "
+          f"order: rtol 1e-5, atol 1e-4) -> {'ok' if same and chunks == 3 else 'FAIL'}; the "
+          f"uniform frame differs by {float((uniform - one).abs().max()):.3g}", flush=True)
+    if not same or chunks != 3:
+        return "a chunked stratified frame is not the one-launch frame", None
+    errs["megakernel"].append(diff)
+    # what the grid costs K1: 800x600 spp16 d50 textured, camera path frames
+    # 1-3, uniform and stratified in turns, best of 3 after a warm-up each
+    cams = [C.camera_at(canon_p.camera_path, k, canon_p.num_frames, 800, 600,
+                        canon_p.fov_degrees, device=dev) for k in range(4)]
+    best = {False: math.inf, True: math.inf}
+    for strat in (False, True):
+        mk.render_frame_kernel(canon, cams[0], 800, 600, 16, 50, stratify=strat)
+    for c in cams[1:]:
+        for strat in (False, True):
+            best[strat] = min(best[strat], cuda_ms(lambda: mk.render_frame_kernel(
+                canon, c, 800, 600, 16, 50, stratify=strat)))
+    print(f"    K1 800x600 spp16 d50 textured: uniform {best[False]:.3f} ms, stratified "
+          f"{best[True]:.3f} ms ({(best[True] / best[False] - 1) * 100:+.2f}%); card: {card}",
+          flush=True)
+    print(f"    phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    return None, errs
+
+
+def config_copy(params):
+    import copy
+
+    return copy.deepcopy(params)
+
+
+def bvh_work_line(work):
+    """K1-bvh's walk per nearest-hit query, from a LoopWork."""
+    q = max(work.queries, 1)
+    return (f"{work.node_tests / q:.3f} node tests, {work.visits / q:.3f} leaves reached "
+            f"(= primitive tests), lane utilisation {work.lane_utilisation:.4f}")
+
+
+def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
+    """Phase 13: the BVH path. The builders' times; K1-bvh against the
+    plain traversal; the slice's main path, render_animation(engine="cuda",
+    intersector="bvh", stratify=True) at full width, and the CLI with
+    --gpu --bvh --stratify; K1-bvh's times and work beside K1 and K1-cl.
+    Returns (error or None, the kernel's entry of the `kernels` line)."""
+    import numpy as np
+    import torch
+
+    from torch_scenes import SKY, sphere_field, sphere_field_camera, sphere_field_fields
+
+    from tracer_torch.bvh import builder as bb
+    from tracer_torch.bvh import native
+    from tracer_torch.io import image as image_io
+    from tracer_torch.kernels import bwd, tex_scatter
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import camera as C
+    from tracer_torch.render import driver, renderer
+    from tracer_torch.scene import builders, config
+
+    t_phase = time.perf_counter()
+    errs = []
+    builder = "native (g++)" if bb.native_available() else "numpy (no g++ on this host)"
+    print(f"[13] the BVH path on {kind} ({card}); create_scene(with_bvh=True) takes the "
+          f"{builder} builder", flush=True)
+    # the builders' times
+    canon = builders.create_scene(canon_p, with_bvh=True, texture_loader=synthetic_floor,
+                                  device=dev)
+    sp, pl = canon.spheres, canon.planes
+    host = lambda t: t.detach().cpu().numpy()
+    sets = [("canonical", bb.primitive_boxes(host(sp.center), host(sp.radius), host(pl.base),
+                                             host(pl.u), host(pl.v), host(pl.ptype)))]
+    for n in (2000, 20000):
+        f, _ = sphere_field_fields(n)
+        sets.append((f"field n={n}", bb.primitive_boxes(
+            f["spheres.center"], f["spheres.radius"], f["planes.base"], f["planes.u"],
+            f["planes.v"], f["planes.ptype"])))
+    for name, boxes in sets:
+        times = {}
+        for b_name, build in (("native", native.build_bvh if bb.native_available() else None),
+                              ("numpy", bb.build_bvh_numpy)):
+            if build is None:
+                times[b_name] = "not available"
+                continue
+            t0 = time.perf_counter()
+            tree = build(*boxes)
+            times[b_name] = f"{(time.perf_counter() - t0) * 1e3:.3f} ms"
+        print(f"    build {name} ({len(boxes[3])} primitives, {tree[2].shape[0]} nodes, depth "
+              f"{bb.tree_depth(tree[2], tree[3])}): native {times['native']}, numpy "
+              f"{times['numpy']}", flush=True)
+
+    # K1-bvh against the plain traversal (and against K1)
+    field, _ = sphere_field(2000, dev)
+    field = field._replace(bvh=bb.build_scene_bvh_from_scene(field))
+    nodes_b = lambda s: 32 * s.bvh.left.shape[0]
+    where = lambda s: "shared" if nodes_b(s) <= mk.NODE_SHARED_BYTES_MAX else "global"
+    cam_c = C.camera_at(canon_p.camera_path, 0, canon_p.num_frames, 64, 48, canon_p.fov_degrees,
+                        background=SKY, device=dev)
+    # the field at 256x192, camera path frame 1, black background (phase 10's
+    # view): its paths turn last-bit differences into other paths (a bounce
+    # leaving a sphere may hit it again just past T_MIN), and torch's CUDA
+    # sqrt, sin, cos, exp and atan2 round otherwise than the kernel's, so at
+    # 64x48 the frame mean of K1 against the plain brute version already
+    # moves by 2e-3; at 256x192 both hold phase 3's rules
+    cam_f = C.camera_at(canon_p.camera_path, 1, canon_p.num_frames, 256, 192,
+                        canon_p.fov_degrees, device=dev)
+    timed = {}
+    for name, scene, cam, w, h, spp, depth in (
+            ("canonical + texture", canon, cam_c, 64, 48, 2, 5),
+            ("sphere field n=2000", field, cam_f, 256, 192, 2, 10)):
+        got = mk.render_frame_kernel(scene, cam, w, h, spp, depth, intersector="bvh")
+        ms = cuda_ms(lambda: mk.render_frame_kernel(scene, cam, w, h, spp, depth,
+                                                    intersector="bvh"), reps=3)
+        out = {}
+        p_ms = cuda_ms(lambda: out.update(fb=renderer.render_frame(
+            scene, cam, w, h, spp, depth, intersector="bvh")))
+        want = out.pop("fb")
+        k1 = mk.render_frame_kernel(scene, cam, w, h, spp, depth)
+        print(f"  {name}: {scene.bvh.left.shape[0]} nodes ({nodes_b(scene)} bytes) in "
+              f"{where(scene)} memory", flush=True)
+        if not compare(f"K1-bvh vs the plain traversal, {w}x{h} spp{spp} d{depth}", got, want,
+                       errs):
+            return f"K1-bvh and the plain traversal disagree on the {name}", None
+        bit = (got == want).all(dim=-1).double().mean().item()
+        agree_k1 = ((got - k1).abs().amax(dim=-1) < TOL_PIXEL).double().mean().item()
+        bit_k1 = (got == k1).all(dim=-1).double().mean().item()
+        print(f"    bit-equal to the plain traversal {bit:.6f}; agree with K1 {agree_k1:.6f} "
+              f"(bit-equal {bit_k1:.6f}); K1-bvh {ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
+        compare(f"  beside it, K1 vs the plain brute version (not a gate)", k1,
+                renderer.render_frame(scene, cam, w, h, spp, depth), [])
+        timed[name] = (ms, p_ms, scene, cam, w, h, spp, depth)
+    del got, want, k1
+
+    # the slice's main path at full width: 2 frames of the canonical config,
+    # BVH and stratified, chunked
+    main_p = config_copy(canon_p)
+    main_p.render.sqrt_rays_per_pixel = 4
+    spp, frames, chunk = 16, range(2), 6
+    w, h, d = main_p.width, main_p.height, main_p.render.max_depth
+    with tempfile.TemporaryDirectory() as tmp:
+        main_p.output_path = os.path.join(tmp, "frame_%d.bin")
+        print(f"  main path: render_animation(engine='cuda', intersector='bvh', stratify=True), "
+              f"canonical config, {canon.num_spheres} spheres + {canon.num_planes} planes, "
+              f"{w}x{h}, depth {d}, floor texture {tuple(canon.textures.shape[1:3])}; reduced: "
+              f"frames 100 -> {len(frames)}, sqrt_spp 50 -> 4 (run time limit); spp_chunk "
+              f"{chunk}", flush=True)
+        tsv = io.StringIO()
+        mk.LAUNCHES = mk.LAUNCHES_RECORD = mk.LAUNCHES_CLUSTERED = mk.LAUNCHES_BVH = 0
+        bwd.LAUNCHES = tex_scatter.LAUNCHES = 0
+        fb = driver.render_animation(canon, main_p, saver="bin", out=tsv, frames=frames,
+                                     engine="cuda", intersector="bvh", stratify=True,
+                                     spp_chunk=chunk)
+        launches = dict(megakernel=mk.LAUNCHES, megakernel_record=mk.LAUNCHES_RECORD,
+                        megakernel_clustered=mk.LAUNCHES_CLUSTERED, megakernel_bvh=mk.LAUNCHES_BVH,
+                        bwd=bwd.LAUNCHES, tex_scatter=tex_scatter.LAUNCHES)
+        want_l = len(frames) * math.ceil(spp / chunk)
+        print("    TSV: " + tsv.getvalue().strip().replace("\n", " | "))
+        print(f"    launches {launches} (K1-bvh: frames x chunks = {want_l})", flush=True)
+        if launches["megakernel_bvh"] != want_l or sum(launches.values()) != want_l:
+            return f"the BVH main path launched {launches}, not K1-bvh {want_l} times", None
+        for n in frames:
+            img = image_io.read_binary(main_p.output_path % n)
+            print(f"    frame {n}: {img.shape} uint8, mean {img.mean():.4f}, nonzero "
+                  f"{(img > 0).mean():.4f}")
+            if img.shape != (h, w, 3) or not img.any():
+                return f"BVH main-path frame {n} is empty or misshapen", None
+    if fb.shape != (h, w, 3) or not np.isfinite(fb).all():
+        return "BVH main-path framebuffer is not finite [H, W, 3]", None
+    npx = 512
+    sel = torch.randperm(w * h, generator=torch.Generator().manual_seed(0))[:npx].to(dev)
+    i_all, j_all, seeds = renderer.pixel_grid(w, h, device=dev)
+    cam_last = C.camera_at(main_p.camera_path, frames[-1], main_p.num_frames, w, h,
+                           main_p.fov_degrees, device=dev)
+    t0 = time.perf_counter()
+    plain = renderer.render_pixels(canon, cam_last, i_all[sel], j_all[sel], seeds[sel], spp, d,
+                                   stratify=True, intersector="bvh")
+    got = torch.tensor(fb, device=dev).reshape(-1, 3)[sel]
+    if not compare(f"main path frame {frames[-1]}: {npx} pixels vs the plain traversal "
+                   f"({time.perf_counter() - t0:.1f} s)", got[:, None], plain[:, None], errs):
+        return "the BVH main-path frame disagrees with the plain version", None
+    cfg = config.default_config_text().replace("\n50 50\n", "\n50 2\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tracer_torch.cli", "--gpu", "--bvh", "--stratify",
+             "--frames", "1", "--format", "bin"],
+            input=cfg, capture_output=True, text=True, cwd=tmp, env=env, timeout=300)
+        print(f"    CLI --gpu --bvh --stratify (default config, sqrt_spp 2, untextured: no "
+              f"floor.jpg): rc {proc.returncode} in {time.perf_counter() - t0:.1f} s, stdout "
+              f"{proc.stdout.strip()!r}", flush=True)
+        if proc.returncode != 0:
+            return f"CLI --gpu --bvh --stratify failed:\n{proc.stderr[-3000:]}", None
+        img = image_io.read_binary(os.path.join(tmp, "images", "render_0.png"))
+        line = proc.stdout.strip().split("\t")
+        if len(line) != 3 or line[0] != "0" or not img.any():
+            return "CLI --bvh output is not one TSV line and a nonzero frame", None
+
+    # times and work
+    print(f"  times on {kind} ({card}), CUDA events, best of 3 after a warm-up; work from the "
+          f"counted instantiation (megakernel.loop_work):", flush=True)
+    untex = canon._replace(textures=None)
+
+    def best(scene, cam_list, w, h, spp, depth, **kw):
+        mk.render_frame_kernel(scene, cam_list[0], w, h, spp, depth, **kw)  # warm-up
+        return min(cuda_ms(lambda c=c: mk.render_frame_kernel(scene, c, w, h, spp, depth, **kw))
+                   for c in cam_list[1:])
+
+    rays = W * H * 32
+    for name, scene in (("textured", canon), ("untextured", untex)):
+        t_b = best(scene, cams, W, H, 32, 50, intersector="bvh")
+        t_k = best(scene, cams, W, H, 32, 50) if name == "untextured" else k1_ms
+        work = mk.loop_work(scene, cams[1], W, H, 32, 50, intersector="bvh")
+        print(f"    canonical {name} {W}x{H} spp32 d50: K1-bvh {t_b:.3f} ms = "
+              f"{rays / t_b / 1e3:.3f} Mrays/s, K1 {t_k:.3f} ms ({'phase 5' if name == 'textured' else 'now'}), "
+              f"K1/K1-bvh {t_k / t_b:.3f}; per query {bvh_work_line(work)} (brute: "
+              f"{canon.num_spheres + canon.num_planes} tests)", flush=True)
+        if name == "textured":
+            canon_ms, canon_work = t_b, work
+    saved = mk.NODE_SHARED_BYTES_MAX
+    mk.NODE_SHARED_BYTES_MAX = -1
+    try:
+        t_glob = best(canon, cams, W, H, 32, 50, intersector="bvh")
+    finally:
+        mk.NODE_SHARED_BYTES_MAX = saved
+    print(f"    canonical textured, K1-bvh with its nodes in global memory instead of shared: "
+          f"{t_glob:.3f} ms", flush=True)
+    frays = W * H * 8
+    for rr in (None, 3):
+        t_b = best(field, cams, W, H, 8, 20, intersector="bvh", rr_start=rr)
+        t_c = best(field, cams, W, H, 8, 20, cluster_k=CLUSTER_K, rr_start=rr)
+        t_k = best(field, cams, W, H, 8, 20, rr_start=rr)
+        work = mk.loop_work(field, cams[1], W, H, 8, 20, intersector="bvh", rr_start=rr)
+        if rr is None:
+            field_work = work
+        print(f"    sphere field n=2000 {W}x{H} spp8 d20 rr_start={rr}: K1-bvh {t_b:.3f} ms = "
+              f"{frays / t_b / 1e3:.3f} Mrays/s, K1-cl {t_c:.3f} ms, K1 {t_k:.3f} ms; "
+              f"K1-cl/K1-bvh {t_c / t_b:.3f}; per query {bvh_work_line(work)}", flush=True)
+    SW_SPP, SW_D = 4, 10
+    print(f"    sweep (benchmarks/prim_scaling.py): {W}x{H} spp{SW_SPP} d{SW_D} rr_start=3, its "
+          f"camera; nodes in shared memory up to {mk.NODE_SHARED_BYTES_MAX} bytes:", flush=True)
+    print("      n | BVH nodes | nodes in | K1-bvh ms | K1-bvh Mrays/s | K1-cl ms | "
+          "K1-cl/K1-bvh | K1-bvh per query")
+    srays = W * H * SW_SPP
+    for n in (250, 500, 1000, 2000, 5000, 10000, 20000):
+        scene_n, cols_n = sphere_field(n, dev)
+        scene_n = scene_n._replace(bvh=bb.build_scene_bvh_from_scene(scene_n))
+        cam_n = sphere_field_camera(cols_n, W, H, dev)
+        t_b = best(scene_n, [cam_n] * 4, W, H, SW_SPP, SW_D, rr_start=3, intersector="bvh")
+        t_c = best(scene_n, [cam_n] * 4, W, H, SW_SPP, SW_D, rr_start=3, cluster_k=CLUSTER_K)
+        w_n = mk.loop_work(scene_n, cam_n, W, H, SW_SPP, SW_D, rr_start=3, intersector="bvh")
+        print(f"      {n} | {scene_n.bvh.left.shape[0]} | {where(scene_n)} | {t_b:.3f} | "
+              f"{srays / t_b / 1e3:.3f} | {t_c:.3f} | {t_c / t_b:.3f} | {bvh_work_line(w_n)}",
+              flush=True)
+    print(f"    card: {card}", flush=True)
+
+    # the kernels line: the field check's times (where the plain traversal
+    # runs in seconds); the bound from work no traversal avoids, as K1-cl's
+    ms, p_ms, scene, cam, cw, ch, spp, depth = timed["sphere field n=2000"]
+    work = mk.loop_work(scene, cam, cw, ch, spp, depth, intersector="bvh")
+    n_s, n_p = scene.num_spheres, scene.num_planes
+    b_ops = work.queries * OPS_PLANE + work.hits * OPS_SHADE
+    tables_b = 4 * (n_s * 4 + n_p * 20 + (n_s + n_p) * 13) + nodes_b(scene) + 15 * 4
+    b = bound(b_ops, tables_b + cw * ch * 12)
+    c_ops = canon_work.queries * OPS_PLANE + canon_work.hits * OPS_SHADE
+    c_bytes = (4 * (canon.num_spheres * 4 + canon.num_planes * 20
+                    + (canon.num_spheres + canon.num_planes) * 13) + nodes_b(canon)
+               + canon.textures.numel() * 4 + 15 * 4 + W * H * 12)
+    cb = bound(c_ops, c_bytes)
+    fb_ = bound(field_work.queries * OPS_PLANE + field_work.hits * OPS_SHADE,
+                tables_b + W * H * 12)
+    print(f"    bounds (work no traversal avoids: a plane test a query, each hit's shading; "
+          f"tables, nodes and frame once): field {cw}x{ch} spp{spp} d{depth} {b[0]:.6f} ms "
+          f"({b[1]}); field {W}x{H} spp8 d20 {fb_[0]:.6f} ms ({fb_[1]}); canonical {W}x{H} "
+          f"spp32 d50 textured {cb[0]:.6f} ms ({cb[1]}) against K1-bvh's {canon_ms:.3f} ms",
+          flush=True)
+    print(f"    phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return None, dict(name="megakernel_bvh", route="cuda", source="tracer_torch/csrc/megakernel.cu",
+                      replaces="tracer/bvh/traverse.py:38", launches=launches["megakernel_bvh"],
+                      max_abs_err=max(errs), ms=ms, plain_ms=p_ms, bound_ms=b[0],
+                      bound_by=b[1], library_ms=None)
 
 
 def main() -> int:
@@ -1406,6 +1818,16 @@ def main() -> int:
     if err:
         return fail(err)
 
+    # ---- 12. stratified jitter ----------------------------------------------
+    err, strat_errs = stratify_phase(dev, kind, card, canon, canon_p, g)
+    if err:
+        return fail(err)
+
+    # ---- 13. the BVH path ----------------------------------------------------
+    err, bvh_entry = bvh_phase(dev, kind, card, canon_p, cams, W, H, k_ms, env)
+    if err:
+        return fail(err)
+
     kernels = [
         dict(name="megakernel", route="cuda", source="tracer_torch/csrc/megakernel.cu",
              replaces="tracer/pallas/kernels.py:33", launches=launches, max_abs_err=max_abs_err,
@@ -1423,10 +1845,12 @@ def main() -> int:
              max_abs_err=scatter_err, ms=k3_ms, plain_ms=p3_ms, bound_ms=k3_bound[0],
              bound_by=k3_bound[1], library_ms=lib_ms),
         cl_entry,
+        bvh_entry,
     ]
     for k in kernels:  # each kernel's launches on phase 11's main path, and its checks there
         k["launches_d50"] = deep_launches[k["name"]]
-        k["max_abs_err"] = max([k["max_abs_err"], *deep_errs.get(k["name"], [])])
+        k["max_abs_err"] = max([k["max_abs_err"], *deep_errs.get(k["name"], []),
+                                *strat_errs.get(k["name"], [])])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -349,6 +349,6 @@ def test_bad_cluster_k_raises(bad):
 def test_recording_renderer_refuses_clusters():
     scene = tie_free_scene("cpu")
     cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 4, 4, 55.0, device="cpu")
-    i, j, seeds = renderer.pixel_grid(4, 4)
+    i, j, seeds = renderer.pixel_grid(4, 4, device="cpu")
     with pytest.raises(ValueError, match="brute force only"):
         renderer.render_pixels(scene, cam, i, j, seeds, 1, 2, tape_fields=9, cluster_k=K)

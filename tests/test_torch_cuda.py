@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on a CUDA device:
-the forward megakernel, its cluster-culled and record modes, the backward
-kernel and the texture-gradient scatter, and fit on the card.
+the forward megakernel, its cluster-culled, BVH and record modes (each
+with and without stratified jitter), the backward kernel and the
+texture-gradient scatter, and fit on the card.
 
 Every test here needs a card: each carries the `cuda` marker and skips
 without one. The file imports neither jax nor tracer, so it also runs on a
@@ -17,17 +18,21 @@ means must agree to a relative 1e-3.
 
 import io
 import os
+import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
-from tracer_torch.kernels import bwd, diff, megakernel, replay, tex_scatter
+from tracer_torch.bvh import builder as bvh_builder
+from tracer_torch.kernels import bwd, diff, megakernel, nvcc, replay, tex_scatter
 from tracer_torch.render import camera, renderer
 from tracer_torch.scene import builders, config
+from tracer_torch.scene import types as T
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_scenes import sphere_field  # noqa: E402
 from torch_scenes import (SKY, big_scene, closed_box, full_scene, sky_camera,  # noqa: E402
                           sky_scene)
 
@@ -513,3 +518,170 @@ def test_replay_modes_on_the_card(dev, mode):
     for name in ("materials.albedo", "materials.emit"):
         a, b = grads[mode][name], grads["replay-kernel"][name]
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+
+
+# ---- stratified jitter (strat_k) ---------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(), dict(cluster_k=16), dict(intersector="bvh")],
+                         ids=["K1", "K1-cl", "K1-bvh"])
+def test_stratified_kernels_match_plain(dev, kw):
+    params = config.read_scene_params(io.StringIO(config.smoke_config_text()))
+    scene = builders.create_scene(params, with_bvh=True, texture_loader=lambda _p: None,
+                                  device=dev)
+    cam = camera.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], 64, 48, 90.0,
+                                   background=SKY, device=dev)
+    got = megakernel.render_frame_kernel(scene, cam, 64, 48, 4, 8, stratify=True, **kw)
+    want = renderer.render_frame(scene, cam, 64, 48, 4, 8, stratify=True, **kw)
+    _agree(got, want)
+    # a chunk of a larger frame: its grid and its first sample
+    got = megakernel.render_frame_kernel(scene, cam, 64, 48, 5, 6, stratify=True,
+                                         strat_sqrt_spp=3, sample_start=4, **kw)
+    want = renderer.render_frame(scene, cam, 64, 48, 5, 6, stratify=True, strat_sqrt_spp=3,
+                                 sample_start=4, **kw)
+    _agree(got, want)
+
+
+def test_stratified_record_and_backward_match_plain(dev):
+    scene = full_scene(dev)
+    cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 40, 30, 55.0,
+                                   background=SKY, device=dev)
+    got = megakernel.render_frame_kernel_record(scene, cam, 40, 30, 4, 6, rr_start=3,
+                                                tape_fields=13, stratify=True)
+    want = renderer.render_frame_record(scene, cam, 40, 30, 4, 6, rr_start=3, tape_fields=13,
+                                        stratify=True)
+    _agree_record(got, want)
+    table, camv = bwd.pack_tables(scene, cam)
+    idx2 = got[1].reshape(24, -1)
+    t2 = bwd._field_major(got[2], 4, 6, 1200)
+    g2 = torch.randn((1200, 3), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    kw = dict(rr_start=3, t2=t2, want_texgrad=True, strat_k=2)
+    k2 = bwd.bwd_kernel(table, camv, idx2, g2, 40, 4, 6, **kw)
+    plain = replay.replay_cotangents(table, camv, idx2, g2, 40, 4, 6, **kw)
+    for (name, a), (_, b) in zip(bwd.leaf_grads(scene, cam, k2[0], k2[1]),
+                                 bwd.leaf_grads(scene, cam, plain[0], plain[1])):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+    # K2 regenerates the recorded rays: its replayed frame is the record's
+    torch.testing.assert_close(k2[2], got[0].reshape(-1, 3), rtol=0,
+                               atol=1e-4 * float(got[0].abs().max()))
+
+
+def test_chunked_stratified_gradients_match_one_shot(dev):
+    scene = full_scene(dev)
+    cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 32, 24, 55.0,
+                                   background=SKY, device=dev)
+    g_fb = torch.randn((24, 32, 3), generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev)
+    out = megakernel.render_frame_kernel_record(scene, cam, 32, 24, 4, 6, stratify=True)
+    one = bwd.scene_cam_grads(scene, cam, out[1], g_fb, 32, 24, 4, 6, tex_tape=out[2],
+                              stratify=True)[:2]
+    chunked = bwd.scene_grads_chunked(scene, cam, g_fb, 32, 24, 4, 6, spp_chunk=2,
+                                      stratify=True)
+    for a, b in zip(bwd.float_grads(scene, *chunked), bwd.float_grads(scene, *one)):
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
+
+
+# ---- the BVH kernel (K1-bvh) ---------------------------------------------------
+
+def _bvh_case(name, dev):
+    if name == "field1000":  # 1999 nodes, 64 KB: above NODE_SHARED_BYTES_MAX
+        scene, _ = sphere_field(1000, dev)
+        scene = scene._replace(bvh=bvh_builder.build_scene_bvh_from_scene(scene))
+        params = config.read_scene_params(io.StringIO(config.default_config_text()))
+        # the canonical path's frame 1 over the field, black background, as
+        # chip_smoke's phase 10: more bounces or a sky turn more of the
+        # field's last-bit differences (the kernel's float code against
+        # torch's CUDA ops) into other paths, for K1 as for K1-bvh
+        return scene, camera.camera_at(params.camera_path, 1, params.num_frames, 64, 48,
+                                       params.fov_degrees, device=dev)
+    params = config.read_scene_params(io.StringIO(config.smoke_config_text()))
+    scene = builders.create_scene(params, with_bvh=True, texture_loader=lambda _p: None,
+                                  device=dev)
+    return scene, camera.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], 64, 48, 90.0,
+                                           background=SKY, device=dev)
+
+
+@pytest.mark.parametrize("name, rr_start, depth", [("smoke", None, 6), ("smoke", 3, 6),
+                                                   ("field1000", None, 3)])
+def test_bvh_kernel_matches_plain(dev, name, rr_start, depth):
+    scene, cam = _bvh_case(name, dev)
+    nodes = 32 * scene.bvh.left.shape[0]
+    assert (nodes > megakernel.NODE_SHARED_BYTES_MAX) == (name == "field1000")
+    before = (megakernel.LAUNCHES, megakernel.LAUNCHES_BVH)
+    got = megakernel.render_frame_kernel(scene, cam, 64, 48, 2, depth, rr_start=rr_start,
+                                         intersector="bvh")
+    assert (megakernel.LAUNCHES, megakernel.LAUNCHES_BVH) == (before[0], before[1] + 1)
+    want = renderer.render_frame(scene, cam, 64, 48, 2, depth, rr_start=rr_start,
+                                 intersector="bvh")
+    _agree(got, want)
+    _agree(got, megakernel.render_frame_kernel(scene, cam, 64, 48, 2, depth, rr_start=rr_start))
+
+
+def test_bvh_nodes_in_shared_and_global_memory_give_the_same_frame(dev, monkeypatch):
+    scene, cam = _bvh_case("smoke", dev)
+    shared = megakernel.render_frame_kernel(scene, cam, 64, 48, 2, 6, intersector="bvh")
+    monkeypatch.setattr(megakernel, "NODE_SHARED_BYTES_MAX", -1)
+    glob = megakernel.render_frame_kernel(scene, cam, 64, 48, 2, 6, intersector="bvh")
+    assert torch.equal(shared, glob)
+
+
+def test_bvh_work_counts_the_plain_walk(dev):
+    """The counted K1-bvh's node tests, leaves and primitive tests against
+    the plain traversal's, primary rays only (depth 1: no FMA-moved
+    bounce origins)."""
+    scene, cam = _bvh_case("smoke", dev)
+    work = megakernel.loop_work(scene, cam, 64, 48, 1, 1, intersector="bvh")
+    i, j, seeds = renderer.pixel_grid(64, 48, device=dev)
+    plain = []
+    renderer.render_pixels(scene, cam, i, j, seeds, 1, 1, intersector="bvh", work=plain)
+    node_tests, leaves, tests = (int(x) for x in plain[0])
+    assert work.queries == 64 * 48 and work.visits == work.tests
+    assert abs(work.node_tests - node_tests) <= 0.01 * node_tests
+    assert abs(work.visits - leaves) <= 0.01 * leaves
+
+
+def test_bvh_kernel_culls_the_nan_face_ray(dev):
+    """Every ray starts on the root box's x = -1 face with direction x
+    exactly 0, so each slab test meets 0 x inf = NaN and culls the box,
+    as tracer's and the plain traversal's NaN-propagating min/max do; the
+    brute kernel hits the quad's edge."""
+    planes = T.make_planes([T.QUAD], [[-1, -1, 0]], [[2, 0, 0]], [[0, 2, 0]], [0], dev)
+    scene = T.Scene(
+        spheres=T.make_spheres(np.zeros((0, 3)), [], [], dev), planes=planes,
+        materials=T.make_materials([T.LAMBERTIAN], [0.0], [1.0], [[0, 0, 0]],
+                                   [[0.8, 0.6, 0.4]], [[0, 0, 0]], [-1], dev),
+        textures=None)
+    scene = scene._replace(bvh=bvh_builder.build_scene_bvh_from_scene(scene))
+    assert float(scene.bvh.box_min[0, 0]) == -1.0
+    f = lambda *x: torch.tensor(x, dtype=torch.float32, device=dev)
+    cam = camera.CameraData(f(-1, 0, 5), f(-1, -0.5, 4), f(0, 1 / 16, 0), f(0, 0, -1 / 64),
+                            f(0.05, 0.07, 0.1))
+    got = megakernel.render_frame_kernel(scene, cam, 16, 8, 1, 2, intersector="bvh")
+    want = renderer.render_frame(scene, cam, 16, 8, 1, 2, intersector="bvh")
+    assert torch.equal(got, want)
+    assert torch.equal(got, cam.background.expand_as(got))
+    assert not torch.allclose(megakernel.render_frame_kernel(scene, cam, 16, 8, 1, 2), got)
+
+
+def test_gpu_bvh_without_a_cuda_device_exits_1(dev, tmp_path):
+    text = config.smoke_config_text().replace("200 100 90", "48 32 90")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    r = subprocess.run([sys.executable, "-m", "tracer_torch.cli", "--gpu", "--bvh"],
+                       input=text, capture_output=True, text=True, cwd=tmp_path, env=env,
+                       timeout=300)
+    assert r.returncode == 1 and "needs a CUDA device" in r.stderr
+
+
+def test_kernel_build_failure_raises(dev, monkeypatch, tmp_path):
+    """A kernel that does not build raises; nothing renders on the plain
+    version instead."""
+    scene, cam = _bvh_case("smoke", dev)
+    (tmp_path / "megakernel.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(nvcc, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path / "build")
+    nvcc.build_all.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed for megakernel.cu"):
+            megakernel.render_frame_kernel(scene, cam, 8, 8, 1, 1, intersector="bvh")
+    finally:
+        nvcc.build_all.cache_clear()

@@ -104,10 +104,7 @@ def test_cli_retries_zero_renders(tmp_path, capsys):
     assert image_io.read_binary(str(tmp_path / "out_0.bin")).any()
 
 
-UNPORTED = [
-    ["--bvh"], ["--ref-rng"], ["--stratify"], ["--fast-math"], ["--retries", "2"],
-    ["--backend", "tpu"],
-]
+UNPORTED = [["--ref-rng"], ["--fast-math"], ["--retries", "2"], ["--backend", "tpu"]]
 
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=[a[0] for a in UNPORTED])

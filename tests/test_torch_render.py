@@ -13,15 +13,20 @@ import io
 import os
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tracer.core import rng as jax_rng
 from tracer.pallas import megakernel as jax_megakernel
 from tracer.render import camera as jax_camera
 from tracer.render import renderer as jax_renderer
 from tracer.scene import builders as jax_builders
 from tracer.scene import config as jax_config
+from tracer.scene import types as jax_T
+from tracer_torch.core import rng
 from tracer_torch.kernels import megakernel
 from tracer_torch.render import camera, renderer
 from tracer_torch.scene import builders, config
@@ -30,7 +35,8 @@ from tracer_torch.scene import types as T
 sys.path.insert(0, os.path.dirname(__file__))
 from test_parity import _full_scene  # noqa: E402
 from test_torch_scene import one_torch_thread, jax_cam_fields, jax_scene_fields  # noqa: E402,F401
-from torch_scenes import SKY, closed_sphere, sky_camera, sky_scene  # noqa: E402
+from torch_scenes import (SKY, closed_sphere, sky_camera, sky_scene,  # noqa: E402
+                          sphere_field_camera, sphere_field_fields)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "canonical_32x24_spp4_d5.npz")
 
@@ -131,7 +137,7 @@ def test_sample_chunks_add_up_to_one_shot(split):
 def test_render_pixels_chunking_is_invisible():
     scene = _smoke()
     cam = camera.camera_from_numpy(jax_cam_fields(_jcam(16, 8, (0.05, 0.07, 0.1))), "cpu")
-    i, j, seeds = renderer.pixel_grid(16, 8)
+    i, j, seeds = renderer.pixel_grid(16, 8, device="cpu")
     whole = renderer.render_pixels(scene, cam, i, j, seeds, 2, 4)
     chunked = renderer.render_pixels(scene, cam, i, j, seeds, 2, 4, chunk=37)
     torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
@@ -162,3 +168,46 @@ def test_query_count_is_max_depth_per_sample_inside_a_closed_sphere():
     assert renderer.query_count(closed_sphere("cpu"), cam, 10, 8, 2, 4) == 10 * 8 * 2 * 4
     # roulette ends paths early, so the count falls
     assert renderer.query_count(closed_sphere("cpu"), cam, 10, 8, 2, 4, rr_start=0) < 640
+
+
+def test_sphere_field_pixel_differs_by_xla_fma_contraction():
+    """Why the port's brute frame of the 2000-sphere field differs from
+    tracer's brute XLA frame on a few pixels (under 1% at 64x32 spp2 d3
+    with the field's camera; every other pixel is bit-equal). On pixel
+    (row 12, column 33), sample 0, the first value that differs is the
+    primary ray's direction: XLA:CPU's jit fuses `pixel_center + offset *
+    delta` (tracer.render.camera.get_rays) into one FMA, while JAX run op
+    by op rounds the product and the sum apart, as the port does, bit for
+    bit. The change in d.y moves the hit point enough that tracer's first
+    bounce hits the same sphere again just past T_MIN, where the port's
+    bounce leaves it; the paths part there."""
+    fields, cols = sphere_field_fields(2000)
+    group = lambda cls, pre: cls(*(jnp.asarray(fields[f"{pre}.{n}"]) for n in cls._fields))
+    jscene = jax_T.Scene(group(jax_T.Spheres, "spheres"), group(jax_T.Planes, "planes"),
+                         group(jax_T.Materials, "materials"), None, None)
+    scene = T.scene_from_numpy(fields, "cpu")
+    cam = sphere_field_camera(cols, 64, 32, "cpu")
+    jcam = jax_camera.CameraData(*(jnp.asarray(x.numpy()) for x in cam))
+    lin = 12 * 64 + 33
+    ji, jj, jseed = jax_renderer.pixel_grid(64, 32)
+    sd = jax_rng.sample_seed(jseed, jnp.uint32(0))
+    eager = np.asarray(jax_camera.get_rays(jcam, ji, jj, sd)[2][lin])
+    jitted = np.asarray(jax.jit(lambda s: jax_camera.get_rays(jcam, ji, jj, s))(sd)[2][lin])
+    i, j, seed = renderer.pixel_grid(64, 32, device="cpu")
+    ours = camera.get_rays(cam, i, j, rng.sample_seed(seed, 0))[2][lin].numpy()
+    np.testing.assert_array_equal(ours.view(np.int32), eager.view(np.int32))
+    ulps = np.abs(jitted.view(np.int32) - eager.view(np.int32))
+    assert ulps[0] == ulps[2] == 0 and 1 <= ulps[1] <= 2
+    # XLA:CPU's jit contracts a + b * c: one rounding, not two
+    g = np.random.default_rng(0)
+    a, b, c = (g.normal(size=4096).astype(np.float32) for _ in range(3))
+    fused = np.asarray(jax.jit(lambda a, b, c: a + b * c)(a, b, c))
+    one_rounding = (a.astype(np.float64) + b.astype(np.float64) * c.astype(np.float64))
+    np.testing.assert_array_equal(fused, one_rounding.astype(np.float32))
+    assert (fused != a + b * c).mean() > 0.1
+    # the frames: that pixel differs, nearly every other one is bit-equal
+    want = np.asarray(jax_renderer.render_frame(jscene, jcam, 64, 32, spp=2, max_depth=3,
+                                                intersector="brute", chunk=64 * 32))
+    got = renderer.render_frame(scene, cam, 64, 32, 2, 3).numpy()
+    differ = (got != want).any(axis=-1)
+    assert differ[12, 33] and differ.mean() < 0.01

@@ -91,13 +91,6 @@ def test_create_scene_matches_tracer(cfg, loader):
                 got["materials.fuzz"].size) == (94, 105, 12)
 
 
-def test_create_scene_bvh_not_ported():
-    params = config.read_scene_params(io.StringIO(config.smoke_config_text()))
-    with pytest.raises(NotImplementedError):
-        builders.create_scene(params, with_bvh=True, texture_loader=lambda _p: None,
-                              device="cpu")
-
-
 @pytest.mark.parametrize("loader", sorted(LOADERS))
 def test_scene_from_numpy_round_trips(loader):
     jscene = jax_builders.create_scene(

@@ -1,0 +1,239 @@
+"""Host-side BVH construction: a median split, one primitive per leaf,
+flattened in preorder (port of tracer/bvh/builder.py; reference
+`build_bvh`, include/bvh_builder.h:52-120).
+
+The NumPy functions are copied from tracer's as they are, so that the two
+packages build bit-identical arrays from the same primitives. Internal
+nodes store the real split axis in a field of their own (the reference
+reads `type` as the axis, bvh.h:52, which is -1 there). The left subtree
+is allocated first, so an internal node's left child is the next node
+(`left == node + 1`), which the kernel's node records rely on.
+
+The native C++ builder (tracer_torch/bvh/native, built with g++ at first
+use) is used when available; it partitions with std::nth_element, which
+may order a level's primitives otherwise than np.argpartition, so its
+tree has the same invariants and nearest hits, not identical arrays.
+NumPy is the builder of a host without g++. The arrays go to the scene's
+device as tensors.
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from tracer_torch.geometry import aabb as aabb_mod
+from tracer_torch.scene.types import BVHArrays
+
+KIND_SPHERE = 0  # bvh_builder.h:108 (type 0)
+KIND_PLANE = 1  # bvh_builder.h:114 (type 1)
+KIND_INTERNAL = -1  # bvh_builder.h:94
+
+
+def primitive_boxes(sphere_center, sphere_radius, plane_base, plane_u, plane_v, plane_type):
+    """AABBs + centroids for all primitives, spheres first then planes
+    (bvh_builder.h:99-117). Returns (lo, hi, centroid, kind, index)."""
+    parts_lo, parts_hi, cents, kinds, idxs = [], [], [], [], []
+    ns = len(sphere_radius)
+    if ns:
+        lo, hi = aabb_mod.sphere_boxes(np.asarray(sphere_center, np.float32),
+                                       np.asarray(sphere_radius, np.float32))
+        parts_lo.append(lo)
+        parts_hi.append(hi)
+        cents.append(np.asarray(sphere_center, np.float32))  # bvh_builder.h:105
+        kinds.append(np.full(ns, KIND_SPHERE, np.int32))
+        idxs.append(np.arange(ns, dtype=np.int32))
+    np_ = len(plane_type)
+    if np_:
+        base = np.asarray(plane_base, np.float32)
+        u = np.asarray(plane_u, np.float32)
+        v = np.asarray(plane_v, np.float32)
+        lo, hi = aabb_mod.plane_boxes(base, u, v, np.asarray(plane_type))
+        parts_lo.append(lo)
+        parts_hi.append(hi)
+        cents.append(base + (u + v) * 0.5)  # approx centroid, bvh_builder.h:112
+        kinds.append(np.full(np_, KIND_PLANE, np.int32))
+        idxs.append(np.arange(np_, dtype=np.int32))
+    if not parts_lo:
+        z = np.zeros((0, 3), np.float32)
+        return z, z, z, np.zeros(0, np.int32), np.zeros(0, np.int32)
+    return (
+        np.concatenate(parts_lo),
+        np.concatenate(parts_hi),
+        np.concatenate(cents),
+        np.concatenate(kinds),
+        np.concatenate(idxs),
+    )
+
+
+def build_bvh_numpy(lo, hi, centroid, kind, index) -> Tuple[np.ndarray, ...]:
+    """Median-split BVH over pre-boxed primitives.
+
+    Returns flat arrays (box_min[N,3], box_max[N,3], left[N], right[N],
+    node_kind[N], axis[N]) in preorder, root at 0. N = 2*P - 1.
+    """
+    num = len(kind)
+    if num == 0:
+        z3 = np.zeros((0, 3), np.float32)
+        zi = np.zeros(0, np.int32)
+        return z3, z3, zi, zi, zi, zi
+
+    order = np.arange(num)
+    nodes_min, nodes_max = [], []
+    nodes_left, nodes_right, nodes_kind, nodes_axis = [], [], [], []
+
+    def alloc():
+        nodes_min.append(None)
+        nodes_max.append(None)
+        nodes_left.append(0)
+        nodes_right.append(0)
+        nodes_kind.append(0)
+        nodes_axis.append(0)
+        return len(nodes_min) - 1
+
+    def rec(start: int, end: int) -> int:
+        node = alloc()
+        sel = order[start:end]
+        nodes_min[node] = lo[sel].min(axis=0)
+        nodes_max[node] = hi[sel].max(axis=0)
+        if end - start == 1:
+            p = order[start]
+            nodes_left[node] = -1  # bvh_builder.h:65
+            nodes_right[node] = int(index[p])
+            nodes_kind[node] = int(kind[p])
+            nodes_axis[node] = 0
+            return node
+        c = centroid[sel]
+        extent = c.max(axis=0) - c.min(axis=0)
+        axis = int(np.argmax(extent))  # largest extent (bvh_builder.h:78-87)
+        mid = (start + end) // 2
+        # nth_element partition on the centroid along `axis` (bvh_builder.h:84-86)
+        part = np.argpartition(c[:, axis], mid - start)
+        order[start:end] = sel[part]
+        left = rec(start, mid)
+        right = rec(mid, end)
+        nodes_left[node] = left
+        nodes_right[node] = right
+        nodes_kind[node] = KIND_INTERNAL
+        nodes_axis[node] = axis
+        return node
+
+    old_limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old_limit, 4 * num + 100))
+    try:
+        rec(0, num)
+    finally:
+        sys.setrecursionlimit(old_limit)
+
+    return (
+        np.stack(nodes_min).astype(np.float32),
+        np.stack(nodes_max).astype(np.float32),
+        np.asarray(nodes_left, np.int32),
+        np.asarray(nodes_right, np.int32),
+        np.asarray(nodes_kind, np.int32),
+        np.asarray(nodes_axis, np.int32),
+    )
+
+
+def tree_depth(left, right) -> int:
+    """Max root-to-leaf depth (root = 1) from the flat node arrays.
+
+    Nodes are in preorder, so every child index is larger than its
+    parent's — one forward pass suffices.
+    """
+    left = np.asarray(left)
+    right = np.asarray(right)
+    n = len(left)
+    if n == 0:
+        return 0
+    depth = np.zeros(n, np.int64)
+    depth[0] = 1
+    maxd = 1
+    for i in range(n):
+        if left[i] >= 0:  # internal node
+            d = depth[i] + 1
+            depth[left[i]] = d
+            depth[right[i]] = d
+            if d > maxd:
+                maxd = int(d)
+    return maxd
+
+
+def _stack_depth(num_nodes: int) -> int:
+    """Median-split trees are balanced: depth <= ceil(log2(leaves)) + 2
+    (tracer/bvh/traverse.py:_stack_depth)."""
+    leaves = max(1, (num_nodes + 1) // 2)
+    return max(4, int(math.ceil(math.log2(leaves))) + 3)
+
+
+def check_stack_capacity(left, right) -> None:
+    """Fail loudly if the traversal stack cannot hold this tree.
+
+    The batched traversal (tracer_torch.bvh.traverse) sizes its per-lane
+    stack from the node count assuming a balanced median-split tree; a
+    deeper tree (e.g. a future SAH builder) would silently drop pushes and
+    corrupt the image. Max stack occupancy during near-first traversal
+    equals the tree depth, so that is the bound.
+    """
+    d = tree_depth(left, right)
+    cap = _stack_depth(len(left))
+    if d > cap:
+        raise ValueError(
+            f"BVH tree depth {d} exceeds the traversal stack capacity "
+            f"{cap} (sized for balanced median-split trees). Deepen "
+            f"_stack_depth in tracer_torch/bvh/builder.py for this builder."
+        )
+
+
+def native_available() -> bool:
+    """Whether `build_bvh_arrays` takes the native builder on this host."""
+    from tracer_torch.bvh import native
+
+    return native.available()
+
+
+def _build(lo, hi, centroid, kind, index):
+    """The native C++ builder when available, else NumPy."""
+    if native_available():
+        from tracer_torch.bvh import native
+
+        return native.build_bvh(lo, hi, centroid, kind, index)
+    return build_bvh_numpy(lo, hi, centroid, kind, index)
+
+
+def build_bvh_arrays(sphere_center, sphere_radius, plane_base, plane_u, plane_v, plane_type,
+                     device) -> BVHArrays:
+    """Primitives -> boxes -> flat BVH, as tensors on `device`."""
+    lo, hi, cent, kind, index = primitive_boxes(
+        sphere_center, sphere_radius, plane_base, plane_u, plane_v, plane_type
+    )
+    bmin, bmax, left, right, nkind, axis = _build(lo, hi, cent, kind, index)
+    check_stack_capacity(left, right)
+    return BVHArrays(*(torch.tensor(a, device=device)
+                       for a in (bmin, bmax, left, right, nkind, axis)))
+
+
+def build_scene_bvh(buf, device) -> BVHArrays:
+    """Build from a SceneBuffers (tracer_torch.scene.builders)."""
+    return build_bvh_arrays(
+        np.stack(buf.sphere_center) if buf.sphere_center else np.zeros((0, 3), np.float32),
+        np.asarray(buf.sphere_radius, np.float32),
+        np.stack(buf.plane_base) if buf.plane_base else np.zeros((0, 3), np.float32),
+        np.stack(buf.plane_u) if buf.plane_u else np.zeros((0, 3), np.float32),
+        np.stack(buf.plane_v) if buf.plane_v else np.zeros((0, 3), np.float32),
+        np.asarray(buf.plane_type, np.int32),
+        device,
+    )
+
+
+def build_scene_bvh_from_scene(scene) -> BVHArrays:
+    """Build from a Scene's own primitives (read back to the host), on the
+    scene's device: for scenes made without SceneBuffers."""
+    sp, pl = scene.spheres, scene.planes
+    host = lambda t: t.detach().cpu().numpy()
+    return build_bvh_arrays(host(sp.center), host(sp.radius), host(pl.base), host(pl.u),
+                            host(pl.v), host(pl.ptype), scene.device)

@@ -3,7 +3,9 @@
 Covers the reference CLI (src/main.cu:572-606): with no device flag or
 `--gpu` it renders a stdin config with the CUDA megakernel (and exits 1
 when there is no CUDA device), `--cpu` with the plain PyTorch twin on the
-CPU; `--default` / `--smoke` print the sample configs. `--fit TARGET`
+CPU; `--default` / `--smoke` print the sample configs. `--bvh` renders
+through the scene's BVH (the BVH kernel on the card, the plain traversal
+with `--cpu`), `--stratify` stratifies the sub-pixel jitter. `--fit TARGET`
 fits scene parameters to a target image instead of rendering: on the card
 with the recording and backward kernels, or with `--cpu` by autograd
 through the plain renderer.
@@ -11,6 +13,7 @@ through the plain renderer.
 Usage:
   python -m tracer_torch.cli --default > config.txt
   python -m tracer_torch.cli --gpu --format bin < config.txt
+  python -m tracer_torch.cli --gpu --bvh --stratify < config.txt
   python -m tracer_torch.cli --cpu --config config.txt --frames 1
   python -m tracer_torch.cli --gpu --fit target.bin --config config.txt \
       --fit-params materials.albedo --fit-steps 200
@@ -27,9 +30,7 @@ import sys
 
 # flag -> how to tell it was given, for the flags whose code is not ported
 _UNPORTED = {
-    "--bvh": lambda a: a.bvh,
     "--ref-rng": lambda a: a.ref_rng,
-    "--stratify": lambda a: a.stratify,
     "--fast-math": lambda a: a.fast_math,
     "--retries": lambda a: a.retries > 0,  # 0, the default, retries nothing
     "--backend tpu": lambda a: a.backend == "tpu",
@@ -68,10 +69,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--fit-lr", type=float, default=1e-2)
     p.add_argument("--fit-checkpoint", default=None,
                    help="npz checkpoint path (resumes if it exists)")
+    p.add_argument("--bvh", action="store_true",
+                   help="use BVH traversal instead of brute force (the BVH kernel with --gpu)")
+    p.add_argument("--stratify", action="store_true",
+                   help="stratified sub-pixel jitter: sample s in cell (s mod k, s // k) of "
+                        "the k x k grid, k = sqrt_rays_per_pixel")
     # accepted for command compatibility with tracer.cli; refused below
-    p.add_argument("--bvh", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--ref-rng", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--stratify", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--fast-math", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--retries", type=int, default=0, help=argparse.SUPPRESS)
     return p
@@ -122,7 +126,7 @@ def main(argv=None) -> int:
     from tracer_torch.render import driver
     from tracer_torch.scene import builders
 
-    scene = builders.create_scene(params, device=device)
+    scene = builders.create_scene(params, with_bvh=args.bvh, device=device)
     if args.fit:
         return _run_fit(args, scene, params, engine)
     out_dir = os.path.dirname(params.output_path)
@@ -136,6 +140,8 @@ def main(argv=None) -> int:
         engine=engine,
         saver_spp_quirk=not args.no_saver_quirk,
         rr_start=args.rr,
+        stratify=args.stratify,
+        intersector="bvh" if args.bvh else "brute",
     )
     return 0
 
@@ -181,9 +187,14 @@ def _run_fit(args, scene, params, engine: str) -> int:
     cam_spec = None
     if any(p.startswith("camera.") for p in paths):
         cam_spec = dict(origin=lookfrom, look_at=lookat, vfov=float(params.fov_degrees))
+    if args.bvh and engine == "cuda":
+        print("tracer: --fit differentiates with the brute-force kernels on the card; "
+              "--bvh --fit needs --cpu", file=sys.stderr)
+        return 2
     out = fit_mod.fit(scene, cam, target, w, h, spp=spp, max_depth=params.render.max_depth,
                       param_paths=paths, steps=args.fit_steps, learning_rate=args.fit_lr,
-                      checkpoint_path=args.fit_checkpoint, cam_spec=cam_spec, engine=engine)
+                      checkpoint_path=args.fit_checkpoint, cam_spec=cam_spec, engine=engine,
+                      stratify=args.stratify, intersector="bvh" if args.bvh else "brute")
     fitted, losses = out[:2]
     for path in paths:
         if path.startswith("camera."):

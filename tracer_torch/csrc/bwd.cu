@@ -11,7 +11,8 @@
 // the same replay), and the test suite holds the two together.
 //
 // Per pixel and sample: the primary ray is regenerated from the seed
-// streams, then each bounce takes its RECORDED winner (no intersection
+// streams (with strat_k > 0, its jitter stratified as the record kernel's),
+// then each bounce takes its RECORDED winner (no intersection
 // search), recomputes t from the winner's geometry (near root with far
 // fallback, or the plane root), and shades with the recording kernel's
 // draws, roulette and texture tape. The texel is linearised around the
@@ -515,7 +516,8 @@ __device__ void bwd_pixel(const float* __restrict__ table, int n, const float* c
                           const int* __restrict__ idx, const float* __restrict__ gfb,
                           const float* __restrict__ tape, int tape_f, bool want_tex,
                           int width, int npx, int pix, int spp, int max_depth, int row_offset,
-                          uint32_t sample_start, int quirk, int rr_start, float* acc,
+                          uint32_t sample_start, int quirk, int rr_start, int strat_k,
+                          float* acc,
                           float* g_cam, float* __restrict__ fb, float* __restrict__ gtex,
                           float* scratch, size_t stride, size_t tid) {
   const int i = pix % width;
@@ -538,8 +540,18 @@ __device__ void bwd_pixel(const float* __restrict__ table, int n, const float* c
   for (int s = 0; s < spp; ++s) {
     Ray ray;
     ray.seed = wang_hash(base + sample_start + (uint32_t)s);
-    const float offx = rand01(ray.seed) - 0.5f;
-    const float offy = rand01(ray.seed) - 0.5f;
+    const float ux = rand01(ray.seed);
+    const float uy = rand01(ray.seed);
+    float offx, offy;
+    if (strat_k > 0) {  // stratified: cell (s_g mod k, floor(s_g / k)), as K1
+      const float kf = (float)strat_k;
+      const float sg = __uint2float_rn(sample_start + (uint32_t)s);
+      offx = (fmodf(sg, kf) + ux) / kf - 0.5f;
+      offy = (floorf(sg / kf) + uy) / kf - 0.5f;
+    } else {
+      offx = ux - 0.5f;
+      offy = uy - 0.5f;
+    }
     ray.o = o0;
     ray.d = sub(add(add(pc, scale(du, offx)), scale(dv, offy)), o0);
     ray.beta = make_v3(1.0f, 1.0f, 1.0f);
@@ -601,7 +613,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) bwd_kernel(
     const float* __restrict__ table, int n, const float* __restrict__ camv,
     const int* __restrict__ idx, const float* __restrict__ gfb,
     const float* __restrict__ tape, int tape_f, int want_tex, int width, int npx, int spp,
-    int max_depth, int row_offset, uint32_t sample_start, int quirk, int rr_start,
+    int max_depth, int row_offset, uint32_t sample_start, int quirk, int rr_start, int strat_k,
     float* __restrict__ dtable, float* __restrict__ dcam, float* __restrict__ fb,
     float* __restrict__ gtex, float* __restrict__ scratch, int* __restrict__ next) {
   extern __shared__ float sh[];
@@ -628,8 +640,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) bwd_kernel(
     if (first >= npx) break;
     if (first + lane < npx) {
       bwd_pixel(table, n, cam, idx, gfb, tape, tape_f, want_tex != 0, width, npx, first + lane,
-                spp, max_depth, row_offset, sample_start, quirk, rr_start, acc, g_cam, fb, gtex,
-                scratch, stride, tid);
+                spp, max_depth, row_offset, sample_start, quirk, rr_start, strat_k, acc, g_cam,
+                fb, gtex, scratch, stride, tid);
     }
   }
   for (int k = 0; k < V_ROWS; ++k) {
@@ -679,12 +691,15 @@ extern "C" int tracer_bwd_occupancy(int shared_acc, int n, int* blocks_per_sm) {
 // come zeroed; scratch holds STATE_FLOATS*max_depth rows of blocks*THREADS
 // floats (threads must be THREADS). shared_acc picks the shared-memory
 // dtable accumulator (the wrapper checks that the table fits). next is a
-// zeroed counter from which each warp takes its next 32 pixels. Launches
-// on `stream`, does not synchronise, and returns cudaGetLastError().
+// zeroed counter from which each warp takes its next 32 pixels. strat_k > 0
+// stratifies the primary rays' jitter over a strat_k x strat_k grid, as
+// the record kernel did. Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError().
 extern "C" int tracer_bwd(const float* table, int n, const float* camv, const int* idx,
                           const float* gfb, const float* tape, int tape_f, int want_tex,
                           int width, int npx, int spp, int max_depth, int row_offset,
-                          unsigned int sample_start, int quirk, int rr_start, int shared_acc,
+                          unsigned int sample_start, int quirk, int rr_start, int strat_k,
+                          int shared_acc,
                           float* dtable, float* dcam, float* fb, float* gtex, float* scratch,
                           int blocks, int threads, int scratch_rows, void* stream,
                           int* next) {
@@ -700,11 +715,13 @@ extern "C" int tracer_bwd(const float* table, int n, const float* camv, const in
     if (e != cudaSuccess) return static_cast<int>(e);
     bwd_kernel<true><<<blocks, threads, bytes, st>>>(
         table, n, camv, idx, gfb, tape, tape_f, want_tex, width, npx, spp, max_depth,
-        row_offset, sample_start, quirk, rr_start, dtable, dcam, fb, gtex, scratch, next);
+        row_offset, sample_start, quirk, rr_start, strat_k, dtable, dcam, fb, gtex, scratch,
+        next);
   } else {
     bwd_kernel<false><<<blocks, threads, shared_bytes(0, n), st>>>(
         table, n, camv, idx, gfb, tape, tape_f, want_tex, width, npx, spp, max_depth,
-        row_offset, sample_start, quirk, rr_start, dtable, dcam, fb, gtex, scratch, next);
+        row_offset, sample_start, quirk, rr_start, strat_k, dtable, dcam, fb, gtex, scratch,
+        next);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -83,14 +83,42 @@
 // the primitive tests of the reached leaves per bounce; divergence, since
 // the threads of a warp walk different paths.
 //
-// All three run one bounce loop, trace_pixel<RECORD, CLUSTERED, SMEM,
-// NSMEM, COUNT>, and call the same sphere_t / plane_hit; only the
-// nearest-hit block's loop and the tape stores are chosen at compile time.
+// BVH mode (ISECT == BVH, entry mode 3) replaces tracer/bvh/traverse.py:
+// traverse, which tracer runs in XLA (a lax.while_loop; there is no Pallas
+// kernel): the nearest hit walks the scene's median-split BVH
+// (tracer_torch/bvh/builder.py) with a per-thread stack of BVH_STACK node
+// indices, as the reference's hit_bvh (bvh.h:19-65). Each node is two
+// float4 records (kernels/pack.py:pack_bvh): (lo x, y, z, split axis or -1
+// for a leaf) and (hi x, y, z, right child or the leaf's primitive id,
+// spheres first), int fields as int32 bits; the left child of an internal
+// node is the next node. The visit order is the plain version's
+// (tracer_torch/bvh/traverse.py): pop, slab-test over (T_MIN, closest);
+// at a leaf accept its primitive at t <= closest (a tie goes to the
+// primitive visited later); at an internal node push the far child, then
+// the near one (the left child when d[axis] >= 0). So the kernel picks
+// the plain version's winner, ties included. The slab test takes the
+// unguarded 1/d of tracer/geometry/aabb.py and culls a box when any of its
+// six plane distances is NaN (0 x inf: an origin on a face, a zero
+// direction component), where jnp.minimum and torch.minimum propagate the
+// NaN that fminf and fmaxf would drop. The node records share K1-cl's
+// staging (NSMEM). What bounds it: FP32 work, about 2 log2(n) node tests
+// a query, and divergence, since the threads of a warp walk different
+// paths; the stack lives in local memory.
+//
+// Stratified jitter (Launch::strat_k = k > 0; tracer/pallas/kernels.py:
+// 318-325, :533-541): sample s_g = sample_start + s lands in cell (s_g mod
+// k, floor(s_g / k)) of a k x k sub-pixel grid, offset (cell + u) / k -
+// 0.5, in float32; the same two draws, so the rest of the stream is
+// unchanged. k is the whole frame's, passed to every sample chunk.
+//
+// All four run one bounce loop, trace_pixel<RECORD, ISECT, SMEM, NSMEM,
+// COUNT>, and call the same sphere_t / plane_hit; only the nearest-hit
+// block's loop and the tape stores are chosen at compile time.
 // The counted instantiations (COUNT; the debug_iters counterpart of
 // tracer/pallas/kernels.py:62, :107-110) add up the launch's nearest-hit
 // queries, hits, leaves reached, primitive tests, warp passes, the active
-// lanes of each pass (__popc(__activemask())) and node tests; timed
-// launches take the uncounted ones.
+// lanes of each pass (__popc(__activemask())) and node tests (K1-cl's and
+// K1-bvh's walks); timed launches take the uncounted ones.
 //
 // Float semantics: IEEE division and sqrtf (no --use_fast_math); nvcc's
 // default FMA contraction is kept, so a ray on a razor-edge tie (polyhedron
@@ -106,6 +134,10 @@ namespace {
 constexpr float K_INFINITY = 1e32f;
 constexpr int THREADS = 128;
 constexpr int COUNTS = 7;  // COUNT's counters, see Launch::counts
+// the nearest-hit block of trace_pixel: every primitive (K1, K1-rec), the
+// cluster tree's walk (K1-cl) or the BVH's (K1-bvh)
+enum Isect { BRUTE = 0, CLUSTERED = 1, BVH = 2 };
+constexpr int BVH_STACK = 32;  // the BVH walk's stack (bvh.h:23); the wrapper checks the depth
 // The walk skips a subtree whose box's entry exceeds best * PRUNE: a
 // primitive's root rounds below the entry of a box that holds it by about
 // 2^-24 x its distance over its size (a sphere hit where it touches its
@@ -141,9 +173,12 @@ struct Launch {
   int* idx_tape;      // RECORD: [spp * max_depth, npx]
   float* tex_tape;    // RECORD: [tape_f * spp * max_depth, npx] or nullptr
   int tape_f;
-  const float4* nodes;  // CLUSTERED: [num_nodes * 2] (lo, skip), (hi, cluster) records
+  // CLUSTERED: [num_nodes * 2] (lo, skip), (hi, cluster) records; BVH:
+  // [num_nodes * 2] (lo, axis or -1), (hi, right child or primitive) records
+  const float4* nodes;
   const int* slots;    // CLUSTERED: [clusters * k], -1 pads a cluster's end
   int num_nodes, k;
+  int strat_k;         // stratified jitter's grid size k, 0 for uniform jitter
   // COUNT: [COUNTS] sums over the launch: nearest-hit queries, hits,
   // leaves reached, primitives tested, warp passes, active lanes, node tests
   unsigned long long* counts;
@@ -164,8 +199,9 @@ struct Prims {
   }
 };
 
-// The cluster tree's node records (kernels/cluster.py), in shared memory
-// (NSMEM) or read through the read-only cache.
+// The cluster tree's or the BVH's node records (kernels/cluster.py,
+// kernels/pack.py:pack_bvh), in shared memory (NSMEM) or read through the
+// read-only cache.
 template <bool NSMEM>
 struct Nodes {
   const float4* rec;
@@ -245,9 +281,10 @@ __device__ __forceinline__ float sphere_t(const Prims<SMEM>& P, int k, V3 o, V3 
 }
 
 // Plane k (plane.h:57-96): true, with *best, *alpha and *beta set to its
-// root and planar coordinates, if its root is valid, nearer than *best and
-// inside the quad, ellipse or triangle.
-template <bool SMEM>
+// root and planar coordinates, if its root is valid, nearer than *best
+// (with LE, not farther: the BVH's t <= closest) and inside the quad,
+// ellipse or triangle.
+template <bool SMEM, bool LE = false>
 __device__ __forceinline__ bool plane_hit(const Prims<SMEM>& P, int k, V3 o, V3 d, float* best,
                                           float* alpha_out, float* beta_out) {
   const float4 nd = P.plane(k, 0);  // normal, d
@@ -255,7 +292,7 @@ __device__ __forceinline__ bool plane_hit(const Prims<SMEM>& P, int k, V3 o, V3 
   const float denom = dot(nrm, d);
   if (!(fabsf(denom) >= DENOM_EPS)) return false;
   const float root = (nd.w - dot(nrm, o)) / denom;
-  if (!(root >= T_MIN && root <= T_MAX) || !(root < *best)) return false;
+  if (!(root >= T_MIN && root <= T_MAX) || !(LE ? root <= *best : root < *best)) return false;
   const float4 bt = P.plane(k, 1);  // base, type
   const V3 phv = sub(add(o, scale(d, root)), xyz(bt));
   const V3 w = xyz(P.plane(k, 4));
@@ -289,9 +326,10 @@ __device__ __forceinline__ float guarded_inv(float x) {
 // per pass of one loop (see the note at the top). With RECORD, every
 // reached slot also stores its winner into the index tape and, for a
 // textured hit, its tape_f texture fields into the texture tape. With
-// CLUSTERED, the nearest hit walks the cluster tree N instead of testing
-// every primitive. With COUNT, the launch's work is added to L.counts.
-template <bool RECORD, bool CLUSTERED, bool SMEM, bool NSMEM, bool COUNT>
+// ISECT CLUSTERED the nearest hit walks the cluster tree N, with BVH the
+// BVH N, instead of testing every primitive. With COUNT, the launch's
+// work is added to L.counts.
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT>
 __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& P,
                                             const Nodes<NSMEM>& N, int lin) {
   const int width = L.width, max_depth = L.max_depth, num_s = P.num_s, num_p = P.num_p;
@@ -330,8 +368,18 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
       }
       if (++s == L.spp) break;
       seed = wang_hash(base + L.sample_start + (uint32_t)s);
-      const float ox = rand01(seed) - 0.5f;  // x before y
-      const float oy = rand01(seed) - 0.5f;
+      const float ux = rand01(seed);  // x before y
+      const float uy = rand01(seed);
+      float ox, oy;
+      if (L.strat_k > 0) {  // stratified: cell (s_g mod k, floor(s_g / k))
+        const float kf = (float)L.strat_k;
+        const float sg = __uint2float_rn(L.sample_start + (uint32_t)s);
+        ox = (fmodf(sg, kf) + ux) / kf - 0.5f;
+        oy = (floorf(sg / kf) + uy) / kf - 0.5f;
+      } else {
+        ox = ux - 0.5f;
+        oy = uy - 0.5f;
+      }
       o = cam_o;
       d = sub(add(add(pc, scale(du, ox)), scale(dv, oy)), cam_o);
       beta = make_v3(1.0f, 1.0f, 1.0f);
@@ -353,7 +401,55 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
     float best = K_INFINITY;
     int widx = -1;
     float best_alpha = 0.0f, best_beta = 0.0f;
-    if constexpr (CLUSTERED) {
+    if constexpr (ISECT == BVH) {
+      // -- BVH nearest hit: the plain version's stack walk (see the note at
+      //    the top); t <= closest at the leaves, far child pushed first
+      const float ivx = 1.0f / d.x, ivy = 1.0f / d.y, ivz = 1.0f / d.z;
+      int stack[BVH_STACK];
+      int sp = 0;
+      stack[sp++] = 0;
+      best = T_MAX;  // the walk's closest starts at the interval's end
+      while (sp > 0) {
+        const int node = stack[--sp];
+        const float4 lo = N.lo(node), hi = N.hi(node);
+        if constexpr (COUNT) ++cnt[6];
+        const float tx1 = (lo.x - o.x) * ivx;
+        const float tx2 = (hi.x - o.x) * ivx;
+        const float ty1 = (lo.y - o.y) * ivy;
+        const float ty2 = (hi.y - o.y) * ivy;
+        const float tz1 = (lo.z - o.z) * ivz;
+        const float tz2 = (hi.z - o.z) * ivz;
+        const bool nan6 = isnan(tx1) || isnan(tx2) || isnan(ty1) || isnan(ty2) || isnan(tz1) ||
+                          isnan(tz2);
+        const float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
+                                 fmaxf(fminf(tz1, tz2), T_MIN));
+        const float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
+                                 fminf(fmaxf(tz1, tz2), best));
+        if (nan6 || !(tmax > tmin)) continue;
+        const int axis = __float_as_int(lo.w);
+        const int r = __float_as_int(hi.w);
+        if (axis < 0) {  // a leaf: its one primitive
+          if constexpr (COUNT) {
+            ++cnt[2];
+            ++cnt[3];
+          }
+          if (r < num_s) {
+            const float t = sphere_t(P, r, o, d, a, inv_a);
+            if (t <= best) {
+              best = t;
+              widx = r;
+            }
+          } else if (plane_hit<SMEM, true>(P, r - num_s, o, d, &best, &best_alpha, &best_beta)) {
+            widx = r;
+          }
+        } else {
+          const float da = axis == 0 ? d.x : (axis == 1 ? d.y : d.z);
+          const bool left_first = da >= 0.0f;
+          stack[sp++] = left_first ? r : node + 1;  // far
+          stack[sp++] = left_first ? node + 1 : r;  // near
+        }
+      }
+    } else if constexpr (ISECT == CLUSTERED) {
       // -- clustered nearest hit: the stackless walk of the cluster tree;
       //    each node's slab test is culling.py:40-60's, then the
       //    primitives of the leaves it reaches; strict < in (cluster,
@@ -571,10 +667,11 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
 
 // ---- the kernel ----
 
-// K1 (RECORD = CLUSTERED = false), K1-rec (RECORD) and K1-cl (CLUSTERED).
-// With SMEM the block first stages the primitive records in dynamic shared
-// memory, with NSMEM K1-cl's node records (after them), in one loop.
-template <bool RECORD, bool CLUSTERED, bool SMEM, bool NSMEM, bool COUNT>
+// K1 (RECORD = false, ISECT = BRUTE), K1-rec (RECORD), K1-cl (ISECT =
+// CLUSTERED) and K1-bvh (ISECT = BVH). With SMEM the block first stages
+// the primitive records in dynamic shared memory, with NSMEM the node
+// records (after them), in one loop.
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT>
 __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
   extern __shared__ float4 records[];
   Prims<SMEM> P{L.sph, L.pla, L.num_s, L.num_p};
@@ -601,10 +698,10 @@ __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
   }
   const int lin = blockIdx.x * blockDim.x + threadIdx.x;
   if (lin >= L.width * L.height) return;  // ragged last block
-  trace_pixel<RECORD, CLUSTERED, SMEM, NSMEM, COUNT>(L, P, N, lin);
+  trace_pixel<RECORD, ISECT, SMEM, NSMEM, COUNT>(L, P, N, lin);
 }
 
-template <bool RECORD, bool CLUSTERED, bool SMEM, bool NSMEM, bool COUNT>
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT>
 int launch(const Launch& L, cudaStream_t st) {
   const int blocks = (L.width * L.height + THREADS - 1) / THREADS;
   const size_t bytes = sizeof(float4) * ((SMEM ? (size_t)L.num_s * SPHERE_F4 +
@@ -612,22 +709,22 @@ int launch(const Launch& L, cudaStream_t st) {
                                          (NSMEM ? 2 * (size_t)L.num_nodes : 0));
   if (bytes > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(trace_kernel<RECORD, CLUSTERED, SMEM, NSMEM, COUNT>,
+        cudaFuncSetAttribute(trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  trace_kernel<RECORD, CLUSTERED, SMEM, NSMEM, COUNT><<<blocks, THREADS, bytes, st>>>(L);
+  trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT><<<blocks, THREADS, bytes, st>>>(L);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool RECORD, bool CLUSTERED, bool NSMEM>
+template <bool RECORD, int ISECT, bool NSMEM>
 int launch_mode(const Launch& L, bool smem, cudaStream_t st) {
   if (L.counts != nullptr) {
-    return smem ? launch<RECORD, CLUSTERED, true, NSMEM, true>(L, st)
-                : launch<RECORD, CLUSTERED, false, NSMEM, true>(L, st);
+    return smem ? launch<RECORD, ISECT, true, NSMEM, true>(L, st)
+                : launch<RECORD, ISECT, false, NSMEM, true>(L, st);
   }
-  return smem ? launch<RECORD, CLUSTERED, true, NSMEM, false>(L, st)
-              : launch<RECORD, CLUSTERED, false, NSMEM, false>(L, st);
+  return smem ? launch<RECORD, ISECT, true, NSMEM, false>(L, st)
+              : launch<RECORD, ISECT, false, NSMEM, false>(L, st);
 }
 
 }  // namespace
@@ -638,9 +735,13 @@ int launch_mode(const Launch& L, bool smem, cudaStream_t st) {
 // when tex is or tape_f is 0, come filled with their neutral values; tape_f
 // is 0, 3, 9 or 13),
 // 2 renders cluster-culled (K1-cl: nodes [num_nodes, 2] float4 records and
-// slots [clusters * k] as tracer_torch/kernels/cluster.py packs them). sph
-// and pla are 16-byte aligned record tables (tracer_torch/kernels/pack.py);
-// shared_tables stages them in shared memory, shared_nodes the nodes.
+// slots [clusters * k] as tracer_torch/kernels/cluster.py packs them), 3
+// renders through the BVH (K1-bvh: nodes [num_nodes, 2] float4 records as
+// tracer_torch/kernels/pack.py:pack_bvh packs them; the tree's depth at
+// most BVH_STACK). sph and pla are 16-byte aligned record tables
+// (tracer_torch/kernels/pack.py); shared_tables stages them in shared
+// memory, shared_nodes the nodes. strat_k > 0 stratifies the jitter over a
+// strat_k x strat_k grid (every mode).
 // counts is nullptr (the uncounted kernels) or COUNTS zeroed counters (the
 // counted ones). rr_start < 0 turns roulette off; tex == nullptr renders
 // untextured. Launches on `stream`, does not synchronise, and returns
@@ -651,18 +752,20 @@ extern "C" int tracer_megakernel_launch(
     int width, int height, int spp, int max_depth, unsigned int sample_start,
     int reference_quirk, int rr_start, int* idx_tape, float* tex_tape, int tape_f,
     const float* nodes, const int* slots, int num_nodes, int k, int shared_tables,
-    int shared_nodes, unsigned long long* counts, void* stream) {
+    int shared_nodes, int strat_k, unsigned long long* counts, void* stream) {
   const Launch L{reinterpret_cast<const float4*>(sph), reinterpret_cast<const float4*>(pla),
                  num_s, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
                  sample_start, reference_quirk, rr_start, idx_tape, tex_tape, tape_f,
-                 reinterpret_cast<const float4*>(nodes), slots, num_nodes, k, counts};
+                 reinterpret_cast<const float4*>(nodes), slots, num_nodes, k, strat_k, counts};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool smem = shared_tables != 0;
   switch (mode) {
-    case 0: return launch_mode<false, false, false>(L, smem, st);
-    case 1: return launch_mode<true, false, false>(L, smem, st);
-    case 2: return shared_nodes != 0 ? launch_mode<false, true, true>(L, smem, st)
-                                     : launch_mode<false, true, false>(L, smem, st);
+    case 0: return launch_mode<false, BRUTE, false>(L, smem, st);
+    case 1: return launch_mode<true, BRUTE, false>(L, smem, st);
+    case 2: return shared_nodes != 0 ? launch_mode<false, CLUSTERED, true>(L, smem, st)
+                                     : launch_mode<false, CLUSTERED, false>(L, smem, st);
+    case 3: return shared_nodes != 0 ? launch_mode<false, BVH, true>(L, smem, st)
+                                     : launch_mode<false, BVH, false>(L, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -18,7 +18,11 @@ def slab_hit(origin, direction, box_min, box_max, t_min, t_max):
     """True where the ray crosses the box within (t_min, t_max).
 
     reference aabb.h:42-65: shrinking interval, strict `max <= min` exit.
-    Shapes broadcast: origin/direction `[..., 3]`, box_min/box_max `[..., 3]`.
+    Shapes broadcast: origin/direction `[..., 3]`, box_min/box_max `[..., 3]`;
+    `t_max` may be a tensor of the leading shape (the BVH walk's per-ray
+    closest). The inverse direction is unguarded and every min and max
+    propagates NaN, as tracer's jnp ones do: a NaN distance (0 x inf, an
+    origin on a face with a zero direction component) misses the box.
     """
     inv_d = 1.0 / direction
     t1 = (box_min - origin) * inv_d

@@ -56,6 +56,20 @@ def plane_ts(origin, direction, planes, t_min, t_max):
     return torch.where(ok, root, K_INFINITY)
 
 
+def plane_t_gathered(origin, direction, ptype, base, u, v, normal, d, w, t_min, t_max):
+    """Valid hit parameter for per-ray gathered planes (one per ray; the
+    BVH's leaf test and its winner's recompute): `plane_ts` with every
+    field already `[R, ...]`. Returns `[R]`, K_INFINITY on a miss."""
+    denom, root, alpha, beta = plane_alpha_beta(origin, direction, base, normal, d, w, u, v)
+    ok = (
+        (torch.abs(denom) >= DENOM_EPS)
+        & (root >= t_min)
+        & (root <= t_max)
+        & interior_mask(ptype, alpha, beta)
+    )
+    return torch.where(ok, root, K_INFINITY)
+
+
 def plane_record(origin, direction, t, base, u, v, normal, w):
     """Hit point, face-oriented normal, front face and planar UVs for rays
     whose winner is a plane (per-ray gathered fields; plane.h:84-94)."""

@@ -34,6 +34,25 @@ def sphere_ts(origin, direction, center, radius, t_min, t_max):
     return torch.where(near_ok, t_near, torch.where(far_ok, t_far, K_INFINITY))
 
 
+def sphere_t_gathered(origin, direction, center, radius, t_min, t_max):
+    """Nearest valid root for per-ray gathered spheres (one per ray; the
+    BVH's leaf test and its winner's recompute): `sphere_ts` with every
+    field already `[R, ...]`. Returns `[R]`, K_INFINITY where no valid hit."""
+    oc = origin - center
+    a = vec.length_squared(direction)
+    half_b = torch.sum(oc * direction, dim=-1)
+    c = torch.sum(oc * oc, dim=-1) - radius * radius
+    disc = half_b * half_b - a * c
+    hit = disc >= 0.0
+    sqrt_d = torch.sqrt(torch.where(hit, disc, 1.0))
+    inv_a = 1.0 / a
+    t_near = (-half_b - sqrt_d) * inv_a
+    t_far = (-half_b + sqrt_d) * inv_a
+    near_ok = hit & (t_near >= t_min) & (t_near <= t_max)
+    far_ok = hit & (t_far >= t_min) & (t_far <= t_max)
+    return torch.where(near_ok, t_near, torch.where(far_ok, t_far, K_INFINITY))
+
+
 def sphere_uv(outward_normal):
     """Spherical UVs from the unit outward normal (reference
     include/sphere.h:16-22): u = (atan2(-z, x) + pi) / 2pi, v = acos(y) / pi."""

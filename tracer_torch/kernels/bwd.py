@@ -112,7 +112,7 @@ def _field_major(tex_tape, spp, max_depth, num_pixels):
 def band_cotangents(table, camv, idx, g_fb, width: int, band_rows: int, spp: int,
                     max_depth: int, *, row_offset: int = 0, sample_start: int = 0,
                     reference_quirk: bool = True, rr_start=None, tex_tape=None,
-                    texture_grads: bool = False, tex_shape=None):
+                    texture_grads: bool = False, tex_shape=None, strat_k: int = 0):
     """(dtable, dcam, fb `[N, 3]`[, dtex `[th, tw, 3]`]) for one band of
     `band_rows` rows starting at image row `row_offset`.
 
@@ -120,7 +120,8 @@ def band_cotangents(table, camv, idx, g_fb, width: int, band_rows: int, spp: int
     g_fb: the cotangent on the band's raw sample sums, reshapable to
     `[N, 3]`; tex_tape: `[spp, max_depth, N, F]` or None. With
     `texture_grads` (13 fields, `tex_shape` = (th, tw)) the texel
-    cotangents are scattered onto the texture image."""
+    cotangents are scattered onto the texture image. `strat_k`: the
+    recording's stratification grid (0: uniform jitter)."""
     from tracer_torch.kernels import tex_scatter
 
     n = width * band_rows
@@ -135,7 +136,7 @@ def band_cotangents(table, camv, idx, g_fb, width: int, band_rows: int, spp: int
         if t2 is None or t2.shape[0] != 13 * rows or tex_shape is None:
             raise ValueError("texture_grads needs a 13-field tape and tex_shape")
     kw = dict(row_offset=row_offset, sample_start=sample_start,
-              reference_quirk=reference_quirk, rr_start=rr_start)
+              reference_quirk=reference_quirk, rr_start=rr_start, strat_k=strat_k)
     dev = table.device
     if dev.type == "cpu":
         dtable, dcam, fb, gtex = replay.replay_cotangents(
@@ -195,9 +196,11 @@ def leaf_grads(scene: Scene, cam: camera_mod.CameraData, dtable, dcam) -> list:
 def scene_cam_cotangents(scene: Scene, cam: camera_mod.CameraData, idx, g_fb, width: int,
                          height: int, spp: int, max_depth: int, reference_quirk: bool = True,
                          rr_start=None, sample_start: int = 0, row_offset: int = 0,
-                         tex_tape=None, texture_grads: bool = False):
+                         tex_tape=None, texture_grads: bool = False, stratify: bool = False,
+                         strat_sqrt_spp: int = 0):
     """(cotangents of `float_leaves(scene, cam)`, d(texture layer 0) or
     None, replayed fb `[H, W, 3]`): `scene_cam_grads` as flat lists."""
+    strat_k = camera_mod.strat_grid(stratify, spp, strat_sqrt_spp)
     tex_shape = None
     if texture_grads:
         if scene.textures is None:
@@ -207,7 +210,8 @@ def scene_cam_cotangents(scene: Scene, cam: camera_mod.CameraData, idx, g_fb, wi
     out = band_cotangents(table.detach(), camv.detach(), idx, g_fb, width, height, spp,
                           max_depth, row_offset=row_offset, sample_start=sample_start,
                           reference_quirk=reference_quirk, rr_start=rr_start,
-                          tex_tape=tex_tape, texture_grads=texture_grads, tex_shape=tex_shape)
+                          tex_tape=tex_tape, texture_grads=texture_grads, tex_shape=tex_shape,
+                          strat_k=strat_k)
     grads = leaf_cotangents(scene, cam, out[0], out[1])
     return grads, (out[3] if texture_grads else None), out[2].reshape(height, width, 3)
 
@@ -215,9 +219,13 @@ def scene_cam_cotangents(scene: Scene, cam: camera_mod.CameraData, idx, g_fb, wi
 def scene_cam_grads(scene: Scene, cam: camera_mod.CameraData, idx, g_fb, width: int,
                     height: int, spp: int, max_depth: int, reference_quirk: bool = True,
                     rr_start=None, sample_start: int = 0, row_offset: int = 0,
-                    tex_tape=None, texture_grads: bool = False):
+                    tex_tape=None, texture_grads: bool = False, stratify: bool = False,
+                    strat_sqrt_spp: int = 0):
     """(d(scene), d(cam), fb `[H, W, 3]`) for the cotangent `g_fb` `[H, W, 3]`
     on a recorded frame (tracer/pallas/bwd.py:scene_cam_grads).
+
+    `stratify` (and `strat_sqrt_spp` for a chunk of a larger frame) must
+    be what the recording took: the backward regenerates its primary rays.
 
     d(scene) is a Scene of gradients: one per float leaf, None for the
     integer leaves, and for the textures zeros (or, with `texture_grads`,
@@ -225,7 +233,8 @@ def scene_cam_grads(scene: Scene, cam: camera_mod.CameraData, idx, g_fb, width: 
     grads, dtex, fb = scene_cam_cotangents(
         scene, cam, idx, g_fb, width, height, spp, max_depth, reference_quirk=reference_quirk,
         rr_start=rr_start, sample_start=sample_start, row_offset=row_offset,
-        tex_tape=tex_tape, texture_grads=texture_grads)
+        tex_tape=tex_tape, texture_grads=texture_grads, stratify=stratify,
+        strat_sqrt_spp=strat_sqrt_spp)
     g_scene, g_cam = with_float_leaves(scene, cam, grads, ints=None)
     if scene.textures is not None:
         g_tex = torch.zeros_like(scene.textures)
@@ -255,7 +264,7 @@ def _add_grads(a, b):
 def scene_grads_chunked(scene: Scene, cam: camera_mod.CameraData, g_fb, width: int,
                         height: int, spp: int, max_depth: int, spp_chunk: int = 4,
                         reference_quirk: bool = True, rr_start=None,
-                        texture_grads: bool = False):
+                        texture_grads: bool = False, stratify: bool = False):
     """(d(scene), d(cam)) for the cotangent `g_fb` `[H, W, 3]` on the raw
     sample sums of `spp` samples, with tape memory bounded by `spp_chunk`
     (tracer/pallas/bwd.py:scene_grads_chunked).
@@ -269,6 +278,9 @@ def scene_grads_chunked(scene: Scene, cam: camera_mod.CameraData, g_fb, width: i
     before the next is recorded, so that the peak tape memory is one
     chunk's (`megakernel.tape_bytes(width, height, spp_chunk, ...)`). The
     sum equals the one-shot gradients up to float32 addition order.
+    With `stratify`, every chunk takes the whole frame's grid, k =
+    sqrt(spp) (tracer's chunks have no stratify: its driver took k from a
+    chunk's spp).
 
     Dispatch goes by the scene's device, as its two calls' does: the plain
     versions for CPU tensors, the kernels for CUDA tensors.
@@ -286,18 +298,21 @@ def scene_grads_chunked(scene: Scene, cam: camera_mod.CameraData, g_fb, width: i
         raise ValueError(f"spp_chunk must be a positive int dividing spp {spp}, "
                          f"got {spp_chunk!r}")
     texture_grads = bool(texture_grads) and scene.textures is not None
+    k = camera_mod.strat_grid(stratify, spp)
+    strat = dict(stratify=bool(k), strat_sqrt_spp=k)
     total = None
     for c in range(spp // spp_chunk):
         start = c * spp_chunk
         out = megakernel.render_frame_kernel_record(
             scene, cam, width, height, spp_chunk, max_depth, reference_quirk=reference_quirk,
-            rr_start=rr_start, sample_start=start, tape_fields=13 if texture_grads else 9)
+            rr_start=rr_start, sample_start=start, tape_fields=13 if texture_grads else 9,
+            **strat)
         idx, tex = out[1], (out[2] if len(out) == 3 else None)
         del out
         part = scene_cam_grads(scene, cam, idx, g_fb, width, height, spp_chunk, max_depth,
                                reference_quirk=reference_quirk, rr_start=rr_start,
                                sample_start=start, tex_tape=tex,
-                               texture_grads=texture_grads)[:2]
+                               texture_grads=texture_grads, **strat)[:2]
         del idx, tex  # this chunk's tapes go before the next chunk's are made
         total = part if total is None else _add_grads(total, part)
     return total
@@ -305,7 +320,8 @@ def scene_grads_chunked(scene: Scene, cam: camera_mod.CameraData, g_fb, width: i
 
 def l2_grads_deep(scene: Scene, cam: camera_mod.CameraData, target, width: int, height: int,
                   spp: int, max_depth: int, spp_chunk: int = 4, reference_quirk: bool = True,
-                  rr_start=None, fwd_spp_chunk=None, texture_grads: bool = False):
+                  rr_start=None, fwd_spp_chunk=None, texture_grads: bool = False,
+                  stratify: bool = False):
     """(loss, d(scene), d(cam)) of `mean((fb / spp - target) ** 2)` at any
     depth (tracer/pallas/bwd.py:l2_grads_deep); `target` is `[H, W, 3]`.
 
@@ -313,12 +329,15 @@ def l2_grads_deep(scene: Scene, cam: camera_mod.CameraData, target, width: int, 
     (`megakernel.render_frame_kernel`; with `fwd_spp_chunk` < spp, as a sum
     of frames of that many samples each, through `sample_start`); its
     cotangent then goes to `scene_grads_chunked`. The loss is a 0-d
-    float32 tensor on the scene's device.
+    float32 tensor on the scene's device. `stratify` stratifies every
+    sample's jitter over the whole frame's sqrt(spp) grid.
 
     `fwd_spp_chunk` is kept for parity with tracer's API, where it bounds
     the length of one TPU dispatch: on the card the forward kernel holds
     no tapes, so splitting it buys nothing, and no caller in this package
     passes it."""
+    k = camera_mod.strat_grid(stratify, spp)
+    strat = dict(stratify=bool(k), strat_sqrt_spp=k)
     if fwd_spp_chunk and fwd_spp_chunk < spp:
         if spp % fwd_spp_chunk:
             raise ValueError(f"fwd_spp_chunk {fwd_spp_chunk} does not divide spp {spp}")
@@ -327,11 +346,12 @@ def l2_grads_deep(scene: Scene, cam: camera_mod.CameraData, target, width: int, 
             part = megakernel.render_frame_kernel(
                 scene, cam, width, height, fwd_spp_chunk, max_depth,
                 reference_quirk=reference_quirk, rr_start=rr_start,
-                sample_start=c * fwd_spp_chunk)
+                sample_start=c * fwd_spp_chunk, **strat)
             fb = part if fb is None else fb + part
     else:
         fb = megakernel.render_frame_kernel(scene, cam, width, height, spp, max_depth,
-                                            reference_quirk=reference_quirk, rr_start=rr_start)
+                                            reference_quirk=reference_quirk, rr_start=rr_start,
+                                            **strat)
     target = torch.as_tensor(target, dtype=torch.float32, device=fb.device)
     err = fb / spp - target
     loss = torch.mean(err * err)
@@ -339,7 +359,8 @@ def l2_grads_deep(scene: Scene, cam: camera_mod.CameraData, target, width: int, 
     del fb, err
     g_scene, g_cam = scene_grads_chunked(
         scene, cam, g_fb, width, height, spp, max_depth, spp_chunk,
-        reference_quirk=reference_quirk, rr_start=rr_start, texture_grads=texture_grads)
+        reference_quirk=reference_quirk, rr_start=rr_start, texture_grads=texture_grads,
+        stratify=stratify)
     return loss, g_scene, g_cam
 
 
@@ -349,7 +370,7 @@ def l2_grads_deep(scene: Scene, cam: camera_mod.CameraData, target, width: int, 
 def _fn():
     fn = nvcc.library("bwd").tracer_bwd
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_uint, i, i, i,
+    fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_uint, i, i, i, i,
                    p, p, p, p, p, i, i, i, p, p]
     fn.restype = ctypes.c_int
     return fn
@@ -386,7 +407,7 @@ def scratch_floats_per_thread(max_depth: int) -> int:
 
 def bwd_kernel(table, camv, idx2, g2, width: int, spp: int, max_depth: int, *,
                row_offset: int = 0, sample_start: int = 0, reference_quirk: bool = True,
-               rr_start=None, t2=None, want_texgrad: bool = False):
+               rr_start=None, t2=None, want_texgrad: bool = False, strat_k: int = 0):
     """Launch `csrc/bwd.cu` on CUDA tensors; same contract and outputs as
     tracer_torch.kernels.replay.replay_cotangents. Raises on what the
     kernel does not take; does not synchronise.
@@ -423,6 +444,8 @@ def bwd_kernel(table, camv, idx2, g2, width: int, spp: int, max_depth: int, *,
         t2 = t2.contiguous()
     if want_texgrad and tape_f != 13:
         raise ValueError("texture gradients need the 13-field tape")
+    if isinstance(strat_k, bool) or not isinstance(strat_k, int) or strat_k < 0:
+        raise ValueError(f"strat_k must be an int >= 0, got {strat_k!r}")
     if n >= 2**31 or n % width:
         raise ValueError(f"{n} pixels is not a band of width {width} in int32 range")
     table, camv, idx2, g2 = (t.contiguous() for t in (table, camv, idx2, g2))
@@ -441,7 +464,7 @@ def bwd_kernel(table, camv, idx2, g2, width: int, spp: int, max_depth: int, *,
     err = _fn()(table.data_ptr(), num_prims, camv.data_ptr(), idx2.data_ptr(), g2.data_ptr(),
                 None if t2 is None else t2.data_ptr(), tape_f, int(want_texgrad), width, n,
                 spp, max_depth, row_offset, sample_start, int(reference_quirk),
-                -1 if rr_start is None else rr_start, int(shared),
+                -1 if rr_start is None else rr_start, strat_k, int(shared),
                 dtable.data_ptr(), dcam.data_ptr(), fb.data_ptr(),
                 None if gtex is None else gtex.data_ptr(), scratch.data_ptr(), blocks,
                 THREADS, scratch.shape[0], stream, nxt.data_ptr())

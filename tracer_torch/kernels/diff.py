@@ -25,7 +25,13 @@ Both give the texture image a zero gradient and refuse `texture_grads`.
 
 mode="remat": autograd straight through the plain renderer
 (tracer_torch.render.renderer.render_frame), the oracle, on the scene's
-device.
+device; the one mode that takes `intersector="bvh"` (through the plain
+BVH traversal, as tracer's XLA renderer differentiates through
+hit_scene_bvh). The recording and backward kernels are brute force only,
+as tracer's Pallas gradient path is.
+
+`stratify` (every mode) stratifies the primary rays' jitter over a
+sqrt(spp) x sqrt(spp) grid; the backward regenerates the same rays.
 
 Dispatch goes by the scene's device, as render_frame_kernel's does: CPU
 tensors go to the plain versions of the kernels, CUDA tensors to the
@@ -41,7 +47,8 @@ import torch
 from tracer_torch.kernels import bwd
 from tracer_torch.kernels import megakernel
 from tracer_torch.kernels import replay
-from tracer_torch.render import renderer
+from tracer_torch.render import camera as camera_mod
+from tracer_torch.render import integrator, renderer
 
 MODES = ("replay-kernel", "replay", "replay-sample", "remat")
 TEXTURE_GRAD_MODES = ("replay-kernel", "remat")  # the modes that can give the image a gradient
@@ -54,7 +61,7 @@ def _leaves(scene, cam):
 
 
 def _plain_replay_cotangents(scene, cam, idx, tex, g, width, height, spp, max_depth, quirk,
-                             rr_start, live):
+                             rr_start, live, strat_k):
     """The float leaves' cotangents by autograd through the plain replay:
     fed the 3-field tape `tex`, or sampling the texture live with `live`."""
     n, rows = width * height, spp * max_depth
@@ -63,14 +70,15 @@ def _plain_replay_cotangents(scene, cam, idx, tex, g, width, height, spp, max_de
     dtable, dcam, _, _ = replay.replay_cotangents(
         table.detach(), camv.detach(), idx.reshape(rows, n), g.reshape(n, 3).float(), width,
         spp, max_depth, reference_quirk=quirk, rr_start=rr_start, t2=t2,
-        textures=scene.textures if live else None)
+        textures=scene.textures if live else None, strat_k=strat_k)
     return bwd.leaf_cotangents(scene, cam, dtable, dcam)
 
 
 class _Replay(torch.autograd.Function):
     @staticmethod
     def forward(ctx, args, *leaves):
-        scene, cam, width, height, spp, max_depth, quirk, rr_start, mode, texture_grads = args
+        (scene, cam, width, height, spp, max_depth, quirk, rr_start, mode, texture_grads,
+         strat_k) = args
         n = len(leaves) - (scene.textures is not None)
         scene, cam = bwd.with_float_leaves(scene, cam, leaves[:n])
         if scene.textures is not None:
@@ -78,7 +86,7 @@ class _Replay(torch.autograd.Function):
         fields = {"replay-kernel": 13 if texture_grads else 9, "replay": 3}.get(mode, 0)
         out = megakernel.render_frame_kernel_record(
             scene, cam, width, height, spp, max_depth, reference_quirk=quirk,
-            rr_start=rr_start, tape_fields=fields)
+            rr_start=rr_start, tape_fields=fields, stratify=bool(strat_k), strat_sqrt_spp=strat_k)
         ctx.args, ctx.scene, ctx.cam = args, scene, cam
         ctx.idx = out[1]
         ctx.tex = out[2] if len(out) == 3 else None
@@ -86,17 +94,17 @@ class _Replay(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        _, _, width, height, spp, max_depth, quirk, rr_start, mode, texture_grads = ctx.args
+        _, _, width, height, spp, max_depth, quirk, rr_start, mode, texture_grads, strat_k = ctx.args
         dtex = None
         if mode == "replay-kernel":
             grads, dtex, _ = bwd.scene_cam_cotangents(
                 ctx.scene, ctx.cam, ctx.idx, g, width, height, spp, max_depth,
                 reference_quirk=quirk, rr_start=rr_start, tex_tape=ctx.tex,
-                texture_grads=texture_grads)
+                texture_grads=texture_grads, stratify=bool(strat_k), strat_sqrt_spp=strat_k)
         else:
             grads = _plain_replay_cotangents(ctx.scene, ctx.cam, ctx.idx, ctx.tex, g, width,
                                              height, spp, max_depth, quirk, rr_start,
-                                             live=mode == "replay-sample")
+                                             live=mode == "replay-sample", strat_k=strat_k)
         ctx.idx = ctx.tex = None
         if ctx.scene.textures is not None:
             g_tex = torch.zeros_like(ctx.scene.textures)
@@ -108,7 +116,8 @@ class _Replay(torch.autograd.Function):
 
 def render_frame_diff(scene, cam, width: int, height: int, spp: int, max_depth: int,
                       reference_quirk: bool = True, mode: str = "replay-kernel",
-                      rr_start=None, texture_grads: bool = False):
+                      rr_start=None, texture_grads: bool = False, stratify: bool = False,
+                      intersector: str = "brute"):
     """Raw sample sums `[H, W, 3]`, differentiable in the scene's float
     leaves, its textures and the camera.
 
@@ -116,19 +125,25 @@ def render_frame_diff(scene, cam, width: int, height: int, spp: int, max_depth: 
     13-field tape so that the texture image itself gets its cotangents;
     leave it False unless the texture is being optimised. Geometry
     gradients through d(texel)/d(uv) ride the 9-field tape either way.
-    Modes "replay" and "replay-sample" raise on it."""
+    Modes "replay" and "replay-sample" raise on it. `intersector="bvh"`
+    is taken by mode "remat" alone."""
     if texture_grads and mode not in TEXTURE_GRAD_MODES:
         raise ValueError(f"texture_grads requires mode='replay-kernel' (or 'remat', where "
                          f"texture-image gradients are always on), not {mode!r}")
     if mode == "remat":
         return renderer.render_frame(scene, cam, width, height, spp, max_depth,
-                                     reference_quirk=reference_quirk, rr_start=rr_start)
+                                     reference_quirk=reference_quirk, rr_start=rr_start,
+                                     stratify=stratify, intersector=intersector)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    if integrator.check_intersector(intersector) == "bvh":
+        raise ValueError(f"mode {mode!r} records with the brute-force kernel: intersector "
+                         f"'bvh' needs mode 'remat'")
+    strat_k = camera_mod.strat_grid(stratify, spp)
     texture_grads = bool(texture_grads) and scene.textures is not None
     if scene.textures is not None and scene.textures.requires_grad and not texture_grads:
         warnings.warn("the texture requires grad but texture_grads is False: its gradient "
                       "will be zero (pass texture_grads=True)", stacklevel=2)
     args = (scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, mode,
-            texture_grads)
+            texture_grads, strat_k)
     return _Replay.apply(args, *_leaves(scene, cam))

@@ -18,6 +18,17 @@ pallas/culling.py), whose plain version is `render_frame(...,
 cluster_k=...)`: the same estimator, with each ray testing only the
 primitives of the clusters whose box it may hit (kernels/cluster.py).
 
+With `intersector="bvh"` it launches the BVH kernel (K1-bvh), whose
+nearest hit walks `scene.bvh` with a per-thread stack: the counterpart of
+tracer/bvh/traverse.py:traverse, which tracer runs in XLA; its plain
+version is `render_frame(..., intersector="bvh")`
+(tracer_torch/bvh/traverse.py), the same walk in eager PyTorch.
+
+`stratify=True` (every mode) confines each sample's jitter to its cell of
+a k x k sub-pixel grid (`render.camera.get_rays`; tracer's `strat_k`),
+k = sqrt(spp) or `strat_sqrt_spp`, which a sample chunk of a larger frame
+passes as the whole frame's k.
+
 `render_frame_kernel_record` is the record mode (port of
 render_frame_pallas_record), whose plain version is
 `tracer_torch.render.renderer.render_frame_record`: the same frame plus
@@ -25,20 +36,23 @@ the winner-index and texture tapes the backward kernel replays.
 
 `loop_work` launches the counted instantiation of the same kernels and
 returns the launch's work (nearest-hit queries, hits, warp passes and
-active lanes, and K1-cl's node tests, leaves reached and primitive tests);
+active lanes, and K1-cl's and K1-bvh's node tests, leaves reached and
+primitive tests);
 the plain query count is `tracer_torch.render.renderer.query_count`.
 
 The scene's sphere and plane records (kernels/pack.py) are staged in
 shared memory when they take at most `TABLE_SHARED_BYTES_MAX` bytes (the
 canonical scene, about 10 KB); a larger scene, such as the 2000-sphere
 field (32 KB), takes the kernel's variant that reads them from global
-memory. K1-cl's cluster-tree nodes (kernels/cluster.py) are staged there
-too when they take at most `NODE_SHARED_BYTES_MAX` bytes.
+memory. K1-cl's cluster-tree nodes (kernels/cluster.py) and K1-bvh's BVH
+nodes (kernels/pack.py:pack_bvh) are staged there too when they take at
+most `NODE_SHARED_BYTES_MAX` bytes.
 
 The kernels are compiled at first use by `nvcc` (tracer_torch.kernels.
 nvcc) into shared libraries with plain C entry points, loaded with ctypes.
-`LAUNCHES`, `LAUNCHES_RECORD` and `LAUNCHES_CLUSTERED` count the three
-kernels' launches, so a run can show that its main path went through them.
+`LAUNCHES`, `LAUNCHES_RECORD`, `LAUNCHES_CLUSTERED` and `LAUNCHES_BVH`
+count the four kernels' launches, so a run can show that its main path
+went through them.
 """
 
 from __future__ import annotations
@@ -51,11 +65,13 @@ import torch
 from tracer_torch.kernels import cluster as cluster_mod
 from tracer_torch.kernels import nvcc
 from tracer_torch.kernels import pack as pack_mod
+from tracer_torch.render import camera as camera_mod
 from tracer_torch.render import integrator, renderer
 
 LAUNCHES = 0  # launches of the forward kernel since import (or since reset to 0)
 LAUNCHES_RECORD = 0  # launches of the record-mode kernel
 LAUNCHES_CLUSTERED = 0  # launches of the cluster-culled kernel
+LAUNCHES_BVH = 0  # launches of the BVH kernel
 # scene records up to this many bytes are staged in shared memory: on the
 # H100 that was faster for the canonical scene (10 KB) and slower for the
 # 2000-sphere field (32 KB, fewer resident blocks); PERF.md has the times
@@ -63,22 +79,23 @@ TABLE_SHARED_BYTES_MAX = 16 * 1024
 # K1-cl's tree nodes up to this many bytes (32 a node) are staged in shared
 # memory: on the H100 that was faster for the 2000-sphere field's 8 KB and
 # slower for the 5000-sphere field's 32 KB (fewer resident blocks); PERF.md
-# has the times
+# has the times. K1-bvh's nodes take the same rule.
 NODE_SHARED_BYTES_MAX = 16 * 1024
+BVH_STACK = 32  # K1-bvh's per-thread stack of node indices (BVH_STACK in csrc/megakernel.cu)
 # the counted instantiation's counters (COUNTS in csrc/megakernel.cu)
 COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests")
-MODE_RENDER, MODE_RECORD, MODE_CLUSTERED = 0, 1, 2
+MODE_RENDER, MODE_RECORD, MODE_CLUSTERED, MODE_BVH = 0, 1, 2, 3
 
 
 class LoopWork(NamedTuple):
     """One launch's bounce-loop work, counted by the kernel."""
     queries: int  # nearest-hit queries (one per pass of a lane)
     hits: int  # queries that hit a primitive
-    visits: int  # K1-cl: leaves (clusters) the queries' walks reached (0 for K1, K1-rec)
-    tests: int  # K1-cl: primitives tested in those clusters (0 for K1, K1-rec)
+    visits: int  # K1-cl, K1-bvh: leaves the queries' walks reached (0 for K1, K1-rec)
+    tests: int  # K1-cl, K1-bvh: primitives tested in those leaves (0 for K1, K1-rec)
     passes: int  # warp passes: loop passes, each counted once per warp
     active_lanes: int  # the active lanes of those passes, summed
-    node_tests: int  # K1-cl: the walks' slab tests of tree nodes (0 for K1, K1-rec)
+    node_tests: int  # K1-cl, K1-bvh: the walks' slab tests of nodes (0 for K1, K1-rec)
 
     @property
     def lane_utilisation(self) -> float:
@@ -99,7 +116,7 @@ def _fn():
     fn = build().lib.tracer_megakernel_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [i, p, i, p, i, p, p, i, i, p, p, i, i, i, i, ctypes.c_uint, i, i, p, p, i,
-                   p, p, i, i, i, i, p, p]
+                   p, p, i, i, i, i, i, p, p]
     fn.restype = i
     return fn
 
@@ -146,8 +163,9 @@ def _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start):
 
 def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_start,
             reference_quirk, rr_start, idx=None, ttape=None, tape_f=0, tables=None,
-            counts=None):
-    """Pack the scene and camera and launch `mode` on the current stream."""
+            nodes=None, strat_k=0, counts=None):
+    """Pack the scene and camera and launch `mode` on the current stream;
+    `nodes` is K1-cl's (`tables.nodes`) or K1-bvh's node records."""
     packed = pack_mod.pack_scene(scene)
     cam_t = pack_mod.pack_camera(cam)
     th, tw = (0, 0) if tex is None else (int(tex.shape[0]), int(tex.shape[1]))
@@ -155,23 +173,25 @@ def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_st
     ptr = lambda t: None if t is None else t.data_ptr()
     if counts is not None and (counts.dtype != torch.int64 or counts.numel() < len(COUNT_NAMES)):
         raise ValueError(f"counts must be {len(COUNT_NAMES)} int64 counters")
+    if tables is not None:
+        nodes = tables.nodes
     stream = torch.cuda.current_stream(out.device).cuda_stream
     # the packed tensors live until the call returns, after the launch is enqueued
     return _fn()(mode, ptr(packed.sph), packed.num_s, ptr(packed.pla), packed.num_p,
                  ptr(packed.join), ptr(tex), th, tw, ptr(cam_t), ptr(out), width, height, spp,
                  max_depth, sample_start, int(reference_quirk),
                  -1 if rr_start is None else rr_start, ptr(idx), ptr(ttape), tape_f,
-                 None if tables is None else ptr(tables.nodes),
-                 None if tables is None else ptr(tables.slots),
-                 0 if tables is None else tables.nodes.shape[0],
+                 ptr(nodes), None if tables is None else ptr(tables.slots),
+                 0 if nodes is None else nodes.shape[0],
                  0 if tables is None else tables.k, int(table_bytes <= TABLE_SHARED_BYTES_MAX),
-                 int(tables is not None and 4 * tables.nodes.numel() <= NODE_SHARED_BYTES_MAX),
-                 ptr(counts), stream)
+                 int(nodes is not None and 4 * nodes.numel() <= NODE_SHARED_BYTES_MAX),
+                 strat_k, ptr(counts), stream)
 
 
 def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth: int,
                         reference_quirk: bool = True, rr_start=None, sample_start: int = 0,
-                        cluster_k: int = 0):
+                        cluster_k: int = 0, stratify: bool = False, strat_sqrt_spp: int = 0,
+                        intersector: str = "brute"):
     """Render one frame; returns `[height, width, 3]` raw sample sums of the
     global samples `sample_start .. sample_start + spp - 1`.
 
@@ -179,70 +199,102 @@ def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth
     `tracer_torch.render.renderer.render_frame`, which it calls for a scene
     on the CPU. For a CUDA scene it launches the kernel on the current
     stream without synchronising, or raises. `cluster_k` > 0 takes the
-    cluster-culled kernel over clusters of at most that many primitives.
+    cluster-culled kernel over clusters of at most that many primitives,
+    `intersector="bvh"` the BVH kernel ("brute" and "fast" the brute one).
     """
     if scene.device.type == "cpu":
         return renderer.render_frame(scene, cam, width, height, spp, max_depth,
                                      reference_quirk=reference_quirk, rr_start=rr_start,
-                                     sample_start=sample_start, cluster_k=cluster_k)
+                                     sample_start=sample_start, cluster_k=cluster_k,
+                                     stratify=stratify, strat_sqrt_spp=strat_sqrt_spp,
+                                     intersector=intersector)
     if scene.device.type != "cuda":
         raise ValueError(f"render_frame_kernel: no kernel for device {scene.device}")
+    k = camera_mod.strat_grid(stratify, spp, strat_sqrt_spp)
+    integrator.check_intersector(intersector, scene)
+    args = (scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start)
     if cluster_mod.check_k(cluster_k):
-        return _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk,
-                                 rr_start, sample_start, cluster_k, None)
-    return _render(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
-                   sample_start, None)
+        if intersector == "bvh":
+            raise ValueError("intersector 'bvh' and cluster_k > 0 exclude each other")
+        return _render_clustered(*args, cluster_k, None, strat_k=k)
+    if intersector == "bvh":
+        return _render_bvh(*args, None, strat_k=k)
+    return _render(*args, None, strat_k=k)
+
+
+def _forward(mode, scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
+             sample_start, counts, strat_k, tables=None, nodes=None):
+    device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
+    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    err = _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_start,
+                  reference_quirk, rr_start, tables=tables, nodes=nodes, strat_k=strat_k,
+                  counts=counts)
+    if err != 0:
+        name = {MODE_RENDER: "megakernel", MODE_CLUSTERED: "clustered megakernel",
+                MODE_BVH: "BVH megakernel"}[mode]
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return out
 
 
 def _render(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start,
-            counts):
-    device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
-    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    err = _launch(MODE_RENDER, scene, cam, tex, out, width, height, spp, max_depth,
-                  sample_start, reference_quirk, rr_start, counts=counts)
-    if err != 0:
-        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+            counts, strat_k=0):
+    out = _forward(MODE_RENDER, scene, cam, width, height, spp, max_depth, reference_quirk,
+                   rr_start, sample_start, counts, strat_k)
     global LAUNCHES
     LAUNCHES += 1
     return out
 
 
 def _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
-                      sample_start, cluster_k, counts):
-    device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
+                      sample_start, cluster_k, counts, strat_k=0):
     tables = cluster_mod.pack_clustered(scene, cluster_k)
-    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    err = _launch(MODE_CLUSTERED, scene, cam, tex, out, width, height, spp, max_depth,
-                  sample_start, reference_quirk, rr_start, tables=tables, counts=counts)
-    if err != 0:
-        raise RuntimeError(f"clustered megakernel launch failed: CUDA error {err}")
+    out = _forward(MODE_CLUSTERED, scene, cam, width, height, spp, max_depth, reference_quirk,
+                   rr_start, sample_start, counts, strat_k, tables=tables)
     global LAUNCHES_CLUSTERED
     LAUNCHES_CLUSTERED += 1
     return out
 
 
+def _render_bvh(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
+                sample_start, counts, strat_k=0):
+    nodes = pack_mod.pack_bvh(scene, BVH_STACK)
+    out = _forward(MODE_BVH, scene, cam, width, height, spp, max_depth, reference_quirk,
+                   rr_start, sample_start, counts, strat_k, nodes=nodes)
+    global LAUNCHES_BVH
+    LAUNCHES_BVH += 1
+    return out
+
+
 def loop_work(scene, cam, width: int, height: int, spp: int, max_depth: int,
               reference_quirk: bool = True, rr_start=None, sample_start: int = 0,
-              cluster_k: int = 0, record: bool = False) -> LoopWork:
+              cluster_k: int = 0, record: bool = False, stratify: bool = False,
+              strat_sqrt_spp: int = 0, intersector: str = "brute") -> LoopWork:
     """The bounce-loop work of one launch of K1 (or K1-cl with `cluster_k`
-    > 0, or K1-rec with `record`) with these arguments, counted by the
-    kernel's counted instantiation: the counterpart of the TPU kernel's
-    `debug_iters`. CUDA scenes only; synchronises. Its plain counterpart
-    for the queries is `renderer.query_count`."""
+    > 0, K1-bvh with `intersector="bvh"`, or K1-rec with `record`) with
+    these arguments, counted by the kernel's counted instantiation: the
+    counterpart of the TPU kernel's `debug_iters`. CUDA scenes only;
+    synchronises. Its plain counterpart for the queries is
+    `renderer.query_count`, for K1-bvh's walk the `work` of
+    `renderer.render_pixels(intersector="bvh")`."""
     if scene.device.type != "cuda":
         raise ValueError("the work is counted inside the CUDA kernel: the scene must be on CUDA")
-    if record and cluster_mod.check_k(cluster_k):
-        raise ValueError("the record kernel is brute force only: cluster_k must be 0")
+    k = camera_mod.strat_grid(stratify, spp, strat_sqrt_spp)
+    integrator.check_intersector(intersector, scene)
+    clustered = cluster_mod.check_k(cluster_k) > 0
+    if record and (clustered or intersector == "bvh"):
+        raise ValueError("the record kernel is brute force only: cluster_k must be 0 and "
+                         "the intersector brute")
+    if clustered and intersector == "bvh":
+        raise ValueError("intersector 'bvh' and cluster_k > 0 exclude each other")
+    args = (scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start)
     if record:
-        launch = lambda counts: _record(scene, cam, width, height, spp, max_depth,
-                                        reference_quirk, rr_start, sample_start, 9, counts)
-    elif cluster_mod.check_k(cluster_k):
-        launch = lambda counts: _render_clustered(scene, cam, width, height, spp, max_depth,
-                                                  reference_quirk, rr_start, sample_start,
-                                                  cluster_k, counts)
+        launch = lambda counts: _record(*args, 9, counts, strat_k=k)
+    elif clustered:
+        launch = lambda counts: _render_clustered(*args, cluster_k, counts, strat_k=k)
+    elif intersector == "bvh":
+        launch = lambda counts: _render_bvh(*args, counts, strat_k=k)
     else:
-        launch = lambda counts: _render(scene, cam, width, height, spp, max_depth,
-                                        reference_quirk, rr_start, sample_start, counts)
+        launch = lambda counts: _render(*args, counts, strat_k=k)
     counts = torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=scene.device)
     launch(counts)
     return LoopWork(**dict(zip(COUNT_NAMES, (int(c) for c in counts.tolist()))))
@@ -256,7 +308,8 @@ def tape_bytes(width: int, height: int, spp: int, max_depth: int, tape_fields: i
 
 def render_frame_kernel_record(scene, cam, width: int, height: int, spp: int, max_depth: int,
                                reference_quirk: bool = True, rr_start=None,
-                               sample_start: int = 0, tape_fields: int = 9):
+                               sample_start: int = 0, tape_fields: int = 9,
+                               stratify: bool = False, strat_sqrt_spp: int = 0):
     """The recording forward: (fb `[H, W, 3]`, idx `[spp, D, H*W]` int32)
     for an untextured scene or `tape_fields=0` and (fb, idx, tex `[spp, D,
     H*W, F]`) for a textured one, with the contract of
@@ -264,20 +317,23 @@ def render_frame_kernel_record(scene, cam, width: int, height: int, spp: int, ma
     a scene on the CPU. For a CUDA scene the tex tape it returns is a view
     of a field-major `[F, spp, D, H*W]` tensor, the layout the backward
     kernel reads. Raises, with the byte count, when the tapes would not fit
-    in the device's free memory."""
+    in the device's free memory. Brute force only, as tracer's record
+    kernel; `stratify` as render_frame_kernel."""
     if scene.device.type == "cpu":
         return renderer.render_frame_record(scene, cam, width, height, spp, max_depth,
                                             reference_quirk=reference_quirk,
                                             rr_start=rr_start, sample_start=sample_start,
-                                            tape_fields=tape_fields)
+                                            tape_fields=tape_fields, stratify=stratify,
+                                            strat_sqrt_spp=strat_sqrt_spp)
     if scene.device.type != "cuda":
         raise ValueError(f"render_frame_kernel_record: no kernel for device {scene.device}")
     return _record(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
-                   sample_start, tape_fields, None)
+                   sample_start, tape_fields, None,
+                   strat_k=camera_mod.strat_grid(stratify, spp, strat_sqrt_spp))
 
 
 def _record(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start,
-            tape_fields, counts):
+            tape_fields, counts, strat_k=0):
     if tape_fields not in integrator.TAPE_FIELDS:
         raise ValueError(f"tape_fields must be one of {integrator.TAPE_FIELDS}, got {tape_fields}")
     device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
@@ -295,7 +351,8 @@ def _record(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start
         ttape = neutral[:, None, None, None].expand(tape_fields, spp, max_depth, npx).contiguous()
     err = _launch(MODE_RECORD, scene, cam, tex, out, width, height, spp, max_depth,
                   sample_start, reference_quirk, rr_start, idx=idx, ttape=ttape,
-                  tape_f=tape_fields if ttape is not None else 0, counts=counts)
+                  tape_f=tape_fields if ttape is not None else 0, strat_k=strat_k,
+                  counts=counts)
     if err != 0:
         raise RuntimeError(f"record kernel launch failed: CUDA error {err}")
     global LAUNCHES_RECORD

@@ -24,14 +24,23 @@ material) followed by the geometry rows of tracer/pallas/bwd.py (`G_*`,
 offsets from `JROWS`: the plane d and its texture-uv frame), and the
 camera as `CAMV_ROWS`. `csrc/common.cuh` declares the same rows in its
 `TableRow` and `CamvRow` enums.
+
+The BVH kernel reads the scene's BVH as `pack_bvh`'s node records: two
+float4s a node, (box min x, y, z, split axis or -1 for a leaf) and (box
+max x, y, z, right child or the leaf's primitive id, spheres first), the
+int fields as int32 bits. An internal node's left child is the next node,
+so the records do not hold it.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from tracer_torch.bvh import builder as bvh_builder
 from tracer_torch.scene.types import Scene
 
 SPHERE_ROWS = ("cx", "cy", "cz", "radius")
@@ -90,3 +99,54 @@ def pack_camera(cam) -> torch.Tensor:
     """The camera as one `[len(CAMERA_ROWS)]` float32 tensor on its device."""
     return torch.cat([cam.origin, cam.pixel00_loc, cam.pixel_delta_u, cam.pixel_delta_v,
                       cam.background]).to(torch.float32).contiguous()
+
+
+_BVH_CACHE = []  # (weak refs to the BVH's tensors, their versions, num_s, records), newest last
+_BVH_CACHE_MAX = 8
+
+
+def _bvh_records(bvh, num_s: int, max_depth: int) -> torch.Tensor:
+    left = bvh.left.detach().cpu().numpy()
+    n = left.shape[0]
+    if n == 0:
+        raise ValueError("the scene's BVH has no nodes")
+    internal = np.nonzero(left >= 0)[0]
+    if not np.array_equal(left[internal], internal + 1):
+        raise ValueError("BVH node records need left == node + 1 (a preorder tree, left "
+                         "subtree first)")
+    bvh_builder.check_stack_capacity(left, bvh.right.detach().cpu().numpy())
+    depth = bvh_builder.tree_depth(left, bvh.right.detach().cpu().numpy())
+    if depth > max_depth:
+        raise ValueError(f"BVH depth {depth} exceeds the kernel's stack of {max_depth}")
+    leaf = bvh.left < 0
+    w_lo = torch.where(leaf, -1, bvh.axis.to(torch.int32)).to(torch.int32)
+    prim = torch.where(bvh.kind == 0, bvh.right, num_s + bvh.right)
+    w_hi = torch.where(leaf, prim, bvh.right).to(torch.int32)
+    lo = torch.cat([bvh.box_min.float(), w_lo.view(torch.float32)[:, None]], dim=1)
+    hi = torch.cat([bvh.box_max.float(), w_hi.view(torch.float32)[:, None]], dim=1)
+    return torch.stack([lo, hi], dim=1).contiguous()
+
+
+def pack_bvh(scene: Scene, max_depth: int) -> torch.Tensor:
+    """`[N, 2, 4]` float32 node records of `scene.bvh` (see the module
+    note) on its device, for a kernel whose stack holds `max_depth` nodes.
+    Checks on the host, once per tree, that left children follow their
+    parents and that the tree fits the stack; cached per BVH tensors while
+    they live and are not changed in place, so a cached call reads nothing
+    from the device."""
+    bvh = scene.bvh
+    if bvh is None:
+        raise ValueError("the scene has no BVH (builders.create_scene(with_bvh=True))")
+    tensors = tuple(bvh)
+    if any(t.is_inference() for t in tensors):  # no version counter to key on
+        return _bvh_records(bvh, scene.num_spheres, max_depth)
+    versions = tuple(t._version for t in tensors)
+    key = (scene.num_spheres, max_depth)
+    for i, (refs, vers, k, rec) in enumerate(_BVH_CACHE):
+        if k == key and vers == versions and all(r() is t for r, t in zip(refs, tensors)):
+            _BVH_CACHE.append(_BVH_CACHE.pop(i))
+            return rec
+    rec = _bvh_records(bvh, scene.num_spheres, max_depth)
+    _BVH_CACHE.append((tuple(weakref.ref(t) for t in tensors), versions, key, rec))
+    del _BVH_CACHE[:-_BVH_CACHE_MAX]
+    return rec

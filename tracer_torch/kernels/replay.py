@@ -53,6 +53,7 @@ from tracer_torch.core import rng, vec
 from tracer_torch.kernels import pack as J
 from tracer_torch.materials import texture as texture_mod
 from tracer_torch.materials.scatter import max3
+from tracer_torch.render import camera as camera_mod
 from tracer_torch.render.integrator import roulette_p
 from tracer_torch.scene.types import K_INFINITY
 
@@ -221,13 +222,15 @@ def _bounce(rec, bg, state, hit, seed, alive, tm, tm3, rr_start, depth, textures
 
 def replay_frame(table, camv, idx2, width: int, lin, spp: int, max_depth: int, *,
                  row_offset: int = 0, sample_start: int = 0, reference_quirk: bool = True,
-                 rr_start=None, t2=None, tape_f: int = 0, tm3=None, textures=None):
+                 rr_start=None, t2=None, tape_f: int = 0, tm3=None, textures=None,
+                 strat_k: int = 0):
     """Replayed raw sample sums `[n, 3]` of the pixels `lin` (local linear
     ids of the band), differentiable in `table` `[TROWS, N]`, `camv` `[15]`
     and `tm3` (`[3*spp*D, n]`, the recorded texel values, or None).
     `idx2` `[spp*D, n]` and `t2` `[F*spp*D, n]` are the tapes' columns of
     these pixels; without `t2`, `textures` (`[T, H, W, 3]` or None) is
-    sampled live."""
+    sampled live. `strat_k` > 0 stratifies the primary rays' jitter as the
+    recording did (render.camera.get_rays)."""
     i = lin % width
     j = lin // width + row_offset
     base = rng.pixel_seed(i, j, width, reference_quirk)
@@ -239,8 +242,9 @@ def replay_frame(table, camv, idx2, width: int, lin, spp: int, max_depth: int, *
         seed = rng.sample_seed(base, sample_start + s)
         seed, ux = rng.random_float(seed)
         seed, uy = rng.random_float(seed)
+        offx, offy = camera_mod.jitter_offsets(ux, uy, sample_start + s, strat_k)
         pc = p00 + fi * du + fj * dv
-        d = pc + (ux - 0.5)[..., None] * du + (uy - 0.5)[..., None] * dv - o0
+        d = pc + offx[..., None] * du + offy[..., None] * dv - o0
         o = o0.expand_as(d)
         state = (o, d, torch.ones_like(d), torch.zeros_like(d))
         alive = torch.ones(lin.shape[0], dtype=torch.bool, device=lin.device)
@@ -267,13 +271,13 @@ def replay_cotangents(table, camv, idx2, g_fb, width: int, spp: int, max_depth: 
                       row_offset: int = 0, sample_start: int = 0,
                       reference_quirk: bool = True, rr_start=None, t2=None,
                       want_texgrad: bool = False, textures=None,
-                      chunk: int = DEFAULT_CHUNK):
+                      chunk: int = DEFAULT_CHUNK, strat_k: int = 0):
     """The backward kernel's function, computed by autograd through
     `replay_frame`: returns (dtable `[TROWS, N]`, dcam `[15]`, fb `[N, 3]`,
     gtex `[3*spp*D, N]` or None). `idx2` `[spp*D, N]` int32, `g_fb`
     `[N, 3]`, `t2` the field-major texture tape `[F*spp*D, N]` (F = 3, 9
     or 13) or None; with no tape, `textures` are sampled live (they take
-    no gradient)."""
+    no gradient). `strat_k`: the recording's stratification grid (0: none)."""
     if textures is not None:
         textures = textures.detach()
     n = idx2.shape[1]
@@ -299,7 +303,7 @@ def replay_cotangents(table, camv, idx2, g_fb, width: int, spp: int, max_depth: 
                 tab, cv, idx2[:, c0:c1], width, lin, spp, max_depth, row_offset=row_offset,
                 sample_start=sample_start, reference_quirk=reference_quirk, rr_start=rr_start,
                 t2=None if t2 is None else t2[:, c0:c1], tape_f=tape_f, tm3=tm3,
-                textures=textures)
+                textures=textures, strat_k=strat_k)
             loss = torch.sum(part * g_fb[c0:c1])
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         if grads[0] is not None:

@@ -12,8 +12,11 @@ packages in either direction.
 
 Engines: "cuda" renders with the recording kernel and differentiates
 with the backward kernel (render_frame_diff mode "replay-kernel"); it
-needs a scene on a CUDA device. "torch" differentiates the plain renderer
-(mode "remat") on the scene's device.
+needs a scene on a CUDA device and is brute force only, as tracer's
+Pallas gradient path. "torch" differentiates the plain renderer (mode
+"remat") on the scene's device, with either intersector (the BVH is the
+scene's own, built for its starting geometry, as in tracer). Both take
+`stratify`.
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ def apply_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
 
 def render_loss_fn(scene: Scene, cam: camera_mod.CameraData, target, width: int, height: int,
                    spp: int, max_depth: int, engine: str = "cuda",
-                   cam_spec: Optional[Dict] = None) -> Callable:
+                   cam_spec: Optional[Dict] = None, stratify: bool = False,
+                   intersector: str = "brute") -> Callable:
     """L2 image loss `mean((fb / spp - target)^2)` as a function of a params
     dict. `cam_spec` (dict with "origin"/"look_at" and optionally "vfov",
     "vup", "background") lets "camera.*" params override it; the camera is
@@ -68,6 +72,9 @@ def render_loss_fn(scene: Scene, cam: camera_mod.CameraData, target, width: int,
         raise ValueError(f"unknown engine {engine!r}; expected one of {tuple(ENGINES)}")
     if engine == "cuda" and scene.device.type != "cuda":
         raise ValueError(f"engine 'cuda' needs a scene on a CUDA device, got {scene.device}")
+    if engine == "cuda" and intersector == "bvh":
+        raise ValueError("engine 'cuda' differentiates with the brute-force kernels: "
+                         "intersector 'bvh' needs engine 'torch'")
     target = _f32(target, scene.device)
 
     def loss(params):
@@ -79,7 +86,8 @@ def render_loss_fn(scene: Scene, cam: camera_mod.CameraData, target, width: int,
             cam_l = camera_mod.build_camera_data(width=width, height=height,
                                                  device=scene.device, **spec)
         s = apply_params(scene, {k: v for k, v in params.items() if not k.startswith("camera.")})
-        fb = diff.render_frame_diff(s, cam_l, width, height, spp, max_depth, mode=ENGINES[engine])
+        fb = diff.render_frame_diff(s, cam_l, width, height, spp, max_depth, mode=ENGINES[engine],
+                                    stratify=stratify, intersector=intersector)
         return torch.mean((fb / spp - target) ** 2)
 
     return loss
@@ -137,7 +145,7 @@ def fit(scene: Scene, cam: camera_mod.CameraData, target, width: int, height: in
         spp: int = 4, max_depth: int = 6, param_paths: Iterable[str] = DEFAULT_PARAMS,
         steps: int = 100, learning_rate: float = 1e-2, checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 25, log_every: int = 10, log=print, engine: str = "cuda",
-        cam_spec: Optional[Dict] = None):
+        cam_spec: Optional[Dict] = None, stratify: bool = False, intersector: str = "brute"):
     """Fit the named scene parameters to a target image (mean radiance
     `[H, W, 3]`).
 
@@ -155,7 +163,8 @@ def fit(scene: Scene, cam: camera_mod.CameraData, target, width: int, height: in
         cam_spec = {k: (v if k == "vfov" else _f32(v, dev)) for k, v in cam_spec.items()}
         cam_spec.setdefault("vfov", camera_mod.DEFAULT_VFOV)
     loss_fn = render_loss_fn(scene, cam, target, width, height, spp, max_depth,
-                             engine=engine, cam_spec=cam_spec)
+                             engine=engine, cam_spec=cam_spec, stratify=stratify,
+                             intersector=intersector)
 
     params = {p: v.detach().clone().requires_grad_() for p, v in extract_params(
         scene, [p for p in param_paths if not p.startswith("camera.")]).items()}

@@ -65,21 +65,56 @@ def camera_from_numpy(fields: Mapping[str, np.ndarray], device) -> CameraData:
                         for name in CameraData._fields))
 
 
-def get_rays(cam: CameraData, i, j, seed):
+def strat_grid(stratify: bool, spp: int, strat_sqrt_spp: int = 0) -> int:
+    """The stratification grid size k of a render of `spp` samples: 0 with
+    `stratify` off; `strat_sqrt_spp` when given (a chunk of a larger frame
+    takes the whole frame's k); else sqrt(spp), which must be square."""
+    if not stratify:
+        return 0
+    if strat_sqrt_spp:
+        if not (isinstance(strat_sqrt_spp, int) and strat_sqrt_spp > 0):
+            raise ValueError(f"strat_sqrt_spp must be a positive int, got {strat_sqrt_spp!r}")
+        return strat_sqrt_spp
+    k = math.isqrt(spp)
+    if k * k != spp:
+        raise ValueError(f"stratify requires a square spp (or strat_sqrt_spp), got {spp}")
+    return k
+
+
+def jitter_offsets(ux, uy, sample_index=None, sqrt_spp: int = 0):
+    """The sub-pixel offsets in [-0.5, 0.5) of draws `ux`, `uy`: u - 0.5,
+    or, stratified (`sqrt_spp` = k > 0 and the global sample id
+    `sample_index`), (cell + u) / k - 0.5 in cell (s mod k, floor(s / k)),
+    in float32 as tracer.render.camera.get_rays."""
+    if not (sqrt_spp and sample_index is not None):
+        return ux - 0.5, uy - 0.5
+    k = torch.tensor(float(sqrt_spp), dtype=torch.float32)
+    s = torch.tensor(float(sample_index), dtype=torch.float32)  # rounds as uint32 -> f32
+    return (torch.fmod(s, k) + ux) / k - 0.5, (torch.floor(s / k) + uy) / k - 0.5
+
+
+def get_rays(cam: CameraData, i, j, seed, sample_index=None, sqrt_spp: int = 0):
     """Jittered primary rays for pixel columns `i`, rows `j` (both `[R]`).
 
     Pixel center plus a uniform offset in [-0.5, 0.5]^2 of a pixel, x drawn
     before y; the direction is not normalized. Returns (seed, origin, dir).
+
+    Stratified (`sqrt_spp` = k > 0 with `sample_index`, the global sample
+    id s): the jitter is confined to cell (s mod k, floor(s / k)) of a
+    k x k sub-pixel grid, offset (cell + u) / k - 0.5, in float32 as
+    tracer.render.camera.get_rays; the same two draws, so the rest of the
+    stream is unchanged.
     """
     fi = i.to(torch.float32)[..., None]
     fj = j.to(torch.float32)[..., None]
     pixel_center = cam.pixel00_loc + fi * cam.pixel_delta_u + fj * cam.pixel_delta_v
     seed, ox = rng.random_float(seed)
     seed, oy = rng.random_float(seed)
+    offset_x, offset_y = jitter_offsets(ox, oy, sample_index, sqrt_spp)
     pixel_sample = (
         pixel_center
-        + (ox - 0.5)[..., None] * cam.pixel_delta_u
-        + (oy - 0.5)[..., None] * cam.pixel_delta_v
+        + offset_x[..., None] * cam.pixel_delta_u
+        + offset_y[..., None] * cam.pixel_delta_v
     )
     origin = cam.origin.expand_as(pixel_sample)
     return seed, origin, pixel_sample - origin

@@ -18,7 +18,7 @@ import torch
 from tracer_torch.io import image as image_io
 from tracer_torch.kernels import megakernel
 from tracer_torch.render import camera as camera_mod
-from tracer_torch.render import renderer
+from tracer_torch.render import integrator, renderer
 from tracer_torch.scene.params import SceneParams
 from tracer_torch.scene.types import Scene
 
@@ -37,6 +37,8 @@ def render_animation(
     saver_spp_quirk: bool = True,
     rr_start=None,
     spp_chunk=None,
+    stratify: bool = False,
+    intersector: str = "brute",
 ):
     """Render `params.num_frames` frames (or the indices in `frames`) on the
     scene's device; returns the last framebuffer as a numpy array. The TSV
@@ -49,6 +51,17 @@ def render_animation(
     `spp_chunk`: samples per render call; None bounds each call at
     ~128M rays. The chunks take disjoint global sample ids (`sample_start`),
     so their sum is the one-call frame up to float32 addition order.
+
+    `stratify`: each sample's jitter in its cell of the frame's sqrt_spp x
+    sqrt_spp sub-pixel grid. Every chunk takes the whole frame's grid and
+    its own `sample_start`, so a chunked stratified frame is the one-call
+    frame (chunks need not be square; tracer's driver took the grid from a
+    chunk's spp, which asserts on non-square chunks and stratifies square
+    ones wrongly).
+
+    `intersector`: "brute" (or "fast") or "bvh" (the scene must carry its
+    BVH: builders.create_scene(with_bvh=True)); on engine "cuda", "bvh"
+    renders with the BVH kernel.
 
     `saver_spp_quirk`: the reference drivers build their savers with
     sqrt_rays_per_pixel while accumulating sqrt_spp^2 samples
@@ -67,6 +80,7 @@ def render_animation(
         render = renderer.render_frame
     if saver not in image_io.SAVERS:
         raise ValueError(f"unknown saver {saver!r}")
+    integrator.check_intersector(intersector, scene)
 
     sqrt_spp = params.render.sqrt_rays_per_pixel
     spp = sqrt_spp * sqrt_spp  # camera.cu:319-320
@@ -74,6 +88,8 @@ def render_animation(
     width, height = params.width, params.height
     rays = renderer.total_rays(width, height, sqrt_spp)
     chunk = spp_chunk or max(1, MAX_RAYS_PER_LAUNCH // (width * height))
+    opts = dict(reference_quirk=reference_quirk, rr_start=rr_start, stratify=stratify,
+                strat_sqrt_spp=sqrt_spp if stratify else 0, intersector=intersector)
 
     out = sys.stdout if out is None else out
     writer = image_io.ThreadedWriter()
@@ -88,8 +104,7 @@ def render_animation(
             fb_dev = None
             for c0 in range(0, spp, chunk):
                 part = render(scene, cam, width, height, min(chunk, spp - c0),
-                              params.render.max_depth, reference_quirk=reference_quirk,
-                              rr_start=rr_start, sample_start=c0)
+                              params.render.max_depth, sample_start=c0, **opts)
                 fb_dev = part if fb_dev is None else fb_dev + part
             if device.type == "cuda":
                 torch.cuda.synchronize(device)

@@ -260,9 +260,8 @@ def build_buffers(params: SceneParams) -> SceneBuffers:
 
 def buffers_to_scene(buf: SceneBuffers, device, textures: Optional[np.ndarray] = None,
                      with_bvh: bool = False) -> T.Scene:
-    """Assemble the tensor Scene on `device` from host buffers."""
-    if with_bvh:
-        raise NotImplementedError("BVH is not ported to tracer_torch yet")
+    """Assemble the tensor Scene on `device` from host buffers; with
+    `with_bvh`, also the primitives' BVH (tracer_torch.bvh.builder)."""
     z3 = np.zeros((0, 3), np.float32)
     spheres = T.make_spheres(
         np.stack(buf.sphere_center) if buf.sphere_center else z3,
@@ -280,12 +279,18 @@ def buffers_to_scene(buf: SceneBuffers, device, textures: Optional[np.ndarray] =
         np.stack(buf.mat_emit) if buf.mat_emit else z3,
         buf.mat_tex, device,
     )
+    bvh = None
+    if with_bvh:
+        from tracer_torch.bvh import builder as bvh_builder
+
+        bvh = bvh_builder.build_scene_bvh(buf, device)
     return T.Scene(
         spheres=spheres,
         planes=planes,
         materials=materials,
         textures=(torch.tensor(np.asarray(textures, np.float32), device=device)
                   if textures is not None else None),
+        bvh=bvh,
     )
 
 
@@ -296,10 +301,8 @@ def create_scene(params: SceneParams, with_bvh: bool = False,
     `texture_loader(path) -> np.ndarray [H, W, 3] | None` defaults to
     tracer_torch.io.texture.load_texture; a missing file degrades to an
     untextured floor exactly like the reference (main.cu:19-22).
-    `with_bvh=True` raises NotImplementedError: BVH is not ported yet.
+    `with_bvh=True` also builds the primitives' BVH (`Scene.bvh`).
     """
-    if with_bvh:
-        raise NotImplementedError("BVH is not ported to tracer_torch yet")
     buf = build_buffers(params)
     textures = None
     if params.floor.texture_path:
@@ -310,4 +313,4 @@ def create_scene(params: SceneParams, with_bvh: bool = False,
             textures = tex[None]  # single-layer stack
         else:
             buf.mat_tex[0] = -1  # load failed -> untextured (main.cu:19-22)
-    return buffers_to_scene(buf, device, textures=textures)
+    return buffers_to_scene(buf, device, textures=textures, with_bvh=with_bvh)
