@@ -200,8 +200,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      bound from work no traversal avoids (a plane test a query, each hit's
      shading; tables, nodes and frame once), as K1-cl's.
 
+14. Distribution (tracer_torch.dist) on the one card:
+   - K1 and K1-rec on row bands (`row_offset`) against one launch, bit for
+     bit (frame, index tape, 9-field tape): 1080x720 in 3 bands of 240 and
+     1080x719 in bands of 360 and 359, canonical + texture, K1 spp4 d50,
+     K1-rec spp2 d8;
+   - a gloo group of 2 worker processes (this script with `--dist-worker`,
+     a free-port TCP store), both ranks on cuda:0, each loading the
+     libraries of phase 2; a worker that fails, times out or prints no
+     result fails the run. In it: the main forward path,
+     render_animation_multihost(frame_shard=False, engine="cuda") on the
+     canonical config as phase 4 (2 frames, sqrt_spp 4), every launch count
+     set to 0 before it and read after (K1 2 a rank); rank 0's files and
+     TSV against one process's render_animation (files max|diff| 0, frames
+     bit-equal on both ranks), rank 1 writes and prints nothing; then
+     frame_shard=True over 3 frames (rank r writes frames r, r+2);
+     render_frame_spp_sharded (the plain path) at the smoke scene 64x48
+     spp4 d8 by phase 3's rules; the main gradient path,
+     l2_grads_deep_sharded(texture_grads=True) at 800x600 spp32 d50 in
+     chunks of 8, against l2_grads_deep: loss bit-equal, every leaf and the
+     texture within TOL_GRAD of its max|g|, K1 1, K1-rec, K2 and K3 4 each
+     per rank; scene_grads_replay_sharded at 64x48 spp2 d8 against
+     render_frame_diff(mode="replay"); the times of the sharded 1080x720
+     spp16 d50 frame, its all_reduce alone and one launch (2 ranks share
+     the card: not a scaling figure);
+   - an NCCL group of one rank: render_frame_kernel_sharded bit-equal to
+     render_frame_kernel, l2_grads_deep_sharded against l2_grads_deep.
+
 The line before the last is a JSON object describing the kernels (with
-`launches_d50`, each kernel's launches on phase 11's main path; each
+`launches_d50`, each kernel's launches on phase 11's main path, and
+`launches_dist`, rank 0's on phase 14's two main paths; each
 `max_abs_err` is the largest over its checks in every phase), with the
 card's name and power limit on the line before it; the last is
 `{"ok": true, "device": {...}}`. The script's own time is printed before
@@ -1334,6 +1362,520 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
                       bound_by=b[1], library_ms=None)
 
 
+# ---- phase 14: distribution (tracer_torch.dist) -----------------------------
+
+LAUNCH_NAMES = ("megakernel", "megakernel_record", "bwd", "tex_scatter", "megakernel_clustered",
+                "megakernel_bvh")
+DIST_TIMEOUT = 600  # seconds for a group of phase 14's workers, start to exit
+
+
+def launch_counts(reset=False):
+    """{kernel entry name: launches since the last reset}; with `reset`, set
+    every count to 0 and return None."""
+    from tracer_torch.kernels import bwd, tex_scatter
+    from tracer_torch.kernels import megakernel as mk
+
+    owners = ((mk, "LAUNCHES"), (mk, "LAUNCHES_RECORD"), (bwd, "LAUNCHES"),
+              (tex_scatter, "LAUNCHES"), (mk, "LAUNCHES_CLUSTERED"), (mk, "LAUNCHES_BVH"))
+    if reset:
+        for mod, attr in owners:
+            setattr(mod, attr, 0)
+        return None
+    return {name: getattr(mod, attr) for name, (mod, attr) in zip(LAUNCH_NAMES, owners)}
+
+
+def canonical(dev, sqrt_spp=None, num_frames=None, output_path=None):
+    """(scene, params) of the canonical config with the synthetic floor."""
+    from tracer_torch.scene import builders, config
+
+    params = config.read_scene_params(io.StringIO(config.default_config_text()))
+    if sqrt_spp is not None:
+        params.render.sqrt_rays_per_pixel = sqrt_spp
+    if num_frames is not None:
+        params.num_frames = num_frames
+    if output_path is not None:
+        params.output_path = output_path
+    return builders.create_scene(params, texture_loader=synthetic_floor, device=dev), params
+
+
+def grad_leaves(scene, g_scene, g_cam):
+    """[(name, gradient)] of the float leaves and the texture's layer 0."""
+    from tracer_torch.kernels import bwd
+
+    return (list(zip(bwd.leaf_names(scene, g_cam), bwd.float_grads(scene, g_scene, g_cam)))
+            + [("textures[0]", g_scene.textures[0])])
+
+
+# the shapes of phase 14
+DIST_FRAMES, DIST_SQRT_SPP = 2, 4  # the main forward path (phase 4's cut)
+DIST_G = (800, 600, 32, 50, 8)  # the main gradient path: w, h, spp, depth, spp_chunk
+DIST_SMALL = (64, 48)  # the sample-sharded frame and the replay gradients
+
+
+def dist_worker(spec_json: str) -> int:
+    """One rank of phase 14 (`chip_smoke.py --dist-worker SPEC`): opens its
+    group on cuda:0, runs the phase's checks for its group and prints one
+    line `DIST_RESULT {json}`; tensors go to files in spec["out"]."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    spec = json.loads(spec_json)
+    sys.path.insert(0, HERE)
+    from tracer_torch.dist import multihost, sharding
+    from tracer_torch.kernels import nvcc
+
+    dev = torch.device("cuda", 0)  # every rank of the phase on the one card
+    torch.cuda.set_device(dev)
+    nvcc.build_all()  # loads the libraries phase 2 built
+    world, rank = spec["world"], spec["rank"]
+    if world > 1:
+        multihost.initialize(spec["addr"], world, rank, backend=spec["backend"], timeout=300)
+    else:  # multihost.initialize opens no group for one process
+        dist.init_process_group(spec["backend"], init_method=f"tcp://{spec['addr']}",
+                                world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = sharding.make_mesh(dev)
+        res = (dist_group_checks if world > 1 else dist_nccl_checks)(mesh, spec["out"])
+    finally:
+        dist.destroy_process_group()
+    print("DIST_RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def dist_group_checks(mesh, out):
+    """A rank of the 2-rank gloo group: the main forward path (row- and
+    frame-sharded animations), the sample-sharded frame, the main gradient
+    path, the replay gradients and the times."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_scenes import SKY
+
+    from tracer_torch.dist import multihost, sharding
+    from tracer_torch.kernels import bwd
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import camera as C
+    from tracer_torch.scene import builders, config
+
+    dev, rank = mesh.device, mesh.rank
+    res = {"rank": rank}
+
+    # the main forward path: every frame by row bands, rank 0 prints and
+    # writes; each rank writes into its own directory
+    for mode, frame_shard, kw in (("rows", False, dict(sqrt_spp=DIST_SQRT_SPP)),
+                                  ("frames", True, dict(sqrt_spp=DIST_SQRT_SPP, num_frames=3))):
+        own = os.path.join(out, mode, f"rank{rank}")
+        os.makedirs(own)
+        scene, params = canonical(dev, output_path=os.path.join(own, "frame_%d.bin"), **kw)
+        tsv = io.StringIO()
+        frames = range(DIST_FRAMES) if mode == "rows" else None
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        fb = multihost.render_animation_multihost(
+            scene, params, frame_shard=frame_shard, engine="cuda", out=tsv,
+            **({} if frames is None else dict(frames=frames)))
+        torch.cuda.synchronize()
+        res[f"{mode}_launches"] = launch_counts()
+        res[f"{mode}_tsv"] = tsv.getvalue()
+        if mode == "rows":
+            np.save(os.path.join(out, f"rows_fb{rank}.npy"), fb)
+    canon = scene
+
+    # samples: the plain sample-sharded frame (tracer's XLA path)
+    smoke = builders.create_scene(config.read_scene_params(io.StringIO(config.smoke_config_text())),
+                                  texture_loader=lambda _: None, device=dev)
+    w, h = DIST_SMALL
+    cam = C.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], w, h, 90.0, background=SKY,
+                              device=dev)
+    fb = sharding.render_frame_spp_sharded(smoke, cam, w, h, 4, 8, mesh)
+    np.save(os.path.join(out, f"spp{rank}.npy"), fb.cpu().numpy())
+
+    # the main gradient path
+    gw, gh, gspp, gd, chunk = DIST_G
+    cam_g = C.camera_at(params.camera_path, 0, 100, gw, gh, params.fov_degrees, device=dev)
+    target = torch.from_numpy(np.load(os.path.join(out, "target.npy"))).to(dev)
+    dist.barrier()
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    loss, g_scene, g_cam = sharding.l2_grads_deep_sharded(canon, cam_g, target, gw, gh, gspp, gd,
+                                                          mesh, spp_chunk=chunk,
+                                                          texture_grads=True)
+    torch.cuda.synchronize()
+    res["deep_ms"] = (time.perf_counter() - t0) * 1e3
+    res["deep_launches"] = launch_counts()
+    leaves = grad_leaves(canon, g_scene, g_cam)
+    np.savez(os.path.join(out, f"deep{rank}.npz"), loss=loss.cpu().numpy(),
+             **{n: g.cpu().numpy() for n, g in leaves})
+    del g_scene, g_cam, leaves
+    warm = math.inf  # the same step again, warm: best of 2, both ranks from a barrier
+    for _ in range(2):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharding.l2_grads_deep_sharded(canon, cam_g, target, gw, gh, gspp, gd, mesh,
+                                       spp_chunk=chunk, texture_grads=True)
+        torch.cuda.synchronize()
+        warm = min(warm, (time.perf_counter() - t0) * 1e3)
+    res["deep_warm_ms"] = warm
+
+    # the replay gradients at a small shape
+    cam_s = C.camera_at(params.camera_path, 0, 100, w, h, params.fov_degrees, device=dev)
+    target_s = torch.from_numpy(np.load(os.path.join(out, "target_small.npy"))).to(dev)
+    loss, g_scene = sharding.scene_grads_replay_sharded(canon, cam_s, target_s, w, h, 2, 8, mesh)
+    k = -len(cam_s)  # the scene's leaves: the camera takes no gradient here, as in tracer
+    np.savez(os.path.join(out, f"replay{rank}.npz"), loss=loss.cpu().numpy(),
+             **{n: g.cpu().numpy() for n, g in zip(bwd.leaf_names(canon, cam_s)[:k],
+                                                   bwd.float_grads(canon, g_scene, cam_s)[:k])})
+
+    # times at 1080x720 spp16 d50 (the main path's frame): the sharded frame
+    # and the all_reduce of its 9.3 MB alone, both ranks from a barrier
+    # (host clock to synchronize), then one launch on rank 0 alone (CUDA
+    # events) while rank 1 waits
+    cam_t = C.camera_at(params.camera_path, 1, 100, 1080, 720, params.fov_degrees, device=dev)
+    spp = DIST_SQRT_SPP ** 2
+
+    def host_best(fn, reps=3):
+        fn()
+        best = math.inf
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    sharded = {}
+    res["sharded_ms"] = host_best(lambda: sharded.update(fb=sharding.render_frame_kernel_sharded(
+        canon, cam_t, 1080, 720, spp, 50, mesh)))
+    buf = torch.zeros((720, 1080, 3), device=dev)
+    res["all_reduce_ms"] = host_best(lambda: dist.all_reduce(buf))
+    dist.barrier()
+    if rank == 0:
+        one = mk.render_frame_kernel(canon, cam_t, 1080, 720, spp, 50)
+        res["single_ms"] = cuda_ms(lambda: mk.render_frame_kernel(canon, cam_t, 1080, 720, spp, 50),
+                                   reps=3)
+        torch.cuda.synchronize()
+        res["timed_frame_bit_equal"] = bit_equal(sharded["fb"], one)
+    dist.barrier()
+    return res
+
+
+def dist_nccl_checks(mesh, out):
+    """The one rank of an NCCL group: render_frame_kernel_sharded against
+    render_frame_kernel, l2_grads_deep_sharded against l2_grads_deep."""
+    import torch
+
+    from tracer_torch.dist import sharding
+    from tracer_torch.kernels import bwd
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import camera as C
+
+    dev = mesh.device
+    canon, params = canonical(dev)
+    cam = C.camera_at(params.camera_path, 1, 100, 256, 192, params.fov_degrees, device=dev)
+    frame_equal = bit_equal(sharding.render_frame_kernel_sharded(canon, cam, 256, 192, 4, 50, mesh),
+                            mk.render_frame_kernel(canon, cam, 256, 192, 4, 50))
+    w, h = DIST_SMALL
+    cam = C.camera_at(params.camera_path, 0, 100, w, h, params.fov_degrees, device=dev)
+    target = torch.rand((h, w, 3), generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    kw = dict(spp_chunk=2, texture_grads=True)
+    l1, gs1, gc1 = sharding.l2_grads_deep_sharded(canon, cam, target, w, h, 4, 8, mesh, **kw)
+    l0, gs0, gc0 = bwd.l2_grads_deep(canon, cam, target, w, h, 4, 8, **kw)
+    got, want = grad_leaves(canon, gs1, gc1), grad_leaves(canon, gs0, gc0)
+    ok, worst, worst_abs = compare_leaves([n for n, _ in got], [g for _, g in got],
+                                          [g for _, g in want])
+    return dict(frame_equal=frame_equal, loss_equal=bit_equal(l1, l0), grads_ok=ok, worst=worst,
+                worst_abs=worst_abs)
+
+
+def run_group(world, backend, out, env):
+    """Start `world` workers of phase 14 (rank by rank), wait for all of
+    them within DIST_TIMEOUT, kill any left; returns ([each rank's result],
+    error or None). A worker that fails, times out or prints no result is
+    an error."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    procs = []
+    for rank in range(world):
+        spec = dict(world=world, rank=rank, addr=addr, backend=backend, out=out)
+        log = open(os.path.join(out, f"{backend}{world}_rank{rank}.log"), "w")
+        procs.append((log, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker", json.dumps(spec)],
+            stdout=log, stderr=subprocess.STDOUT, cwd=HERE, env=env)))
+    deadline = time.monotonic() + DIST_TIMEOUT
+    results, errors = [], []
+    try:
+        for rank, (log, proc) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                errors.append(f"{backend} rank {rank} of {world} timed out after {DIST_TIMEOUT} s")
+                continue
+            log.close()
+            text = open(log.name).read()
+            line = [x for x in text.splitlines() if x.startswith("DIST_RESULT ")]
+            if rc != 0 or not line:
+                errors.append(f"{backend} rank {rank} of {world} exited {rc} with "
+                              f"{'a' if line else 'no'} result:\n{text[-4000:]}")
+            else:
+                results.append(json.loads(line[-1][len("DIST_RESULT "):]))
+    finally:
+        for log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return results, ("\n".join(errors) or None)
+
+
+def dist_phase(dev, kind, card, canon, canon_p, g, env):
+    """Phase 14: tracer_torch.dist on the one card. K1's and K1-rec's row
+    bands against one launch; then a gloo group of 2 ranks, both on cuda:0:
+    the main forward path (render_animation_multihost, row- and
+    frame-sharded) and the main gradient path (l2_grads_deep_sharded)
+    against one process, the sample-sharded frame and the replay
+    gradients, and the times; then an NCCL group of one rank. Returns
+    (error or None, rank 0's launches on the phase's two main paths
+    {kernel entry name: n}, its comparisons' max|diff| {name: [x, ...]})."""
+    import torch
+
+    from tracer_torch.dist import sharding
+    from tracer_torch.io import image as image_io
+    from tracer_torch.kernels import bwd, diff
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import camera as C
+    from tracer_torch.render import driver, renderer
+    from tracer_torch.scene import builders, config
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_scenes import SKY
+
+    t_phase = time.perf_counter()
+    errs = {k: [] for k in ("megakernel", "megakernel_record", "bwd", "tex_scatter")}
+    print(f"[14] tracer_torch.dist on {kind} ({card}): 2 gloo ranks share the one card (NCCL "
+          f"refuses two ranks on a device), then one NCCL rank", flush=True)
+
+    # K1 and K1-rec on row bands against one launch, uneven splits included
+    for h, n in ((720, 3), (719, 2)):
+        cam = C.camera_at(canon_p.camera_path, 1, canon_p.num_frames, 1080, h,
+                          canon_p.fov_degrees, device=dev)
+        full = mk.render_frame_kernel(canon, cam, 1080, h, 4, 50)
+        rec = mk.render_frame_kernel_record(canon, cam, 1080, h, 2, 8, tape_fields=9)
+        bands = [sharding.row_band(h, n, r) for r in range(n)]
+        ok = True
+        for r0, rows in bands:
+            cols = slice(r0 * 1080, (r0 + rows) * 1080)
+            band = mk.render_frame_kernel(canon, cam, 1080, rows, 4, 50, row_offset=r0)
+            brec = mk.render_frame_kernel_record(canon, cam, 1080, rows, 2, 8, tape_fields=9,
+                                                 row_offset=r0)
+            ok &= (bit_equal(band, full[r0:r0 + rows]) and bit_equal(brec[0], rec[0][r0:r0 + rows])
+                   and torch.equal(brec[1], rec[1][:, :, cols])
+                   and bit_equal(brec[2], rec[2][:, :, cols]))
+        print(f"  row bands {[rows for _, rows in bands]} of 1080x{h}: K1 (spp4 d50) and K1-rec "
+              f"(spp2 d8, 9 fields: frame, index and texture tapes) bit-equal to one launch's "
+              f"rows -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            return "a row band is not the rows of one launch", None, None
+        del full, rec, band, brec
+    errs["megakernel"].append(0.0)
+    errs["megakernel_record"].append(0.0)
+
+    gw, gh, gspp, gd, chunk = DIST_G
+    w, h = DIST_SMALL
+    cam_g = C.camera_at(canon_p.camera_path, 0, canon_p.num_frames, gw, gh, canon_p.fov_degrees,
+                        device=dev)
+    truth = canon._replace(materials=canon.materials._replace(albedo=canon.materials.albedo * 0.85))
+    target = mk.render_frame_kernel(truth, cam_g, gw, gh, gspp, gd) / gspp
+    target_s = torch.rand((h, w, 3), generator=g, device=dev)
+    # the workers share the card with this process: hand back the blocks
+    # that the earlier phases left in this process's caching allocator
+    held = torch.cuda.memory_reserved(dev)
+    torch.cuda.empty_cache()
+    print(f"  this process's cached device memory {held} -> {torch.cuda.memory_reserved(dev)} "
+          f"bytes ({torch.cuda.memory_allocated(dev)} allocated) before the workers start",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "target.npy"), target.cpu().numpy())
+        np.save(os.path.join(tmp, "target_small.npy"), target_s.cpu().numpy())
+        t0 = time.perf_counter()
+        res, err = run_group(2, "gloo", tmp, env)
+        if err:
+            return err, None, None
+        res.sort(key=lambda r: r["rank"])
+        print(f"  gloo group of 2 ranks on cuda:0: {time.perf_counter() - t0:.1f} s from start to "
+              f"exit", flush=True)
+
+        # the main forward path against one process
+        tsv = io.StringIO()
+        scene, params = canonical(dev, sqrt_spp=DIST_SQRT_SPP,
+                                  output_path=os.path.join(tmp, "single", "frame_%d.bin"))
+        os.makedirs(os.path.join(tmp, "single"))
+        fb = driver.render_animation(scene, params, out=tsv, frames=range(DIST_FRAMES),
+                                     engine="cuda")
+        rows = os.path.join(tmp, "rows")
+        lines = res[0]["rows_tsv"].strip().splitlines()
+        rays = params.width * params.height * DIST_SQRT_SPP ** 2
+        ok = ([x.split("\t")[0] for x in lines] == [str(n) for n in range(DIST_FRAMES)]
+              and all(x.split("\t")[2] == str(rays) for x in lines)
+              and res[1]["rows_tsv"] == "" and os.listdir(os.path.join(rows, "rank1")) == [])
+        diff_max = 0.0
+        for n in range(DIST_FRAMES):
+            a = image_io.read_binary(os.path.join(rows, "rank0", f"frame_{n}.bin"))
+            b = image_io.read_binary(os.path.join(tmp, "single", f"frame_{n}.bin"))
+            diff_max = max(diff_max, float(np.abs(a.astype(np.int64) - b).max()))
+        fbs = [np.load(os.path.join(tmp, f"rows_fb{r}.npy")) for r in range(2)]
+        fb_equal = all(np.array_equal(x.view(np.int32), fb.view(np.int32)) for x in fbs)
+        want = {n: (DIST_FRAMES if n == "megakernel" else 0) for n in LAUNCH_NAMES}
+        ok &= diff_max == 0 and fb_equal and all(r["rows_launches"] == want for r in res)
+        print(f"  main forward path: render_animation_multihost(frame_shard=False, engine='cuda'), "
+              f"canonical config {params.width}x{params.height} d{params.render.max_depth}, "
+              f"{DIST_FRAMES} frames sqrt_spp {DIST_SQRT_SPP}: rank 0 TSV "
+              f"{' | '.join(lines)}; rank 1 printed {len(res[1]['rows_tsv'])} bytes and wrote "
+              f"{len(os.listdir(os.path.join(rows, 'rank1')))} files; files max|diff| {diff_max:g} "
+              f"against one process, last frame bit-equal on both ranks {fb_equal}; launches per "
+              f"rank {[r['rows_launches'] for r in res]} (want {want}) -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            return "the row-sharded animation is not the one-process animation", None, None
+
+        scene3, params3 = canonical(dev, sqrt_spp=DIST_SQRT_SPP, num_frames=3,
+                                    output_path=os.path.join(tmp, "single3", "frame_%d.bin"))
+        os.makedirs(os.path.join(tmp, "single3"))
+        driver.render_animation(scene3, params3, out=io.StringIO(), engine="cuda")
+        ok = True
+        for r in range(2):
+            own = os.path.join(tmp, "frames", f"rank{r}")
+            mine = list(range(r, 3, 2))
+            ok &= sorted(os.listdir(own)) == [f"frame_{n}.bin" for n in mine]
+            ok &= [int(x.split("\t")[0]) for x in res[r]["frames_tsv"].splitlines()] == mine
+            for n in mine:
+                ok &= np.array_equal(image_io.read_binary(os.path.join(own, f"frame_{n}.bin")),
+                                     image_io.read_binary(os.path.join(tmp, "single3",
+                                                                       f"frame_{n}.bin")))
+        print(f"  render_animation_multihost(frame_shard=True), 3 frames: rank r wrote and printed "
+              f"frames r, r+2, bit-equal to one process -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            return "the frame-sharded animation split its frames wrongly", None, None
+
+        # the sample-sharded frame (the plain renderer on the card)
+        smoke = builders.create_scene(
+            config.read_scene_params(io.StringIO(config.smoke_config_text())),
+            texture_loader=lambda _: None, device=dev)
+        cam = C.build_camera_data([-15.0, 0.0, 4.5], [0.0, 4.5, 0.0], w, h, 90.0, background=SKY,
+                                  device=dev)
+        want = renderer.render_frame(smoke, cam, w, h, 4, 8)
+        ok = True
+        for r in range(2):
+            ok &= compare(f"render_frame_spp_sharded rank {r}, smoke {w}x{h} spp4 d8 (2 ranks of 2 "
+                          f"samples) vs render_frame", torch.from_numpy(
+                              np.load(os.path.join(tmp, f"spp{r}.npy"))).to(dev), want, [])
+        if not ok:
+            return "the sample-sharded frame disagrees with the one-device frame", None, None
+
+        # the main gradient path against one device
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g_scene, g_cam = bwd.l2_grads_deep(canon, cam_g, target, gw, gh, gspp, gd,
+                                                 spp_chunk=chunk, texture_grads=True)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        want = grad_leaves(canon, g_scene, g_cam)
+        del g_scene, g_cam
+        ok = True
+        for r in range(2):
+            got = np.load(os.path.join(tmp, f"deep{r}.npz"))
+            ok &= bool(got["loss"].view(np.int32) == loss.cpu().numpy().view(np.int32))
+            leaf_ok, worst, worst_abs = compare_leaves(
+                [n for n, _ in want], [torch.from_numpy(got[n]).to(dev) for n, _ in want],
+                [x for _, x in want])
+            ok &= leaf_ok
+            t_err = float(np.abs(got["textures[0]"] - want[-1][1].cpu().numpy()).max())
+            errs["bwd"].append(worst_abs)
+            errs["tex_scatter"].append(t_err)
+        want_l = {n: 0 for n in LAUNCH_NAMES}
+        want_l.update(megakernel=1, megakernel_record=gspp // chunk, bwd=gspp // chunk,
+                      tex_scatter=gspp // chunk)
+        ok &= all(r["deep_launches"] == want_l for r in res)
+        print(f"  main gradient path: l2_grads_deep_sharded(texture_grads=True) at {gw}x{gh} "
+              f"spp{gspp} d{gd}, spp_chunk {chunk}, canonical + texture: loss {float(loss):.9g} "
+              f"bit-equal to l2_grads_deep's on both ranks; worst leaf max|diff|/max|g| "
+              f"{worst:.3g} (<= {TOL_GRAD}), texture max|diff| {t_err:.3g} (max "
+              f"{float(want[-1][1].abs().max()):.3g}); host clock on rank 0: first call "
+              f"{res[0]['deep_ms']:.3f} ms, warm {res[0]['deep_warm_ms']:.3f} ms (best of 2; the 2 "
+              f"ranks share the card), one device in this process {one_ms:.3f} ms; launches per "
+              f"rank {[r['deep_launches'] for r in res]} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            return "the sharded d50 gradients disagree with one device's", None, None
+        del want
+
+        # the replay gradients at a small shape against render_frame_diff's mode "replay"
+        cam_s = C.camera_at(canon_p.camera_path, 0, canon_p.num_frames, w, h,
+                            canon_p.fov_degrees, device=dev)
+        leaves = [x.detach().requires_grad_() for x in bwd.float_leaves(canon, cam_s)]
+        s, c = bwd.with_float_leaves(canon, cam_s, leaves)
+        fb_r = diff.render_frame_diff(s, c, w, h, 2, 8, mode="replay")
+        loss = torch.mean((fb_r / 2 - target_s) ** 2)
+        k = len(leaves) - len(cam_s)
+        want = torch.autograd.grad(loss, leaves[:k], allow_unused=True)
+        loss = float(loss.detach())
+        names = bwd.leaf_names(canon, cam_s)[:k]
+        want = [torch.zeros_like(x) if v is None else v for x, v in zip(leaves, want)]
+        ok = True
+        for r in range(2):
+            got = np.load(os.path.join(tmp, f"replay{r}.npz"))
+            leaf_ok, worst, worst_abs = compare_leaves(
+                names, [torch.from_numpy(got[n]).to(dev) for n in names], want)
+            rel = abs(float(got["loss"]) - loss) / loss
+            ok &= leaf_ok and rel <= 1e-6
+        print(f"  scene_grads_replay_sharded, canonical + texture {w}x{h} spp2 d8, against "
+              f"render_frame_diff(mode='replay'): worst leaf max|diff|/max|g| {worst:.3g} "
+              f"(<= {TOL_GRAD}), loss rel {rel:.3g} (<= 1e-6) -> {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            return "the sharded replay gradients disagree with mode 'replay'", None, None
+
+        t = res[0]
+        print(f"  times on {kind} ({card}), canonical 1080x720 spp{DIST_SQRT_SPP ** 2} d50 "
+              f"textured, camera path frame 1: 2 ranks sharing ONE card, so their ratio is not a "
+              f"scaling figure: render_frame_kernel_sharded {t['sharded_ms']:.3f} ms (host clock "
+              f"from a barrier, best of 3), of which the gloo all_reduce of the 9.3 MB frame "
+              f"alone {t['all_reduce_ms']:.3f} ms; one launch of render_frame_kernel "
+              f"{t['single_ms']:.3f} ms (CUDA events, best of 3); the sharded frame bit-equal to "
+              f"it {t['timed_frame_bit_equal']}", flush=True)
+        if not t["timed_frame_bit_equal"]:
+            return "the timed sharded frame is not the one-launch frame", None, None
+        launches = {n: res[0]["rows_launches"][n] + res[0]["deep_launches"][n]
+                    for n in LAUNCH_NAMES}
+
+        # one NCCL rank: the NCCL path starts on the card
+        t0 = time.perf_counter()
+        nres, err = run_group(1, "nccl", tmp, env)
+        if err:
+            return err, None, None
+        r = nres[0]
+        ok = r["frame_equal"] and r["loss_equal"] and r["grads_ok"]
+        errs["bwd"].append(r["worst_abs"])
+        print(f"  NCCL group of one rank ({time.perf_counter() - t0:.1f} s): "
+              f"render_frame_kernel_sharded 256x192 spp4 d50 bit-equal to render_frame_kernel "
+              f"{r['frame_equal']}; l2_grads_deep_sharded {w}x{h} spp4 d8 (chunks of 2, texture "
+              f"grads) loss bit-equal {r['loss_equal']}, worst leaf max|diff|/max|g| "
+              f"{r['worst']:.3g} (<= {TOL_GRAD}) -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            return "the NCCL rank's sharded paths disagree with one device's", None, None
+    print(f"    phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return None, launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -1828,6 +2370,11 @@ def main() -> int:
     if err:
         return fail(err)
 
+    # ---- 14. distribution ----------------------------------------------------
+    err, dist_launches, dist_errs = dist_phase(dev, kind, card, canon, canon_p, g, env)
+    if err:
+        return fail(err)
+
     kernels = [
         dict(name="megakernel", route="cuda", source="tracer_torch/csrc/megakernel.cu",
              replaces="tracer/pallas/kernels.py:33", launches=launches, max_abs_err=max_abs_err,
@@ -1847,10 +2394,11 @@ def main() -> int:
         cl_entry,
         bvh_entry,
     ]
-    for k in kernels:  # each kernel's launches on phase 11's main path, and its checks there
+    for k in kernels:  # each kernel's launches on phase 11's and 14's main paths, and its checks
         k["launches_d50"] = deep_launches[k["name"]]
+        k["launches_dist"] = dist_launches[k["name"]]
         k["max_abs_err"] = max([k["max_abs_err"], *deep_errs.get(k["name"], []),
-                                *strat_errs.get(k["name"], [])])
+                                *strat_errs.get(k["name"], []), *dist_errs.get(k["name"], [])])
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -1860,4 +2408,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:  # one rank of phase 14, started by the phase
+        sys.exit(dist_worker(sys.argv[2]))
     sys.exit(main())

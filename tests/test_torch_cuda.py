@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on a CUDA device:
 the forward megakernel, its cluster-culled, BVH and record modes (each
-with and without stratified jitter), the backward kernel and the
-texture-gradient scatter, and fit on the card.
+with and without stratified jitter, and on row bands), the backward kernel
+and the texture-gradient scatter, fit on the card, and the sharded kernel
+paths of tracer_torch.dist on one NCCL rank.
 
 Every test here needs a card: each carries the `cuda` marker and skips
 without one. The file imports neither jax nor tracer, so it also runs on a
@@ -16,6 +17,7 @@ sample takes another valid path); >= 99% of pixels must agree and the frame
 means must agree to a relative 1e-3.
 """
 
+import datetime
 import io
 import os
 import subprocess
@@ -24,8 +26,10 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from tracer_torch.bvh import builder as bvh_builder
+from tracer_torch.dist import sharding
 from tracer_torch.kernels import bwd, diff, megakernel, nvcc, replay, tex_scatter
 from tracer_torch.render import camera, renderer
 from tracer_torch.scene import builders, config
@@ -685,3 +689,62 @@ def test_kernel_build_failure_raises(dev, monkeypatch, tmp_path):
             megakernel.render_frame_kernel(scene, cam, 8, 8, 1, 1, intersector="bvh")
     finally:
         nvcc.build_all.cache_clear()
+
+
+@pytest.mark.parametrize("height, n, stratify", [(30, 3, False), (29, 2, False), (29, 3, True)])
+def test_kernel_row_bands_are_bit_equal_to_one_launch(dev, height, n, stratify):
+    """K1 and K1-rec on each rank's row band (`row_offset`) against the rows
+    of one launch, bit for bit: frame, index tape and 9-field tape, uneven
+    splits included."""
+    scene = full_scene(dev)
+    cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 40, height, 55.0,
+                                   background=SKY, device=dev)
+    kw = dict(rr_start=3, stratify=stratify)
+    full = megakernel.render_frame_kernel(scene, cam, 40, height, 4, 6, **kw)
+    rec = megakernel.render_frame_kernel_record(scene, cam, 40, height, 4, 6, tape_fields=9, **kw)
+    for rank in range(n):
+        r0, rows = sharding.row_band(height, n, rank)
+        cols = slice(r0 * 40, (r0 + rows) * 40)
+        band = megakernel.render_frame_kernel(scene, cam, 40, rows, 4, 6, row_offset=r0, **kw)
+        brec = megakernel.render_frame_kernel_record(scene, cam, 40, rows, 4, 6, tape_fields=9,
+                                                     row_offset=r0, **kw)
+        assert torch.equal(band, full[r0:r0 + rows])
+        assert torch.equal(brec[0], rec[0][r0:r0 + rows])
+        assert torch.equal(brec[1], rec[1][:, :, cols])
+        assert torch.equal(brec[2], rec[2][:, :, cols])
+
+
+@pytest.mark.parametrize("kw", [dict(cluster_k=16), dict(intersector="bvh")],
+                         ids=["K1-cl", "K1-bvh"])
+def test_clustered_and_bvh_row_bands_are_bit_equal_to_one_launch(dev, kw):
+    scene, cam = _bvh_case("smoke", dev)
+    w, h = 16, 8
+    full = megakernel.render_frame_kernel(scene, cam, w, h, 2, 5, **kw)
+    band = megakernel.render_frame_kernel(scene, cam, w, 5, 2, 5, row_offset=3, **kw)
+    assert torch.equal(band, full[3:])
+
+
+def test_sharded_kernel_paths_on_one_nccl_rank(dev, tmp_path):
+    """render_frame_kernel_sharded and l2_grads_deep_sharded in an NCCL group
+    of one rank: the frame and the loss bit-equal to the one-device ones,
+    the gradients within 1e-4 of each leaf's max|g| (K2 adds with atomics)."""
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = sharding.make_mesh(dev)
+        scene = full_scene(dev)
+        cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 40, 30, 55.0,
+                                       background=SKY, device=dev)
+        got = sharding.render_frame_kernel_sharded(scene, cam, 40, 30, 4, 6, mesh)
+        assert torch.equal(got, megakernel.render_frame_kernel(scene, cam, 40, 30, 4, 6))
+        target = torch.rand((30, 40, 3), generator=torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        kw = dict(spp_chunk=2, texture_grads=True)
+        l1, gs1, gc1 = sharding.l2_grads_deep_sharded(scene, cam, target, 40, 30, 4, 6, mesh, **kw)
+        l0, gs0, gc0 = bwd.l2_grads_deep(scene, cam, target, 40, 30, 4, 6, **kw)
+        assert torch.equal(l1, l0)
+        for a, b in zip(bwd.float_grads(scene, gs1, gc1) + [gs1.textures],
+                        bwd.float_grads(scene, gs0, gc0) + [gs0.textures]):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+    finally:
+        dist.destroy_process_group()

@@ -8,7 +8,11 @@
 // + the fixed 8-draw material scatter (+ optional Russian roulette), and
 // the RAW radiance sum of those samples. Same wang_hash streams, same
 // draw order and same tex2D_cpu bilinear sampling as the plain PyTorch
-// version (tracer_torch/render/renderer.py:render_frame).
+// version (tracer_torch/render/renderer.py:render_frame). row_offset (the
+// TPU kernel's params slot 15, every mode) shifts the launch's rows to the
+// image rows of a band, as the TPU kernel's row band under shard_map does:
+// the seeds, pixel centres and jitter are the whole image's, so bands of
+// one frame give the rows of its one launch bit for bit.
 //
 // Design: one thread per pixel and one loop per thread, each pass one
 // bounce. The thread carries its path (sample s, depth, ray, throughput,
@@ -179,6 +183,8 @@ struct Launch {
   const int* slots;    // CLUSTERED: [clusters * k], -1 pads a cluster's end
   int num_nodes, k;
   int strat_k;         // stratified jitter's grid size k, 0 for uniform jitter
+  int row_offset;      // the image row of the launch's first row: a band of `height`
+                       // rows of a taller image keeps the image's seeds and camera rays
   // COUNT: [COUNTS] sums over the launch: nearest-hit queries, hits,
   // leaves reached, primitives tested, warp passes, active lanes, node tests
   unsigned long long* counts;
@@ -335,7 +341,7 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
   const int width = L.width, max_depth = L.max_depth, num_s = P.num_s, num_p = P.num_p;
   const int npx = width * L.height;
   const int i = lin % width;  // column
-  const int j = lin / width;  // row
+  const int j = lin / width + L.row_offset;  // image row (lin counts within the band)
   const int n = num_s + num_p;
   const float* __restrict__ join = L.join;
 
@@ -741,7 +747,9 @@ int launch_mode(const Launch& L, bool smem, cudaStream_t st) {
 // most BVH_STACK). sph and pla are 16-byte aligned record tables
 // (tracer_torch/kernels/pack.py); shared_tables stages them in shared
 // memory, shared_nodes the nodes. strat_k > 0 stratifies the jitter over a
-// strat_k x strat_k grid (every mode).
+// strat_k x strat_k grid (every mode). row_offset >= 0 makes the launch the
+// band of rows row_offset .. row_offset + height - 1 of a taller image (every
+// mode): out and the tapes stay band-sized, seeds and rays are the image's.
 // counts is nullptr (the uncounted kernels) or COUNTS zeroed counters (the
 // counted ones). rr_start < 0 turns roulette off; tex == nullptr renders
 // untextured. Launches on `stream`, does not synchronise, and returns
@@ -752,11 +760,12 @@ extern "C" int tracer_megakernel_launch(
     int width, int height, int spp, int max_depth, unsigned int sample_start,
     int reference_quirk, int rr_start, int* idx_tape, float* tex_tape, int tape_f,
     const float* nodes, const int* slots, int num_nodes, int k, int shared_tables,
-    int shared_nodes, int strat_k, unsigned long long* counts, void* stream) {
+    int shared_nodes, int strat_k, int row_offset, unsigned long long* counts, void* stream) {
   const Launch L{reinterpret_cast<const float4*>(sph), reinterpret_cast<const float4*>(pla),
                  num_s, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
                  sample_start, reference_quirk, rr_start, idx_tape, tex_tape, tape_f,
-                 reinterpret_cast<const float4*>(nodes), slots, num_nodes, k, strat_k, counts};
+                 reinterpret_cast<const float4*>(nodes), slots, num_nodes, k, strat_k, row_offset,
+                 counts};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool smem = shared_tables != 0;
   switch (mode) {

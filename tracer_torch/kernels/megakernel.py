@@ -29,6 +29,10 @@ a k x k sub-pixel grid (`render.camera.get_rays`; tracer's `strat_k`),
 k = sqrt(spp) or `strat_sqrt_spp`, which a sample chunk of a larger frame
 passes as the whole frame's k.
 
+`row_offset` (every mode; tracer's params slot 15) renders `height` rows
+starting at that image row: a row band of a taller frame with the frame's
+seeds and rays, which tracer_torch.dist.sharding launches on each rank.
+
 `render_frame_kernel_record` is the record mode (port of
 render_frame_pallas_record), whose plain version is
 `tracer_torch.render.renderer.render_frame_record`: the same frame plus
@@ -116,7 +120,7 @@ def _fn():
     fn = build().lib.tracer_megakernel_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [i, p, i, p, i, p, p, i, i, p, p, i, i, i, i, ctypes.c_uint, i, i, p, p, i,
-                   p, p, i, i, i, i, i, p, p]
+                   p, p, i, i, i, i, i, i, p, p]
     fn.restype = i
     return fn
 
@@ -130,15 +134,18 @@ def _check(name, t, device, shape=None):
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
 
 
-def _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start):
+def _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start, row_offset):
     """Check what the kernels take; returns (device, texture layer or None)."""
     device = scene.device
     for name, val in (("width", width), ("height", height), ("spp", spp),
                       ("max_depth", max_depth)):
         if not (isinstance(val, int) and val > 0):
             raise ValueError(f"{name} must be a positive int, got {val!r}")
-    if width * height >= 2**31:
-        raise ValueError(f"{width}x{height} frame exceeds the kernel's int32 pixel index")
+    if isinstance(row_offset, bool) or not isinstance(row_offset, int) or row_offset < 0:
+        raise ValueError(f"row_offset must be an int >= 0, got {row_offset!r}")
+    if width * (row_offset + height) >= 2**31:
+        raise ValueError(f"{width}x{row_offset + height} frame exceeds the kernel's int32 "
+                         f"pixel index")
     if not (0 <= sample_start and sample_start + spp <= 2**32):
         raise ValueError(f"samples {sample_start}..+{spp} leave the uint32 sample range")
     if rr_start is not None and not (isinstance(rr_start, int) and rr_start >= 0):
@@ -163,9 +170,10 @@ def _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start):
 
 def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_start,
             reference_quirk, rr_start, idx=None, ttape=None, tape_f=0, tables=None,
-            nodes=None, strat_k=0, counts=None):
+            nodes=None, strat_k=0, counts=None, row_offset=0):
     """Pack the scene and camera and launch `mode` on the current stream;
-    `nodes` is K1-cl's (`tables.nodes`) or K1-bvh's node records."""
+    `nodes` is K1-cl's (`tables.nodes`) or K1-bvh's node records; the
+    launch covers image rows row_offset .. row_offset + height - 1."""
     packed = pack_mod.pack_scene(scene)
     cam_t = pack_mod.pack_camera(cam)
     th, tw = (0, 0) if tex is None else (int(tex.shape[0]), int(tex.shape[1]))
@@ -185,15 +193,19 @@ def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_st
                  0 if nodes is None else nodes.shape[0],
                  0 if tables is None else tables.k, int(table_bytes <= TABLE_SHARED_BYTES_MAX),
                  int(nodes is not None and 4 * nodes.numel() <= NODE_SHARED_BYTES_MAX),
-                 strat_k, ptr(counts), stream)
+                 strat_k, row_offset, ptr(counts), stream)
 
 
 def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth: int,
                         reference_quirk: bool = True, rr_start=None, sample_start: int = 0,
                         cluster_k: int = 0, stratify: bool = False, strat_sqrt_spp: int = 0,
-                        intersector: str = "brute"):
+                        intersector: str = "brute", row_offset: int = 0):
     """Render one frame; returns `[height, width, 3]` raw sample sums of the
-    global samples `sample_start .. sample_start + spp - 1`.
+    global samples `sample_start .. sample_start + spp - 1`. With
+    `row_offset` > 0 the `height` rows are the image rows `row_offset ..
+    row_offset + height - 1` of a taller frame (every mode), bit for bit
+    those rows of the frame's one launch: a row band of the sharded path
+    (tracer_torch.dist.sharding).
 
     Same contract, RNG streams and estimator as
     `tracer_torch.render.renderer.render_frame`, which it calls for a scene
@@ -207,7 +219,7 @@ def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth
                                      reference_quirk=reference_quirk, rr_start=rr_start,
                                      sample_start=sample_start, cluster_k=cluster_k,
                                      stratify=stratify, strat_sqrt_spp=strat_sqrt_spp,
-                                     intersector=intersector)
+                                     intersector=intersector, row_offset=row_offset)
     if scene.device.type != "cuda":
         raise ValueError(f"render_frame_kernel: no kernel for device {scene.device}")
     k = camera_mod.strat_grid(stratify, spp, strat_sqrt_spp)
@@ -216,19 +228,20 @@ def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth
     if cluster_mod.check_k(cluster_k):
         if intersector == "bvh":
             raise ValueError("intersector 'bvh' and cluster_k > 0 exclude each other")
-        return _render_clustered(*args, cluster_k, None, strat_k=k)
+        return _render_clustered(*args, cluster_k, None, strat_k=k, row_offset=row_offset)
     if intersector == "bvh":
-        return _render_bvh(*args, None, strat_k=k)
-    return _render(*args, None, strat_k=k)
+        return _render_bvh(*args, None, strat_k=k, row_offset=row_offset)
+    return _render(*args, None, strat_k=k, row_offset=row_offset)
 
 
 def _forward(mode, scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
-             sample_start, counts, strat_k, tables=None, nodes=None):
-    device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
+             sample_start, counts, strat_k, tables=None, nodes=None, row_offset=0):
+    device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start,
+                           row_offset)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
     err = _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_start,
                   reference_quirk, rr_start, tables=tables, nodes=nodes, strat_k=strat_k,
-                  counts=counts)
+                  counts=counts, row_offset=row_offset)
     if err != 0:
         name = {MODE_RENDER: "megakernel", MODE_CLUSTERED: "clustered megakernel",
                 MODE_BVH: "BVH megakernel"}[mode]
@@ -237,29 +250,29 @@ def _forward(mode, scene, cam, width, height, spp, max_depth, reference_quirk, r
 
 
 def _render(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start,
-            counts, strat_k=0):
+            counts, strat_k=0, row_offset=0):
     out = _forward(MODE_RENDER, scene, cam, width, height, spp, max_depth, reference_quirk,
-                   rr_start, sample_start, counts, strat_k)
+                   rr_start, sample_start, counts, strat_k, row_offset=row_offset)
     global LAUNCHES
     LAUNCHES += 1
     return out
 
 
 def _render_clustered(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
-                      sample_start, cluster_k, counts, strat_k=0):
+                      sample_start, cluster_k, counts, strat_k=0, row_offset=0):
     tables = cluster_mod.pack_clustered(scene, cluster_k)
     out = _forward(MODE_CLUSTERED, scene, cam, width, height, spp, max_depth, reference_quirk,
-                   rr_start, sample_start, counts, strat_k, tables=tables)
+                   rr_start, sample_start, counts, strat_k, tables=tables, row_offset=row_offset)
     global LAUNCHES_CLUSTERED
     LAUNCHES_CLUSTERED += 1
     return out
 
 
 def _render_bvh(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
-                sample_start, counts, strat_k=0):
+                sample_start, counts, strat_k=0, row_offset=0):
     nodes = pack_mod.pack_bvh(scene, BVH_STACK)
     out = _forward(MODE_BVH, scene, cam, width, height, spp, max_depth, reference_quirk,
-                   rr_start, sample_start, counts, strat_k, nodes=nodes)
+                   rr_start, sample_start, counts, strat_k, nodes=nodes, row_offset=row_offset)
     global LAUNCHES_BVH
     LAUNCHES_BVH += 1
     return out
@@ -268,7 +281,8 @@ def _render_bvh(scene, cam, width, height, spp, max_depth, reference_quirk, rr_s
 def loop_work(scene, cam, width: int, height: int, spp: int, max_depth: int,
               reference_quirk: bool = True, rr_start=None, sample_start: int = 0,
               cluster_k: int = 0, record: bool = False, stratify: bool = False,
-              strat_sqrt_spp: int = 0, intersector: str = "brute") -> LoopWork:
+              strat_sqrt_spp: int = 0, intersector: str = "brute",
+              row_offset: int = 0) -> LoopWork:
     """The bounce-loop work of one launch of K1 (or K1-cl with `cluster_k`
     > 0, K1-bvh with `intersector="bvh"`, or K1-rec with `record`) with
     these arguments, counted by the kernel's counted instantiation: the
@@ -287,14 +301,15 @@ def loop_work(scene, cam, width: int, height: int, spp: int, max_depth: int,
     if clustered and intersector == "bvh":
         raise ValueError("intersector 'bvh' and cluster_k > 0 exclude each other")
     args = (scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start)
+    kw = dict(strat_k=k, row_offset=row_offset)
     if record:
-        launch = lambda counts: _record(*args, 9, counts, strat_k=k)
+        launch = lambda counts: _record(*args, 9, counts, **kw)
     elif clustered:
-        launch = lambda counts: _render_clustered(*args, cluster_k, counts, strat_k=k)
+        launch = lambda counts: _render_clustered(*args, cluster_k, counts, **kw)
     elif intersector == "bvh":
-        launch = lambda counts: _render_bvh(*args, counts, strat_k=k)
+        launch = lambda counts: _render_bvh(*args, counts, **kw)
     else:
-        launch = lambda counts: _render(*args, counts, strat_k=k)
+        launch = lambda counts: _render(*args, counts, **kw)
     counts = torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=scene.device)
     launch(counts)
     return LoopWork(**dict(zip(COUNT_NAMES, (int(c) for c in counts.tolist()))))
@@ -309,7 +324,8 @@ def tape_bytes(width: int, height: int, spp: int, max_depth: int, tape_fields: i
 def render_frame_kernel_record(scene, cam, width: int, height: int, spp: int, max_depth: int,
                                reference_quirk: bool = True, rr_start=None,
                                sample_start: int = 0, tape_fields: int = 9,
-                               stratify: bool = False, strat_sqrt_spp: int = 0):
+                               stratify: bool = False, strat_sqrt_spp: int = 0,
+                               row_offset: int = 0):
     """The recording forward: (fb `[H, W, 3]`, idx `[spp, D, H*W]` int32)
     for an untextured scene or `tape_fields=0` and (fb, idx, tex `[spp, D,
     H*W, F]`) for a textured one, with the contract of
@@ -318,25 +334,29 @@ def render_frame_kernel_record(scene, cam, width: int, height: int, spp: int, ma
     of a field-major `[F, spp, D, H*W]` tensor, the layout the backward
     kernel reads. Raises, with the byte count, when the tapes would not fit
     in the device's free memory. Brute force only, as tracer's record
-    kernel; `stratify` as render_frame_kernel."""
+    kernel; `stratify` and `row_offset` as render_frame_kernel (a band's
+    tapes hold its own pixels only)."""
     if scene.device.type == "cpu":
         return renderer.render_frame_record(scene, cam, width, height, spp, max_depth,
                                             reference_quirk=reference_quirk,
                                             rr_start=rr_start, sample_start=sample_start,
                                             tape_fields=tape_fields, stratify=stratify,
-                                            strat_sqrt_spp=strat_sqrt_spp)
+                                            strat_sqrt_spp=strat_sqrt_spp,
+                                            row_offset=row_offset)
     if scene.device.type != "cuda":
         raise ValueError(f"render_frame_kernel_record: no kernel for device {scene.device}")
     return _record(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
                    sample_start, tape_fields, None,
-                   strat_k=camera_mod.strat_grid(stratify, spp, strat_sqrt_spp))
+                   strat_k=camera_mod.strat_grid(stratify, spp, strat_sqrt_spp),
+                   row_offset=row_offset)
 
 
 def _record(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start,
-            tape_fields, counts, strat_k=0):
+            tape_fields, counts, strat_k=0, row_offset=0):
     if tape_fields not in integrator.TAPE_FIELDS:
         raise ValueError(f"tape_fields must be one of {integrator.TAPE_FIELDS}, got {tape_fields}")
-    device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start)
+    device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start,
+                           row_offset)
     need = tape_bytes(width, height, spp, max_depth, tape_fields, tex is not None)
     free, _total = torch.cuda.mem_get_info(device)
     if need > free:
@@ -352,7 +372,7 @@ def _record(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start
     err = _launch(MODE_RECORD, scene, cam, tex, out, width, height, spp, max_depth,
                   sample_start, reference_quirk, rr_start, idx=idx, ttape=ttape,
                   tape_f=tape_fields if ttape is not None else 0, strat_k=strat_k,
-                  counts=counts)
+                  counts=counts, row_offset=row_offset)
     if err != 0:
         raise RuntimeError(f"record kernel launch failed: CUDA error {err}")
     global LAUNCHES_RECORD

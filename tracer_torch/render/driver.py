@@ -5,7 +5,9 @@ src/camera.cu:290-394).
 A sequential frame loop: camera for frame n, render (the CUDA kernel or
 its plain PyTorch twin), time the frame to the device's completion, print
 the reference's `frame \\t ms \\t total_rays` TSV line (camera.cu:344-346)
-and hand the framebuffer to a background writer.
+and hand the framebuffer to a background writer. With a `mesh`
+(tracer_torch.dist.sharding) every rank of the group runs the loop, each
+frame is rendered across the ranks, and rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import time
 
 import torch
 
+from tracer_torch.dist import sharding
 from tracer_torch.io import image as image_io
 from tracer_torch.kernels import megakernel
 from tracer_torch.render import camera as camera_mod
@@ -39,6 +42,7 @@ def render_animation(
     spp_chunk=None,
     stratify: bool = False,
     intersector: str = "brute",
+    mesh=None,
 ):
     """Render `params.num_frames` frames (or the indices in `frames`) on the
     scene's device; returns the last framebuffer as a numpy array. The TSV
@@ -63,6 +67,15 @@ def render_animation(
     BVH: builders.create_scene(with_bvh=True)); on engine "cuda", "bvh"
     renders with the BVH kernel.
 
+    `mesh`: a tracer_torch.dist.sharding.Mesh, on the scene's device;
+    every rank of its group calls render_animation with the same
+    arguments. Each frame is rendered across the ranks: with engine "cuda"
+    by row bands (sharding.render_frame_kernel_sharded, brute force only,
+    as tracer's), with "torch" by ranges of pixels
+    (sharding.render_frame_sharded); every rank gets the whole frame, bit
+    for bit the one-device frame, and only rank 0 prints the TSV and
+    writes the files. The spp chunks above stay, inside each share.
+
     `saver_spp_quirk`: the reference drivers build their savers with
     sqrt_rays_per_pixel while accumulating sqrt_spp^2 samples
     (camera.cu:300/357 vs :319-320), so reference image bytes are
@@ -81,6 +94,15 @@ def render_animation(
     if saver not in image_io.SAVERS:
         raise ValueError(f"unknown saver {saver!r}")
     integrator.check_intersector(intersector, scene)
+    lead = mesh is None or mesh.rank == 0  # prints the TSV and writes the files
+    if mesh is not None:
+        if engine == "cuda":
+            if intersector == "bvh":
+                raise ValueError("the sharded kernel path is brute force only, as tracer's")
+            render = lambda *a, intersector, **kw: sharding.render_frame_kernel_sharded(
+                *a, mesh=mesh, **kw)
+        else:
+            render = lambda *a, **kw: sharding.render_frame_sharded(*a, mesh=mesh, **kw)
 
     sqrt_spp = params.render.sqrt_rays_per_pixel
     spp = sqrt_spp * sqrt_spp  # camera.cu:319-320
@@ -109,9 +131,10 @@ def render_animation(
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             ms = (time.perf_counter() - t0) * 1e3
-            print(f"{n}\t{ms}\t{rays}", file=out)
-
             fb = fb_dev.cpu().numpy()
+            if not lead:
+                continue
+            print(f"{n}\t{ms}\t{rays}", file=out)
             try:
                 filename = params.output_path % n  # snprintf(path, n), camera.cu:298-300
             except TypeError:

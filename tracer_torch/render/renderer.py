@@ -98,12 +98,14 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
     return sums if idx is None else (sums, idx, tex)
 
 
-def pixel_grid(width: int, height: int, reference_quirk: bool = True, *, device):
+def pixel_grid(width: int, height: int, reference_quirk: bool = True, *, device,
+               row_offset: int = 0):
     """Flat pixel index tensors (i=column, j=row, row-major) on `device` and
     per-pixel base seeds (camera.cu:25, with or without the i*width+j
-    quirk)."""
+    quirk), of the `height` image rows starting at `row_offset` (a row band
+    of a taller frame keeps the frame's rows in its seeds)."""
     jj, ii = torch.meshgrid(
-        torch.arange(height, dtype=torch.int64, device=device),
+        torch.arange(row_offset, row_offset + height, dtype=torch.int64, device=device),
         torch.arange(width, dtype=torch.int64, device=device),
         indexing="ij",
     )
@@ -114,16 +116,19 @@ def pixel_grid(width: int, height: int, reference_quirk: bool = True, *, device)
 def render_frame(scene: Scene, cam: camera_mod.CameraData, width: int, height: int,
                  spp: int, max_depth: int, reference_quirk: bool = True, rr_start=None,
                  sample_start: int = 0, cluster_k: int = 0, stratify: bool = False,
-                 strat_sqrt_spp: int = 0, intersector: str = "brute"):
+                 strat_sqrt_spp: int = 0, intersector: str = "brute", row_offset: int = 0):
     """Render one frame on the scene's device; returns `[height, width, 3]`
-    raw sample sums of samples `sample_start .. sample_start + spp - 1`.
+    raw sample sums of samples `sample_start .. sample_start + spp - 1`
+    (with `row_offset`, of the image rows `row_offset .. row_offset +
+    height - 1`: a row band, as render_frame_kernel's).
 
     rr_start (int, default None = off): throughput Russian roulette from
     that bounce index on (see integrator._bounce). cluster_k (int, default
     0 = brute force): the cluster-culled nearest hit over clusters of at
     most that many primitives; intersector: "brute" (or "fast") or "bvh";
     stratify, strat_sqrt_spp: stratified jitter (see render_pixels)."""
-    i_flat, j_flat, base_seed = pixel_grid(width, height, reference_quirk, device=scene.device)
+    i_flat, j_flat, base_seed = pixel_grid(width, height, reference_quirk, device=scene.device,
+                                           row_offset=row_offset)
     fb = render_pixels(scene, cam, i_flat, j_flat, base_seed, spp, max_depth,
                        sample_start=sample_start, rr_start=rr_start, cluster_k=cluster_k,
                        stratify=stratify, strat_sqrt_spp=strat_sqrt_spp, intersector=intersector)
@@ -154,7 +159,7 @@ def total_rays(width: int, height: int, sqrt_spp: int) -> int:
 def render_frame_record(scene: Scene, cam: camera_mod.CameraData, width: int, height: int,
                         spp: int, max_depth: int, reference_quirk: bool = True, rr_start=None,
                         sample_start: int = 0, tape_fields: int = 9, stratify: bool = False,
-                        strat_sqrt_spp: int = 0):
+                        strat_sqrt_spp: int = 0, row_offset: int = 0):
     """The plain version of the recording kernel (tracer/pallas/megakernel.py:
     render_frame_pallas_record): returns (fb `[H, W, 3]`, idx `[spp, D, H*W]`
     int32) for an untextured scene and (fb, idx, tex `[spp, D, H*W, F]`)
@@ -164,8 +169,10 @@ def render_frame_record(scene: Scene, cam: camera_mod.CameraData, width: int, he
     the texture-image gradient needs). With 0 it returns (fb, idx) for
     any scene: the index tape alone, what mode "replay-sample" keeps.
     Brute force only, as tracer's recording kernel; stratify as
-    render_pixels."""
-    i_flat, j_flat, base_seed = pixel_grid(width, height, reference_quirk, device=scene.device)
+    render_pixels. With `row_offset` it records the row band of `height`
+    rows from that image row: the frame's rows and their tape columns."""
+    i_flat, j_flat, base_seed = pixel_grid(width, height, reference_quirk, device=scene.device,
+                                           row_offset=row_offset)
     fb, idx, tex = render_pixels(scene, cam, i_flat, j_flat, base_seed, spp, max_depth,
                                  sample_start=sample_start, rr_start=rr_start,
                                  tape_fields=tape_fields, stratify=stratify,
