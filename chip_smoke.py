@@ -12,7 +12,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    source, all started together (megakernel.cu, bwd.cu, tex_scatter.cu),
    and prints ptxas's registers and spills for every instantiation (K1-cl's
    and K1-bvh's four each: primitive records and nodes each in shared or
-   global memory).
+   global memory; K1-ref's brute two and BVH four, uncounted, and one
+   counted brute instantiation).
 3. Each kernel against its plain PyTorch version, on the card, on the same
    inputs:
    - the forward megakernel (K1): smoke scene (quirk on and off), a partial
@@ -227,6 +228,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    - an NCCL group of one rank: render_frame_kernel_sharded bit-equal to
      render_frame_kernel, l2_grads_deep_sharded against l2_grads_deep.
 
+15. The reference stream (rng_mode="reference", K1-ref), utils and the
+    native frame writer:
+   - K1-ref against the plain reference renderer on the canonical scene
+     with the texture at 96x64 spp4 d50, by phase 3's rules: brute; brute
+     stratified; BVH stratified with the quirk off; two sample chunks
+     against one launch (and against the plain version); a row band
+     bit-equal to one launch's rows; the fixed stream's frame must differ;
+   - the plain rejection sampler on the card bit-equal to the CPU's on 4096
+     seeds with the exhausted lanes (tests/torch_scenes.py:EXHAUSTED_SEEDS),
+     and one-pixel K1-ref launches whose first bounce draws from each
+     exhausted seed (tests/torch_scenes.py:exhausted_lane_view) against the
+     plain version and the tail's radiance (the normal, into the light);
+   - the slice's main path: render_animation(engine="cuda",
+     rng_mode="reference") on the canonical config, 1080x720 d50, synthetic
+     floor, 2 frames at sqrt_spp 4, every launch count set to 0 before it
+     and read after (K1-ref 2, the others 0), the saved frames,
+     check_framebuffer, 2048 sampled pixels against the plain version; then
+     `tracer_torch.cli --gpu --ref-rng --retries 2` once, as a subprocess,
+     its frame byte-equal to the driver's on the same config;
+   - K1-ref and K1 at 800x600 spp32 d50 textured, in turns, best of 3
+     frames each, with their queries, hits and lane utilisation, and K1-ref's
+     bound by K1's formula; K1-ref and its plain version at 256x192 spp2 d50
+     (the kernels line's ms, plain_ms and bound);
+   - the main path's frame loop (sqrt_spp 2) with the native writer and with
+     ThreadedWriter, bin (8 frames) and ppm (2), in turns: the loop's host
+     time and the time spent in submit; the driver must pick the native
+     writer here;
+   - one main-path frame under utils.profiling.profile_trace (the trace must
+     name trace_kernel; its top device operations printed), and a transient
+     failure forced into the driver's first render call, which must retry.
+
 The line before the last is a JSON object describing the kernels (with
 `launches_d50`, each kernel's launches on phase 11's main path, and
 `launches_dist`, rank 0's on phase 14's two main paths; each
@@ -273,11 +305,11 @@ def instantiation(line: str) -> str:
     """A ptxas 'Compiling entry' line's kernel, by name and template arguments."""
     import re
 
-    m = re.search(r"trace_kernelILb(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+    m = re.search(r"trace_kernelILb(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
     if m:
         rec, isect = m.group(1) == "1", int(m.group(2))
-        smem, nsmem, count = (x == "1" for x in m.groups()[2:])
-        name = "K1-rec" if rec else ("K1", "K1-cl", "K1-bvh")[isect]
+        smem, nsmem, count, ref = (x == "1" for x in m.groups()[2:])
+        name = "K1-rec" if rec else ("K1", "K1-cl", "K1-bvh")[isect] + ("-ref" if ref else "")
         return (f"{name}, records in {'shared' if smem else 'global'} memory"
                 + (f", nodes in {'shared' if nsmem else 'global'} memory" if isect else "")
                 + (", counted" if count else ""))
@@ -852,16 +884,13 @@ def deep_phase(dev, kind, card, canon, canon_p, g):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
-    mk.LAUNCHES = mk.LAUNCHES_RECORD = mk.LAUNCHES_CLUSTERED = mk.LAUNCHES_BVH = 0
-    bwd.LAUNCHES = tex_scatter.LAUNCHES = 0
+    launch_counts(reset=True)
     t0 = time.perf_counter()
     loss, g_scene, g_cam = bwd.l2_grads_deep(canon, cam, target, w, h, spp, D, spp_chunk=chunk,
                                              texture_grads=True)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches = dict(megakernel=mk.LAUNCHES, megakernel_record=mk.LAUNCHES_RECORD,
-                    bwd=bwd.LAUNCHES, tex_scatter=tex_scatter.LAUNCHES,
-                    megakernel_clustered=mk.LAUNCHES_CLUSTERED, megakernel_bvh=mk.LAUNCHES_BVH)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) - base
     tape13 = mk.tape_bytes(w, h, chunk, D, 13, True)
     flat = bwd.float_grads(canon, g_scene, g_cam)
@@ -873,7 +902,8 @@ def deep_phase(dev, kind, card, canon, canon_p, g):
           f"a chunk's tapes {tape13} bytes ({13 * chunk * D * w * h} texture-tape elements), "
           f"peak device memory above the inputs {peak} bytes", flush=True)
     want = dict(megakernel=1, megakernel_record=spp // chunk, bwd=spp // chunk,
-                tex_scatter=spp // chunk, megakernel_clustered=0, megakernel_bvh=0)
+                tex_scatter=spp // chunk, megakernel_clustered=0, megakernel_bvh=0,
+                megakernel_ref=0)
     if launches != want:
         return f"the d{D} main path launched {launches}, not {want}", None, None
     if not finite or tex_nz == 0.0:
@@ -1227,14 +1257,11 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
               f"frames 100 -> {len(frames)}, sqrt_spp 50 -> 4 (run time limit); spp_chunk "
               f"{chunk}", flush=True)
         tsv = io.StringIO()
-        mk.LAUNCHES = mk.LAUNCHES_RECORD = mk.LAUNCHES_CLUSTERED = mk.LAUNCHES_BVH = 0
-        bwd.LAUNCHES = tex_scatter.LAUNCHES = 0
+        launch_counts(reset=True)
         fb = driver.render_animation(canon, main_p, saver="bin", out=tsv, frames=frames,
                                      engine="cuda", intersector="bvh", stratify=True,
                                      spp_chunk=chunk)
-        launches = dict(megakernel=mk.LAUNCHES, megakernel_record=mk.LAUNCHES_RECORD,
-                        megakernel_clustered=mk.LAUNCHES_CLUSTERED, megakernel_bvh=mk.LAUNCHES_BVH,
-                        bwd=bwd.LAUNCHES, tex_scatter=tex_scatter.LAUNCHES)
+        launches = launch_counts()
         want_l = len(frames) * math.ceil(spp / chunk)
         print("    TSV: " + tsv.getvalue().strip().replace("\n", " | "))
         print(f"    launches {launches} (K1-bvh: frames x chunks = {want_l})", flush=True)
@@ -1365,7 +1392,7 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
 # ---- phase 14: distribution (tracer_torch.dist) -----------------------------
 
 LAUNCH_NAMES = ("megakernel", "megakernel_record", "bwd", "tex_scatter", "megakernel_clustered",
-                "megakernel_bvh")
+                "megakernel_bvh", "megakernel_ref")
 DIST_TIMEOUT = 600  # seconds for a group of phase 14's workers, start to exit
 
 
@@ -1376,7 +1403,8 @@ def launch_counts(reset=False):
     from tracer_torch.kernels import megakernel as mk
 
     owners = ((mk, "LAUNCHES"), (mk, "LAUNCHES_RECORD"), (bwd, "LAUNCHES"),
-              (tex_scatter, "LAUNCHES"), (mk, "LAUNCHES_CLUSTERED"), (mk, "LAUNCHES_BVH"))
+              (tex_scatter, "LAUNCHES"), (mk, "LAUNCHES_CLUSTERED"), (mk, "LAUNCHES_BVH"),
+              (mk, "LAUNCHES_REF"))
     if reset:
         for mod, attr in owners:
             setattr(mod, attr, 0)
@@ -1874,6 +1902,319 @@ def dist_phase(dev, kind, card, canon, canon_p, g, env):
             return "the NCCL rank's sharded paths disagree with one device's", None, None
     print(f"    phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return None, launches, errs
+
+
+# ---- phase 15: the reference stream, utils and the native writer -----------
+
+REF_CHECK = (96, 64, 4, 50)  # K1-ref against the plain version: w, h, spp, depth
+REF_TIMED = (256, 192, 2, 50)  # the kernels line's ms, plain_ms and bound (plain in seconds)
+
+
+def timed_writer(kind, spent):
+    """A frame writer ("native" or "thread") whose submit adds its host
+    seconds to `spent`."""
+    from tracer_torch.io import image as image_io
+    from tracer_torch.io import native as io_native
+
+    w = io_native.AsyncFrameWriter() if kind == "native" else image_io.ThreadedWriter()
+    submit = w.submit
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        submit(*a, **kw)
+        spent.append(time.perf_counter() - t0)
+
+    w.submit = timed
+    return w
+
+
+def ref_phase(dev, kind, card, canon_p, cams, W, H, env):
+    """Phase 15: the reference-stream kernel K1-ref against the plain
+    rng_mode="reference" renderer, the slice's main path
+    (render_animation(engine="cuda", rng_mode="reference")) and the CLI
+    with --gpu --ref-rng --retries 2, K1-ref's times beside K1's, the two
+    frame writers in the main path's loop, and the utils (profile_trace,
+    check_framebuffer, a forced transient failure). Returns (error or
+    None, the kernel's entry of the `kernels` line)."""
+    import contextlib
+
+    import torch
+
+    from torch_scenes import EXHAUSTED_SEEDS, SKY, exhausted_lane_view, sample_start_reaching
+
+    from tracer_torch.core import rng
+    from tracer_torch.io import image as image_io
+    from tracer_torch.io import native as io_native
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import camera as C
+    from tracer_torch.render import driver, renderer
+    from tracer_torch.scene import builders, config
+    from tracer_torch.utils import debug, profiling, resilience
+
+    t_phase = time.perf_counter()
+    errs = []
+    REF = dict(rng_mode="reference")
+    print(f"[15] the reference stream (K1-ref), utils and the native writer on {kind} ({card})",
+          flush=True)
+    canon = builders.create_scene(canon_p, with_bvh=True, texture_loader=synthetic_floor,
+                                  device=dev)
+    w, h, spp, d = REF_CHECK
+    cam = C.camera_at(canon_p.camera_path, 0, canon_p.num_frames, w, h, canon_p.fov_degrees,
+                      background=SKY, device=dev)
+    # K1-ref against the plain version, by phase 3's rules
+    one = None
+    for name, kw in (("brute", {}), ("brute, stratified", dict(stratify=True)),
+                     ("BVH, quirk off, stratified", dict(intersector="bvh",
+                                                         reference_quirk=False, stratify=True))):
+        got = mk.render_frame_kernel(canon, cam, w, h, spp, d, **REF, **kw)
+        torch.cuda.synchronize()
+        want = renderer.render_frame(canon, cam, w, h, spp, d, **REF, **kw)
+        if not compare(f"K1-ref vs plain, canonical + texture {w}x{h} spp{spp} d{d}, {name}",
+                       got, want, errs):
+            return f"K1-ref and the plain reference renderer disagree ({name})", None
+        if not kw:
+            one, plain_one = got, want
+    fixed = mk.render_frame_kernel(canon, cam, w, h, spp, d)
+    differ = float((fixed - one).abs().max())
+    print(f"  the fixed stream's frame differs from the reference stream's: max|diff| "
+          f"{differ:.6g}", flush=True)
+    if not differ > 1e-3:
+        return "the reference-stream frame equals the fixed-stream frame", None
+    two = (mk.render_frame_kernel(canon, cam, w, h, 2, d, **REF)
+           + mk.render_frame_kernel(canon, cam, w, h, 2, d, sample_start=2, **REF))
+    r0, rows = h // 4, h // 3
+    band = mk.render_frame_kernel(canon, cam, w, rows, spp, d, row_offset=r0, **REF)
+    torch.cuda.synchronize()
+    ok = compare("K1-ref 2+2 sample chunks vs one launch", two, one, errs)
+    ok &= compare("K1-ref 2+2 sample chunks vs plain", two, plain_one, errs)
+    band_ok = bit_equal(band, one[r0:r0 + rows])
+    print(f"  K1-ref row band {r0}..{r0 + rows - 1} bit-equal to one launch's rows -> "
+          f"{'ok' if band_ok else 'FAIL'}", flush=True)
+    if not (ok and band_ok):
+        return "K1-ref's chunks or its row band disagree with one launch", None
+    # the samplers' seeds: the plain sampler on the card against the CPU's
+    # (which the CPU tests hold to tracer's, bit for bit) on 4096 seeds with
+    # the exhausted lanes; then one-pixel K1-ref launches whose first
+    # bounce draws from each exhausted seed (the tail: the normal, into the light)
+    seeds = torch.arange(4096, dtype=torch.int64)
+    seeds[:len(EXHAUSTED_SEEDS)] = torch.tensor(EXHAUSTED_SEEDS)
+    s_dev, v_dev = rng.random_in_unit_sphere_rejection(seeds.to(dev))
+    s_cpu, v_cpu = rng.random_in_unit_sphere_rejection(seeds)
+    seeds_ok = torch.equal(s_dev.cpu(), s_cpu) and bit_equal(v_dev.cpu(), v_cpu)
+    zero = int((v_cpu == 0).all(dim=-1).sum())
+    scene_x, cam_x = exhausted_lane_view(dev)
+    base = int(renderer.pixel_grid(1, 1, device=dev)[2][0])
+    tail = []
+    for seed in EXHAUSTED_SEEDS:
+        start = sample_start_reaching(seed, base)
+        got = mk.render_frame_kernel(scene_x, cam_x, 1, 1, 1, 6, sample_start=start, **REF)
+        want = renderer.render_frame(scene_x, cam_x, 1, 1, 1, 6, sample_start=start, **REF)
+        tail.append(max(float((got - want).abs().max()),
+                        float((got.reshape(3).cpu() - torch.tensor([3.0, 2.5, 2.0])).abs().max())))
+    tail_ok = max(tail) < 1e-5
+    errs.append(max(tail))
+    print(f"  samplers: 4096 seeds with {zero} exhausted lanes, the card's plain rejection "
+          f"sampler bit-equal to the CPU's (seeds and points): {seeds_ok}; {len(tail)} "
+          f"one-pixel K1-ref launches through the exhausted lanes {EXHAUSTED_SEEDS[:2]}...: "
+          f"max|diff| against the plain version and the tail's radiance {max(tail):.3g} -> "
+          f"{'ok' if seeds_ok and tail_ok and zero == len(EXHAUSTED_SEEDS) else 'FAIL'}",
+          flush=True)
+    if not (seeds_ok and tail_ok and zero == len(EXHAUSTED_SEEDS)):
+        return "the reference stream's samplers or exhausted lanes disagree", None
+
+    # the slice's main path at full width
+    main_p = config_copy(canon_p)
+    main_p.render.sqrt_rays_per_pixel = 4
+    spp_m, frames = 16, range(2)
+    mw, mh, md = main_p.width, main_p.height, main_p.render.max_depth
+    with tempfile.TemporaryDirectory() as tmp:
+        main_p.output_path = os.path.join(tmp, "frame_%d.bin")
+        print(f"  main path: render_animation(engine='cuda', rng_mode='reference'), canonical "
+              f"config, {canon.num_spheres} spheres + {canon.num_planes} planes, {mw}x{mh}, "
+              f"depth {md}, floor texture {tuple(canon.textures.shape[1:3])}; reduced: frames "
+              f"100 -> {len(frames)}, sqrt_spp 50 -> 4 (run time limit)", flush=True)
+        tsv = io.StringIO()
+        launch_counts(reset=True)
+        fb = driver.render_animation(canon, main_p, saver="bin", out=tsv, frames=frames,
+                                     engine="cuda", **REF)
+        launches = launch_counts()
+        chunks = math.ceil(spp_m / max(1, driver.MAX_RAYS_PER_LAUNCH // (mw * mh)))
+        want_l = len(frames) * chunks
+        print("    TSV: " + tsv.getvalue().strip().replace("\n", " | "))
+        print(f"    launches {launches} (K1-ref: frames x chunks = {want_l})", flush=True)
+        if launches["megakernel_ref"] != want_l or sum(launches.values()) != want_l:
+            return f"the reference main path launched {launches}, not K1-ref {want_l} times", None
+        for n in frames:
+            img = image_io.read_binary(main_p.output_path % n)
+            print(f"    frame {n}: {img.shape} uint8, mean {img.mean():.4f}, nonzero "
+                  f"{(img > 0).mean():.4f}")
+            if img.shape != (mh, mw, 3) or not img.any():
+                return f"reference main-path frame {n} is empty or misshapen", None
+    debug.check_framebuffer(fb, "reference main-path frame")
+    print("    check_framebuffer: finite and non-negative -> ok", flush=True)
+    npx = 2048
+    sel = torch.randperm(mw * mh, generator=torch.Generator().manual_seed(0))[:npx].to(dev)
+    i_all, j_all, seeds_all = renderer.pixel_grid(mw, mh, device=dev)
+    cam_last = C.camera_at(main_p.camera_path, frames[-1], main_p.num_frames, mw, mh,
+                           main_p.fov_degrees, device=dev)
+    t0 = time.perf_counter()
+    plain = renderer.render_pixels(canon, cam_last, i_all[sel], j_all[sel], seeds_all[sel],
+                                   spp_m, md, **REF)
+    got = torch.tensor(fb, device=dev).reshape(-1, 3)[sel]
+    if not compare(f"main path frame {frames[-1]}: {npx} pixels vs plain "
+                   f"({time.perf_counter() - t0:.1f} s)", got[:, None], plain[:, None], errs):
+        return "the reference main-path frame disagrees with the plain version", None
+
+    # the CLI, --gpu --ref-rng --retries 2: its frame is the driver's
+    cfg = config.default_config_text().replace("\n50 50\n", "\n50 2\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tracer_torch.cli", "--gpu", "--ref-rng", "--retries", "2",
+             "--frames", "1", "--format", "bin"],
+            input=cfg, capture_output=True, text=True, cwd=tmp, env=env, timeout=300)
+        print(f"    CLI --gpu --ref-rng --retries 2 (default config, sqrt_spp 2, untextured: no "
+              f"floor.jpg): rc {proc.returncode} in {time.perf_counter() - t0:.1f} s, stdout "
+              f"{proc.stdout.strip()!r}", flush=True)
+        if proc.returncode != 0:
+            return f"CLI --gpu --ref-rng --retries 2 failed:\n{proc.stderr[-3000:]}", None
+        cli_img = image_io.read_binary(os.path.join(tmp, "images", "render_0.png"))
+    cli_p = config.read_scene_params(io.StringIO(cfg))
+    cli_scene = builders.create_scene(cli_p, texture_loader=lambda _p: None, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_p.output_path = os.path.join(tmp, "f_%d.bin")
+        driver.render_animation(cli_scene, cli_p, frames=[0], out=io.StringIO(), saver="bin",
+                                engine="cuda", **REF)
+        same = np.array_equal(image_io.read_binary(cli_p.output_path % 0), cli_img)
+    print(f"    the CLI's frame equals the driver's (rng_mode='reference', same config): {same}",
+          flush=True)
+    if not same:
+        return "the CLI's --ref-rng frame is not the driver's", None
+
+    # times: K1-ref beside K1 at 800x600 spp32 d50 textured, in turns
+    rays = W * H * 32
+    best = {"K1": math.inf, "K1-ref": math.inf}
+    for name in ("K1", "K1-ref", "K1-ref", "K1"):
+        kw = REF if name == "K1-ref" else {}
+        mk.render_frame_kernel(canon, cams[0], W, H, 32, 50, **kw)  # warm-up
+        best[name] = min([best[name]] + [cuda_ms(
+            lambda c=c: mk.render_frame_kernel(canon, c, W, H, 32, 50, **kw)) for c in cams[1:]])
+    work = mk.loop_work(canon, cams[1], W, H, 32, 50, **REF)
+    k1_work = mk.loop_work(canon, cams[1], W, H, 32, 50)
+    n_s, n_p = canon.num_spheres, canon.num_planes
+    tables = 4 * (n_s * 4 + n_p * 20 + (n_s + n_p) * 13) + canon.textures.numel() * 4 + 15 * 4
+
+    def k1_bound(wk, npix):  # K1's formula: every query tests every primitive, every hit shades
+        return bound(wk.queries * (n_s * OPS_SPHERE + n_p * OPS_PLANE) + wk.hits * OPS_SHADE,
+                     tables + npix * 12)
+
+    b_big = k1_bound(work, W * H)
+    print(f"  times on {kind} ({card}), canonical + texture {W}x{H} spp32 d50, best of 3 frames "
+          f"(camera path frames 1-3) after a warm-up, twice each in turns (K1, K1-ref, K1-ref, "
+          f"K1), CUDA events:", flush=True)
+    print(f"    K1 {best['K1']:.3f} ms = {rays / best['K1'] / 1e3:.3f} Mrays/s ({k1_work.queries} "
+          f"queries, lane utilisation {k1_work.lane_utilisation:.4f}); K1-ref "
+          f"{best['K1-ref']:.3f} ms = {rays / best['K1-ref'] / 1e3:.3f} Mrays/s ({work.queries} "
+          f"queries, {work.hits} hits, lane utilisation {work.lane_utilisation:.4f}); "
+          f"K1-ref/K1 {best['K1-ref'] / best['K1']:.4f}; K1-ref bound {b_big[0]:.3f} ms "
+          f"({b_big[1]})", flush=True)
+    # the kernels line: K1-ref and its plain version at a shape where the
+    # plain version runs in seconds
+    tw, th, tspp, td = REF_TIMED
+    cam_t = C.camera_at(canon_p.camera_path, 1, canon_p.num_frames, tw, th, canon_p.fov_degrees,
+                        device=dev)
+    mk.render_frame_kernel(canon, cam_t, tw, th, tspp, td, **REF)
+    ms = cuda_ms(lambda: mk.render_frame_kernel(canon, cam_t, tw, th, tspp, td, **REF), reps=3)
+    got = mk.render_frame_kernel(canon, cam_t, tw, th, tspp, td, **REF)
+    out = {}
+    p_ms = cuda_ms(lambda: out.update(fb=renderer.render_frame(canon, cam_t, tw, th, tspp, td,
+                                                               **REF)))
+    if not compare(f"K1-ref vs plain at {tw}x{th} spp{tspp} d{td}", got, out.pop("fb"), errs):
+        return "K1-ref and the plain version disagree at the kernels line's shape", None
+    b = k1_bound(mk.loop_work(canon, cam_t, tw, th, tspp, td, **REF), tw * th)
+    print(f"    at {tw}x{th} spp{tspp} d{td}: K1-ref {ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+          f"{b[0]:.6f} ms ({b[1]})", flush=True)
+
+    # the writers: the main path's frame loop with each, bin and ppm
+    print(f"  frame writers in the main path's loop (rng_mode='reference', {mw}x{mh} sqrt_spp 2 "
+          f"d{md}: frames cheap beside their {mw * mh * 12} bytes), host clock:", flush=True)
+    picked = driver.frame_writer("bin")
+    native_ok = isinstance(picked, io_native.AsyncFrameWriter)
+    picked.close()
+    print(f"    the driver picks {type(picked).__name__} for bin here -> "
+          f"{'ok' if native_ok else 'FAIL'}", flush=True)
+    if not native_ok:
+        return "the driver did not pick the native writer on this machine", None
+    wp = config_copy(canon_p)
+    wp.render.sqrt_rays_per_pixel = 2
+    real_writer = driver.frame_writer
+    try:
+        for fmt, n_frames in (("bin", 8), ("ppm", 2)):
+            for writer_kind in ("native", "thread", "thread", "native"):
+                spent = []
+                driver.frame_writer = lambda saver, k=writer_kind: timed_writer(k, spent)
+                with tempfile.TemporaryDirectory() as tmp:
+                    wp.output_path = os.path.join(tmp, "w_%d." + fmt)
+                    tsv = io.StringIO()
+                    t0 = time.perf_counter()
+                    driver.render_animation(canon, wp, saver=fmt, out=tsv,
+                                            frames=range(n_frames), engine="cuda", **REF)
+                    total = (time.perf_counter() - t0) * 1e3
+                    size = os.path.getsize(wp.output_path % 0)
+                frame_ms = [float(x.split("\t")[1]) for x in tsv.getvalue().splitlines()]
+                print(f"    {fmt} {writer_kind:6s}: {n_frames} frames in {total:.3f} ms (loop, "
+                      f"close included); submit {sum(spent) * 1e3:.3f} ms in all, max "
+                      f"{max(spent) * 1e3:.3f} ms; TSV frame ms median "
+                      f"{sorted(frame_ms)[len(frame_ms) // 2]:.3f}; {size} bytes a file",
+                      flush=True)
+    finally:
+        driver.frame_writer = real_writer
+
+    # utils: a profiled frame, a forced transient failure in the driver
+    with tempfile.TemporaryDirectory() as tmp:
+        log_dir = os.path.join(tmp, "prof")
+        wp.output_path = os.path.join(tmp, "p_%d.bin")
+        with profiling.profile_trace(log_dir) as prof:
+            driver.render_animation(canon, wp, saver="bin", out=io.StringIO(), frames=[0],
+                                    engine="cuda", **REF)
+        trace = open(os.path.join(log_dir, "trace.json")).read()
+    dev_t = lambda e: (getattr(e, "self_device_time_total", 0)
+                       or getattr(e, "self_cuda_time_total", 0))
+    top = sorted(prof.key_averages(), key=dev_t, reverse=True)[:5]
+    print(f"    profile_trace of one main-path frame: trace.json {len(trace)} bytes, names "
+          f"trace_kernel: {'trace_kernel' in trace}; top device operations: "
+          + "; ".join(f"{e.key[:60]} {dev_t(e) / 1e3:.3f} ms x{e.count}" for e in top),
+          flush=True)
+    if "trace_kernel" not in trace:
+        return "the profiler's trace does not name the kernel", None
+    real_render, saved_backoff = mk.render_frame_kernel, driver.RETRY_BACKOFF_S
+    calls = []
+
+    def flaky(*a, **kw):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("UNAVAILABLE: connection reset by the test")
+        return real_render(*a, **kw)
+
+    err_out = io.StringIO()
+    try:
+        mk.render_frame_kernel, driver.RETRY_BACKOFF_S = flaky, 0.0
+        with contextlib.redirect_stderr(err_out), tempfile.TemporaryDirectory() as tmp:
+            cli_p.output_path = os.path.join(tmp, "r_%d.bin")
+            fb_r = driver.render_animation(cli_scene, cli_p, frames=[0], out=io.StringIO(),
+                                           saver="bin", engine="cuda", retries=2, **REF)
+    finally:
+        mk.render_frame_kernel, driver.RETRY_BACKOFF_S = real_render, saved_backoff
+    retried = resilience.is_transient(RuntimeError("UNAVAILABLE")) and len(calls) == 2
+    print(f"    a forced transient failure: {len(calls)} render calls, stderr "
+          f"{err_out.getvalue().strip()!r} -> {'ok' if retried else 'FAIL'}", flush=True)
+    if not retried or not np.isfinite(fb_r).all():
+        return "the driver did not retry a transient failure", None
+    print(f"    card: {card}; phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return None, dict(name="megakernel_ref", route="cuda", source="tracer_torch/csrc/megakernel.cu",
+                      replaces="tracer/render/integrator.py:75", launches=launches["megakernel_ref"],
+                      max_abs_err=max(errs), ms=ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1],
+                      library_ms=None)
 
 
 def main() -> int:
@@ -2375,6 +2716,11 @@ def main() -> int:
     if err:
         return fail(err)
 
+    # ---- 15. the reference stream, utils and the native writer ----------------
+    err, ref_entry = ref_phase(dev, kind, card, canon_p, cams, W, H, env)
+    if err:
+        return fail(err)
+
     kernels = [
         dict(name="megakernel", route="cuda", source="tracer_torch/csrc/megakernel.cu",
              replaces="tracer/pallas/kernels.py:33", launches=launches, max_abs_err=max_abs_err,
@@ -2393,6 +2739,7 @@ def main() -> int:
              bound_by=k3_bound[1], library_ms=lib_ms),
         cl_entry,
         bvh_entry,
+        ref_entry,
     ]
     for k in kernels:  # each kernel's launches on phase 11's and 14's main paths, and its checks
         k["launches_d50"] = deep_launches[k["name"]]

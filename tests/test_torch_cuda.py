@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on a CUDA device:
-the forward megakernel, its cluster-culled, BVH and record modes (each
-with and without stratified jitter, and on row bands), the backward kernel
+the forward megakernel, its cluster-culled, BVH, record and reference-stream
+modes (each with and without stratified jitter, and on row bands), the backward kernel
 and the texture-gradient scatter, fit on the card, and the sharded kernel
 paths of tracer_torch.dist on one NCCL rank.
 
@@ -37,7 +37,8 @@ from tracer_torch.scene import types as T
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_scenes import sphere_field  # noqa: E402
-from torch_scenes import (SKY, big_scene, closed_box, full_scene, sky_camera,  # noqa: E402
+from torch_scenes import (EXHAUSTED_SEEDS, SKY, big_scene, closed_box,  # noqa: E402
+                          exhausted_lane_view, full_scene, sample_start_reaching, sky_camera,
                           sky_scene)
 
 pytestmark = pytest.mark.cuda
@@ -748,3 +749,99 @@ def test_sharded_kernel_paths_on_one_nccl_rank(dev, tmp_path):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
     finally:
         dist.destroy_process_group()
+
+
+# ---- K1-ref: the reference-stream kernel (rng_mode="reference") ----
+
+@pytest.mark.parametrize("intersector", ["brute", "bvh"])
+@pytest.mark.parametrize("name, quirk, stratify", [("smoke", True, False), ("smoke", False, True),
+                                                   ("full", True, False)])
+def test_reference_kernel_matches_plain(dev, name, quirk, stratify, intersector):
+    if name == "smoke":
+        scene, cam = _bvh_case("smoke", dev)
+    else:
+        scene = full_scene(dev)
+        scene = scene._replace(bvh=bvh_builder.build_scene_bvh_from_scene(scene))
+        cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 64, 48, 55.0,
+                                       background=SKY, device=dev)
+    kw = dict(reference_quirk=quirk, stratify=stratify, intersector=intersector,
+              rng_mode="reference")
+    before = (megakernel.LAUNCHES, megakernel.LAUNCHES_BVH, megakernel.LAUNCHES_REF)
+    got = megakernel.render_frame_kernel(scene, cam, 64, 48, 4, 8, **kw)
+    assert (megakernel.LAUNCHES, megakernel.LAUNCHES_BVH, megakernel.LAUNCHES_REF) == (
+        before[0], before[1], before[2] + 1)
+    want = renderer.render_frame(scene, cam, 64, 48, 4, 8, **kw)
+    _agree(got, want)
+    fixed = megakernel.render_frame_kernel(scene, cam, 64, 48, 4, 8, reference_quirk=quirk,
+                                           stratify=stratify, intersector=intersector)
+    assert (fixed - got).abs().max() > 1e-3  # another stream
+
+
+def test_reference_kernel_chunks_bands_and_records_in_global_memory(dev, monkeypatch):
+    scene = full_scene(dev)
+    cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 40, 30, 55.0,
+                                   background=SKY, device=dev)
+    ref = dict(rng_mode="reference")
+    one = megakernel.render_frame_kernel(scene, cam, 40, 30, 6, 6, **ref)
+    two = (megakernel.render_frame_kernel(scene, cam, 40, 30, 2, 6, **ref)
+           + megakernel.render_frame_kernel(scene, cam, 40, 30, 4, 6, sample_start=2, **ref))
+    torch.testing.assert_close(two, one, rtol=1e-5, atol=1e-5)
+    band = megakernel.render_frame_kernel(scene, cam, 40, 11, 6, 6, row_offset=13, **ref)
+    assert torch.equal(band, one[13:24])
+    monkeypatch.setattr(megakernel, "TABLE_SHARED_BYTES_MAX", 0)
+    assert torch.equal(megakernel.render_frame_kernel(scene, cam, 40, 30, 6, 6, **ref), one)
+
+
+@pytest.mark.parametrize("seed", EXHAUSTED_SEEDS[:4])
+def test_reference_kernel_takes_the_exhausted_lane_tail(dev, seed):
+    """A one-pixel launch whose first bounce draws its hemisphere direction
+    from a seed that exhausts the 16 tries: the kernel takes the normal into
+    the light, as the plain version does (floor albedo 0.5 x emission)."""
+    scene, cam = exhausted_lane_view(dev)
+    base = int(renderer.pixel_grid(1, 1, device=dev)[2][0])
+    start = sample_start_reaching(seed, base)
+    got = megakernel.render_frame_kernel(scene, cam, 1, 1, 1, 6, sample_start=start,
+                                         rng_mode="reference")
+    want = renderer.render_frame(scene, cam, 1, 1, 1, 6, sample_start=start,
+                                 rng_mode="reference")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.reshape(3).cpu(), torch.tensor([3.0, 2.5, 2.0]), rtol=1e-6,
+                               atol=0.0)
+
+
+def test_reference_kernel_counts_the_plain_queries_and_refuses(dev):
+    scene = full_scene(dev)
+    cam = camera.build_camera_data([5.0, -6.0, 3.0], [0.0, 0.0, 1.0], 32, 24, 55.0,
+                                   background=SKY, device=dev)
+    work = megakernel.loop_work(scene, cam, 32, 24, 3, 8, rng_mode="reference")
+    plain = renderer.query_count(scene, cam, 32, 24, 3, 8, rng_mode="reference")
+    assert abs(work.queries - plain) <= 1e-3 * plain and work.queries == work.active_lanes
+    for kw, msg in ((dict(rr_start=2), "rr_start requires"), (dict(cluster_k=4), "cluster_k"),):
+        with pytest.raises(ValueError, match=msg):
+            megakernel.render_frame_kernel(scene, cam, 8, 8, 1, 2, rng_mode="reference", **kw)
+    with pytest.raises(ValueError, match="counted reference-stream kernel is brute force only"):
+        megakernel.loop_work(scene, cam, 8, 8, 1, 2, rng_mode="reference", record=True)
+
+
+def test_cli_gpu_ref_rng_retries_renders_the_kernel_frame(dev, tmp_path):
+    """`--gpu --ref-rng --retries 2` renders with K1-ref: its frame is the
+    driver's rng_mode="reference" frame on the card."""
+    text = config.smoke_config_text().replace("200 100 90", "48 32 90").replace(
+        "test_output_%d.png", str(tmp_path / "out_%d.bin"))
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    r = subprocess.run([sys.executable, "-m", "tracer_torch.cli", "--gpu", "--ref-rng",
+                        "--retries", "2"], input=text, capture_output=True, text=True,
+                       cwd=tmp_path, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    from tracer_torch.io import image as image_io
+    from tracer_torch.render import driver
+
+    cli_frame = image_io.read_binary(str(tmp_path / "out_0.bin"))
+    params = config.read_scene_params(io.StringIO(text))
+    scene = builders.create_scene(params, texture_loader=lambda _p: None, device=dev)
+    before = megakernel.LAUNCHES_REF
+    fb = driver.render_animation(scene, params, engine="cuda", rng_mode="reference",
+                                 out=io.StringIO(), saver="bin")
+    assert megakernel.LAUNCHES_REF == before + 1
+    np.testing.assert_array_equal(cli_frame, image_io.quantize(fb, 2))

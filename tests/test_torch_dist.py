@@ -9,8 +9,8 @@ test_grad.py's tie-free scene with a ramp texture on sphere 0 at 12x7
 from numpy seed 4, and the canonical config at 16x7 (3 frames) for the
 multihost driver.
 
-Tolerances: pixel- and row-sharded frames are bit-equal to the one-device
-frame (seeds depend only on pixel and global sample; the all_reduce adds
+Tolerances: pixel- and row-sharded frames (fixed and reference RNG
+streams) are bit-equal to the one-device frame (seeds depend only on pixel and global sample; the all_reduce adds
 exact zeros); sample-sharded frames within a relative 1e-6 (their sample
 sums are grouped per rank); sharded gradients within 1e-5 of the leaf's
 max|g| of the one-device gradients (the all_reduce sums partial
@@ -151,6 +151,37 @@ def test_pixel_and_row_sharded_frames_are_bit_equal_to_one_device(runs, inputs, 
     for res in runs[world][1]:
         np.testing.assert_array_equal(res["frame"], want)
         np.testing.assert_array_equal(res["frame_rows"], want)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_reference_stream_sharded_frames_match_one_device(runs, inputs, world):
+    """rng_mode="reference" over pixel ranges and row bands: bit-equal to the
+    one-device frame (a lane's stream depends on its pixel and sample
+    only); over sample slices within a relative 1e-6."""
+    scene, cam = _frame_scene(inputs)
+    want = renderer.render_frame(scene, cam, W, H, worker.SPP, worker.DEPTH,
+                                 rng_mode="reference").numpy()
+    fixed = renderer.render_frame(scene, cam, W, H, worker.SPP, worker.DEPTH).numpy()
+    assert np.abs(want - fixed).max() > 1e-3
+    spp_u = 4 if world == 2 else 6
+    want_spp = renderer.render_frame(scene, cam, W, H, spp_u, worker.DEPTH,
+                                     rng_mode="reference").numpy()
+    for res in runs[world][1]:
+        np.testing.assert_array_equal(res["frame_ref"], want)
+        np.testing.assert_array_equal(res["frame_rows_ref"], want)
+        np.testing.assert_allclose(res["spp_ref"], want_spp, rtol=1e-6,
+                                   atol=1e-6 * np.abs(want_spp).max())
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_reference_stream_multihost_animation_matches_one_process(runs, world, tmp_path):
+    """render_animation_multihost passes rng_mode through to the row-sharded
+    driver: every rank's last frame is one process's reference-stream frame."""
+    scene, params = worker.anim_setup(str(tmp_path / "frame_%d.bin"))
+    fb = driver.render_animation(scene, params, engine="torch", out=io.StringIO(),
+                                 rng_mode="reference")
+    for res in runs[world][1]:
+        np.testing.assert_array_equal(res["rows_ref.fb"], fb)
 
 
 def test_pixel_sharded_frame_matches_tracer_sharded(runs):

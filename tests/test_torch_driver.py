@@ -104,7 +104,7 @@ def test_cli_retries_zero_renders(tmp_path, capsys):
     assert image_io.read_binary(str(tmp_path / "out_0.bin")).any()
 
 
-UNPORTED = [["--ref-rng"], ["--fast-math"], ["--retries", "2"], ["--backend", "tpu"]]
+UNPORTED = [["--fast-math"], ["--backend", "tpu"]]
 
 
 @pytest.mark.parametrize("argv", UNPORTED, ids=[a[0] for a in UNPORTED])
@@ -112,6 +112,38 @@ def test_cli_unported_flag_exits_2(argv, tmp_path, capsys):
     cfg = _small_config(tmp_path)
     assert cli.main(["--cpu", "--config", str(cfg), *argv]) == 2
     assert capsys.readouterr().err.startswith("tracer: not yet ported: " + argv[0])
+    assert not list(tmp_path.glob("out_*"))
+
+
+@pytest.mark.parametrize("argv", [["--ref-rng"], ["--retries", "2"], ["--ref-rng", "--retries", "2"]],
+                         ids=["ref-rng", "retries", "both"])
+def test_cli_ref_rng_and_retries_render_the_drivers_frames(argv, tmp_path, capsys):
+    """--ref-rng renders the reference stream (rng_mode="reference"), --retries
+    passes retries=N: the frames are the driver's with those arguments."""
+    cfg = _small_config(tmp_path, frames=2)
+    assert cli.main(["--cpu", "--config", str(cfg), *argv]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [TSV.match(x).group(1) for x in lines] == ["0", "1"]
+    got = image_io.read_binary(str(tmp_path / "out_1.bin"))
+    scene, params = _scene_and_params(tmp_path, frames=2)
+    fb = driver.render_animation(scene, params, engine="torch", out=io.StringIO(),
+                                 frames=[1], rng_mode="reference" if "--ref-rng" in argv
+                                 else "fixed")
+    np.testing.assert_array_equal(got, image_io.quantize(fb, 2))
+    fixed = driver.render_animation(scene, params, engine="torch", out=io.StringIO(), frames=[1])
+    assert ("--ref-rng" in argv) == (not np.array_equal(fb, fixed))
+
+
+@pytest.mark.parametrize("argv, message", [
+    (["--ref-rng", "--rr", "2"], "--ref-rng and --rr exclude each other"),
+    (["--ref-rng", "--fit", "target.bin"], "--ref-rng and --fit exclude each other"),
+    (["--retries", "-1"], "--retries must be >= 0"),
+], ids=["rr", "fit", "negative-retries"])
+def test_cli_refuses_ref_rng_with_rr_or_fit_and_negative_retries(argv, message, tmp_path,
+                                                                 capsys):
+    cfg = _small_config(tmp_path)
+    assert cli.main(["--cpu", "--config", str(cfg), *argv]) == 2
+    assert message in capsys.readouterr().err
     assert not list(tmp_path.glob("out_*"))
 
 

@@ -59,7 +59,13 @@ def run(inputs, out_dir, world, rank):
     res["frame"] = sharding.render_frame_sharded(scene, cam, w, h, SPP, DEPTH, mesh, chunk=13)
     res["frame_rows"] = sharding._frame_by_bands(megakernel.render_frame_kernel, scene, cam, w,
                                                  h, mesh, spp=SPP, max_depth=DEPTH)
+    ref = dict(spp=SPP, max_depth=DEPTH, rng_mode="reference")
+    res["frame_ref"] = sharding.render_frame_sharded(scene, cam, w, h, mesh=mesh, chunk=13, **ref)
+    res["frame_rows_ref"] = sharding._frame_by_bands(megakernel.render_frame_kernel, scene, cam,
+                                                     w, h, mesh, **ref)
     spp_u, spp_s = (4, 4) if world == 2 else (6, 9)
+    res["spp_ref"] = sharding.render_frame_spp_sharded(scene, cam, w, h, spp_u, DEPTH, mesh,
+                                                       rng_mode="reference")
     res["spp_uniform"] = sharding.render_frame_spp_sharded(scene, cam, w, h, spp_u, DEPTH, mesh)
     res["spp_stratified"] = sharding.render_frame_spp_sharded(scene, cam, w, h, spp_s, DEPTH,
                                                               mesh, stratify=True)
@@ -80,13 +86,14 @@ def run(inputs, out_dir, world, rank):
             for k, g in out[2]._asdict().items():
                 res[f"{name}.cam.{k}"] = g
 
-    for mode, frame_shard in (("rows", False), ("frames", True)):
+    for mode, frame_shard, rng_mode in (("rows", False, "fixed"), ("frames", True, "fixed"),
+                                        ("rows_ref", False, "reference")):
         own = os.path.join(out_dir, mode, f"rank{rank}")  # what this rank writes, alone
         os.makedirs(own)
         scene, params = anim_setup(os.path.join(own, "frame_%d.bin"))
         tsv = io.StringIO()
         res[f"{mode}.fb"] = torch.from_numpy(multihost.render_animation_multihost(
-            scene, params, frame_shard=frame_shard, engine="torch", out=tsv))
+            scene, params, frame_shard=frame_shard, engine="torch", out=tsv, rng_mode=rng_mode))
         with open(os.path.join(out_dir, f"{mode}_{rank}.tsv"), "w") as f:
             f.write(tsv.getvalue())
 

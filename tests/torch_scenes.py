@@ -191,3 +191,47 @@ def closed_box(device, half=20.0):
             [[0.1, 0.1, 0.1], [0.2, 0.2, 0.2], [0.0, 0.0, 0.0]], [-1] * 3, device),
         textures=None,
     )
+
+
+# ---- the reference stream's exhausted rejection lanes ----------------------
+
+M32 = 0xFFFFFFFF
+# seeds of the first 2^21 on which rng.random_in_unit_sphere_rejection
+# accepts none of its 16 tries (it returns the zero vector, 48 draws on)
+EXHAUSTED_SEEDS = (44716, 101402, 117565, 139675, 216798, 375787, 592018, 811929, 824724,
+                   870972)
+
+
+def wang_hash_inverse(s: int) -> int:
+    """The seed that tracer_torch.core.rng.wang_hash maps to `s` (each of
+    its steps is a bijection of the uint32 values)."""
+    s &= M32
+    s = s ^ (s >> 15) ^ (s >> 30)  # undo s ^= s >> 15
+    s = (s * pow(0x27D4EB2D, -1, 2**32)) & M32
+    x = s
+    for _ in range(8):  # undo s ^= s >> 4
+        x = s ^ (x >> 4)
+    s = (x * pow(9, -1, 2**32)) & M32
+    s ^= 61
+    return s ^ (s >> 16)  # undo s = (s ^ 61) ^ (s >> 16)
+
+
+def sample_start_reaching(seed: int, base: int) -> int:
+    """The sample id whose first bounce draws from `seed`: a pixel of base
+    seed `base` starts sample s at wang_hash(base + s) and draws its jitter
+    twice, so the first scatter sees wang_hash^3(base + s)."""
+    x = seed
+    for _ in range(3):
+        x = wang_hash_inverse(x)
+    return (x - base) & M32
+
+
+def exhausted_lane_view(device):
+    """(tie_free_scene(), a one-pixel camera) whose primary ray hits the
+    Lambertian floor at (0, 2.5, 0), straight below the light sphere (the
+    field of view is 0.01 degrees, so the jitter barely moves the ray): a
+    first bounce whose hemisphere sampler exhausts its tries takes the
+    normal, +z, and hits the light; a sampled direction rarely does."""
+    cam = camera.build_camera_data([3.0, 2.5, 3.0], [0.0, 2.5, 0.0], 1, 1, 0.01,
+                                   background=SKY, device=device)
+    return tie_free_scene(device), cam

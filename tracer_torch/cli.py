@@ -5,7 +5,10 @@ Covers the reference CLI (src/main.cu:572-606): with no device flag or
 when there is no CUDA device), `--cpu` with the plain PyTorch twin on the
 CPU; `--default` / `--smoke` print the sample configs. `--bvh` renders
 through the scene's BVH (the BVH kernel on the card, the plain traversal
-with `--cpu`), `--stratify` stratifies the sub-pixel jitter. `--fit TARGET`
+with `--cpu`), `--stratify` stratifies the sub-pixel jitter, `--ref-rng`
+renders on the reference binary's own RNG stream (the reference-stream
+kernel on the card, the plain renderer with `--cpu`), `--retries N`
+retries each frame up to N times on a transient failure. `--fit TARGET`
 fits scene parameters to a target image instead of rendering: on the card
 with the recording and backward kernels, or with `--cpu` by autograd
 through the plain renderer.
@@ -14,12 +17,14 @@ Usage:
   python -m tracer_torch.cli --default > config.txt
   python -m tracer_torch.cli --gpu --format bin < config.txt
   python -m tracer_torch.cli --gpu --bvh --stratify < config.txt
+  python -m tracer_torch.cli --gpu --ref-rng --retries 2 < config.txt
   python -m tracer_torch.cli --cpu --config config.txt --frames 1
   python -m tracer_torch.cli --gpu --fit target.bin --config config.txt \
       --fit-params materials.albedo --fit-steps 200
 
-Flags of the JAX CLI whose code is not ported yet are accepted by the
-parser and refused with exit code 2 (`not yet ported: --X`).
+Two flags of the JAX CLI are accepted by the parser and refused with exit
+code 2 (`not yet ported: --X`): `--fast-math` (bf16x3 matrix products, a
+TPU layout the port does not take) and `--backend tpu` (no TPU here).
 """
 
 from __future__ import annotations
@@ -30,9 +35,7 @@ import sys
 
 # flag -> how to tell it was given, for the flags whose code is not ported
 _UNPORTED = {
-    "--ref-rng": lambda a: a.ref_rng,
     "--fast-math": lambda a: a.fast_math,
-    "--retries": lambda a: a.retries > 0,  # 0, the default, retries nothing
     "--backend tpu": lambda a: a.backend == "tpu",
 }
 
@@ -74,10 +77,14 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--stratify", action="store_true",
                    help="stratified sub-pixel jitter: sample s in cell (s mod k, s // k) of "
                         "the k x k grid, k = sqrt_rays_per_pixel")
+    p.add_argument("--ref-rng", action="store_true",
+                   help="reference-stream RNG: per-ray wang_hash streams advance exactly like "
+                        "the reference binary (rejection sampling)")
+    p.add_argument("--retries", type=int, default=0, metavar="N",
+                   help="retry each frame up to N times on transient failures (a dropped "
+                        "connection, a timeout); a CUDA error is never retried")
     # accepted for command compatibility with tracer.cli; refused below
-    p.add_argument("--ref-rng", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--fast-math", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--retries", type=int, default=0, help=argparse.SUPPRESS)
     return p
 
 
@@ -98,6 +105,14 @@ def main(argv=None) -> int:
             return 2
     if args.cpu and (args.gpu or args.pallas):
         print("tracer: --cpu and --gpu exclude each other", file=sys.stderr)
+        return 2
+    if args.ref_rng and (args.rr is not None or args.fit):
+        # the roulette's draw and the gradient kernels belong to the fixed stream
+        print(f"tracer: --ref-rng and {'--rr' if args.rr is not None else '--fit'} exclude "
+              f"each other", file=sys.stderr)
+        return 2
+    if args.retries < 0:
+        print("tracer: --retries must be >= 0", file=sys.stderr)
         return 2
 
     import torch
@@ -142,6 +157,8 @@ def main(argv=None) -> int:
         rr_start=args.rr,
         stratify=args.stratify,
         intersector="bvh" if args.bvh else "brute",
+        rng_mode="reference" if args.ref_rng else "fixed",
+        retries=args.retries,
     )
     return 0
 

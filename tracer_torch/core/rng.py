@@ -1,5 +1,4 @@
-"""Stateless counter-based wang_hash streams (port of tracer.core.rng,
-fixed-budget half).
+"""Stateless counter-based wang_hash streams (port of tracer.core.rng).
 
 torch has few uint32 operations, so a seed here is an int64 tensor that
 holds a uint32 value: every step masks with `& 0xFFFFFFFF`. The largest
@@ -10,9 +9,15 @@ the streams are bit-exact against the JAX package and the CUDA kernel.
 (int64 -> float32), as the XLA path's uint32 -> float32 cast does; values
 near 2^32 round to u = 1.0 everywhere.
 
+Two families of samplers: the fixed-budget ones (`random_unit_vector`,
+`random_in_unit_sphere`, `random_in_hemisphere`; a fixed number of draws
+per call, the stream of `rng_mode="fixed"`) and the reference-stream ones
+(`random_in_unit_sphere_rejection`, `random_unit_vector_ref`,
+`random_in_hemisphere_ref`; the reference binary's rejection loop,
+random_utils.h:25-42, the stream of `rng_mode="reference"`).
+
 Every function is pure: it takes a seed tensor of any shape and returns
-`(new_seed, value)`. The rejection samplers of `rng_mode="reference"`
-are not ported yet.
+`(new_seed, value)`.
 """
 
 from __future__ import annotations
@@ -44,6 +49,12 @@ def random_float(seed: torch.Tensor):
     return seed, seed.to(torch.float32) * _INV_2_32
 
 
+def random_float_range(seed: torch.Tensor, lo: float, hi: float):
+    """`lo + (hi - lo) * u`, one draw. reference: random_utils.h:21-23."""
+    seed, u = random_float(seed)
+    return seed, lo + (hi - lo) * u
+
+
 def random_unit_vector(seed: torch.Tensor):
     """Uniform direction on the unit sphere; 2 seed advances."""
     seed, u1 = random_float(seed)
@@ -69,6 +80,53 @@ def random_in_unit_sphere(seed: torch.Tensor):
 def random_in_hemisphere(normal: torch.Tensor, seed: torch.Tensor):
     """Uniform direction in the hemisphere around `normal`; 2 advances."""
     seed, d = random_unit_vector(seed)
+    flip = torch.where(vec.dot(d, normal) > 0.0, 1.0, -1.0)
+    return seed, d * flip[..., None]
+
+
+MAX_REJECTION_TRIES = 16  # acceptance ~0.524 a try -> P(miss all) ~ 1e-5
+
+
+def random_in_unit_sphere_rejection(seed: torch.Tensor, max_tries: int = MAX_REJECTION_TRIES):
+    """The reference's rejection loop (random_utils.h:25-32), bounded at
+    `max_tries`: each try draws three uniforms in [-1, 1) and accepts the
+    point when `x*x + y*y + z*z < 1`; a lane that has accepted stops
+    advancing its seed, so its stream is the reference binary's.
+
+    A lane that accepts no try returns the zero vector with its seed
+    advanced by 3 * max_tries draws, as tracer's code does (its docstring
+    speaks of the last candidate pulled into the ball; the code keeps the
+    zero vector it started from).
+
+    The squared length is summed as `(x*x + y*y) + z*z`, one rounding a
+    step, in that order on every device: the accept decision steers the
+    rest of the stream, and the CUDA kernel rounds it the same way."""
+    found = torch.zeros(seed.shape, dtype=torch.bool, device=seed.device)
+    val = torch.zeros(seed.shape + (3,), dtype=torch.float32, device=seed.device)
+    for _ in range(max_tries):
+        s, x = random_float_range(seed, -1.0, 1.0)
+        s, y = random_float_range(s, -1.0, 1.0)
+        s, z = random_float_range(s, -1.0, 1.0)
+        ok = (x * x + y * y) + z * z < 1.0
+        take = ok & ~found
+        val = torch.where(take[..., None], torch.stack([x, y, z], dim=-1), val)
+        seed = torch.where(found, seed, s)  # accepted lanes stop drawing
+        found = found | ok
+        if bool(found.all()):  # no lane would change any more
+            break
+    return seed, val
+
+
+def random_unit_vector_ref(seed: torch.Tensor):
+    """reference random_utils.h:34: unit_vector(random_in_unit_sphere)."""
+    seed, p = random_in_unit_sphere_rejection(seed)
+    return seed, vec.unit_vector(p, eps=1e-24)
+
+
+def random_in_hemisphere_ref(normal: torch.Tensor, seed: torch.Tensor):
+    """reference random_utils.h:36-42 on the rejection stream: the unit
+    vector, flipped when it does not point along `normal`."""
+    seed, d = random_unit_vector_ref(seed)
     flip = torch.where(vec.dot(d, normal) > 0.0, 1.0, -1.0)
     return seed, d * flip[..., None]
 

@@ -115,9 +115,31 @@
 // 0.5, in float32; the same two draws, so the rest of the stream is
 // unchanged. k is the whole frame's, passed to every sample chunk.
 //
-// All four run one bounce loop, trace_pixel<RECORD, ISECT, SMEM, NSMEM,
-// COUNT>, and call the same sphere_t / plane_hit; only the nearest-hit
-// block's loop and the tape stores are chosen at compile time.
+// Reference stream (REF, entry modes 4 and 5; K1-ref): the counterpart of
+// tracer's XLA renderer with rng_mode="reference" (tracer/render/
+// integrator.py:75 with tracer/materials/scatter.py:scatter_reference),
+// not of a Pallas kernel: tracer's megakernel has no reference stream. In
+// place of the fixed 8-draw block each thread runs the reference binary's
+// own scatter (materials.h:70-140, random_utils.h:25-42): a lambertian
+// bounce draws a hemisphere direction by rejection, a metal one a gate and
+// then a ball point (specular) or a hemisphere direction (diffuse), a
+// dielectric one its reflectance draw only when refraction is possible and
+// then its roulette draw, a light none. The rejection loop takes at most
+// MAX_REJECTION_TRIES tries of three draws of -1 + 2u (2u is exact, so a
+// contraction cannot change the sum) and tests x*x + y*y + z*z < 1 with
+// one rounding a step in that order, as the plain version
+// (tracer_torch/core/rng.py) does: an accept decision steers the rest of
+// the stream. The tries per lane are geometric (1.9 on average), so the
+// lanes of a warp diverge in the loop; the stream is per lane and stays so.
+// Brute force (mode 4) and BVH (mode 5); the camera jitter, stratify,
+// row_offset and the nearest-hit blocks are K1's and K1-bvh's. What bounds
+// it: K1's FP32 work and about 5.7 hashes a lambertian bounce in place of
+// 8, with no sincosf or cbrtf, against the loop's divergence.
+//
+// All of them run one bounce loop, trace_pixel<RECORD, ISECT, SMEM, NSMEM,
+// COUNT, REF>, and call the same sphere_t / plane_hit; only the nearest-hit
+// block's loop, the tape stores and the scatter's stream are chosen at
+// compile time.
 // The counted instantiations (COUNT; the debug_iters counterpart of
 // tracer/pallas/kernels.py:62, :107-110) add up the launch's nearest-hit
 // queries, hits, leaves reached, primitive tests, warp passes, the active
@@ -326,6 +348,42 @@ __device__ __forceinline__ float guarded_inv(float x) {
   return 1.0f / (fabsf(x) < 1e-30f ? (x < 0.0f ? -1e-30f : 1e-30f) : x);
 }
 
+// ---- the reference stream (REF; tracer_torch/core/rng.py) ----
+
+constexpr int MAX_REJECTION_TRIES = 16;  // rng.MAX_REJECTION_TRIES
+
+// (x*x + y*y) + z*z with one rounding a step, as the plain version sums it
+__device__ __forceinline__ float len2_rn(V3 v) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)), __fmul_rn(v.z, v.z));
+}
+
+// A point in the unit ball by the reference's rejection loop (random_utils.h:
+// 25-32), at most MAX_REJECTION_TRIES tries; a lane that accepts none returns
+// the zero vector with its seed 3 * MAX_REJECTION_TRIES draws on, as tracer's
+// code does.
+__device__ __forceinline__ V3 rand_in_unit_sphere_ref(uint32_t& s) {
+  for (int t = 0; t < MAX_REJECTION_TRIES; ++t) {
+    const float x = -1.0f + 2.0f * rand01(s);
+    const float y = -1.0f + 2.0f * rand01(s);
+    const float z = -1.0f + 2.0f * rand01(s);
+    const V3 c = make_v3(x, y, z);
+    if (len2_rn(c) < 1.0f) return c;
+  }
+  return zero3();
+}
+
+// unit_vector(random_in_unit_sphere) (random_utils.h:34) flipped into the
+// hemisphere of nrm (:36-42); a zero or near-zero result becomes nrm
+// (materials.h:76)
+__device__ __forceinline__ V3 hemisphere_dir_ref(uint32_t& s, V3 nrm) {
+  const V3 p = rand_in_unit_sphere_ref(s);
+  V3 h = scale(p, 1.0f / sqrtf(fmaxf(len2_rn(p), 1e-24f)));
+  if (!(dot(h, nrm) > 0.0f)) h = neg(h);
+  const bool zero = fabsf(h.x) < NEAR_ZERO_EPS && fabsf(h.y) < NEAR_ZERO_EPS &&
+                    fabsf(h.z) < NEAR_ZERO_EPS;
+  return zero ? nrm : h;
+}
+
 // ---- the bounce loop ----
 
 // One pixel's samples: the raw radiance sum into L.out[lin], one bounce
@@ -334,8 +392,9 @@ __device__ __forceinline__ float guarded_inv(float x) {
 // textured hit, its tape_f texture fields into the texture tape. With
 // ISECT CLUSTERED the nearest hit walks the cluster tree N, with BVH the
 // BVH N, instead of testing every primitive. With COUNT, the launch's
-// work is added to L.counts.
-template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT>
+// work is added to L.counts. With REF, the scatter draws the reference
+// stream (see the note at the top).
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF>
 __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& P,
                                             const Nodes<NSMEM>& N, int lin) {
   const int width = L.width, max_depth = L.max_depth, num_s = P.num_s, num_p = P.num_p;
@@ -573,6 +632,72 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
     // emission before scatter (camera.cu:237-238)
     fin = add(fin, mul(beta, ld3(join, J_EMI0, n, widx)));
 
+    if constexpr (REF) {
+      // -- the reference stream's scatter (scatter.py:scatter_reference), then
+      //    the bounce's tail as below, without the fixed stream's roulette (the
+      //    fixed instantiations compile the code below this block unchanged)
+      bool ok;
+      V3 new_o = p, new_d, att = albedo;
+      const V3 ud = scale(d, 1.0f / sqrtf(fmaxf(a, 1e-30f)));
+      if (mtype == LAMBERTIAN) {  // materials.h:73-79
+        new_d = hemisphere_dir_ref(seed, nrm);
+        ok = true;
+      } else if (mtype == METAL) {  // materials.h:81-95
+        if (rand01(seed) < METAL_SPECULAR_P) {
+          const V3 ball = rand_in_unit_sphere_ref(seed);
+          new_d = add(reflect(ud, nrm), scale(ball, ld(join, J_FUZZ, n, widx)));
+          ok = dot(new_d, nrm) > 0.0f;
+        } else {
+          new_d = hemisphere_dir_ref(seed, nrm);
+          ok = true;
+        }
+      } else if (mtype == DIELECTRIC) {  // materials.h:97-133, K1's float forms
+        const float ir = ld(join, J_IR, n, widx);
+        const float ratio = front ? 1.0f / ir : ir;
+        const float cos_t = fminf(-dot(ud, nrm), 1.0f);
+        const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+        bool reflects = ratio * sin_t > 1.0f;  // cannot refract
+        if (!reflects) {  // the reflectance draw only when refraction is possible
+          float r0 = (1.0f - ratio) / (1.0f + ratio);
+          r0 = r0 * r0;
+          const float x = 1.0f - cos_t;
+          const float x2 = x * x;
+          reflects = r0 + (1.0f - r0) * (x2 * x2 * x) > rand01(seed);
+        }
+        if (reflects) {
+          new_d = reflect(ud, nrm);
+        } else {
+          const V3 perp = scale(add(ud, scale(nrm, cos_t)), ratio);
+          const float par = -sqrtf(fabsf(1.0f - dot(perp, perp)));
+          new_d = add(perp, scale(nrm, par));
+        }
+        if (front) {
+          att = make_v3(1.0f, 1.0f, 1.0f);
+        } else {
+          const V3 od = sub(p, o);
+          const float dist = sqrtf(dot(od, od));
+          att = make_v3(expf(-ld(join, J_ABS0, n, widx) * dist),
+                        expf(-ld(join, J_ABS1, n, widx) * dist),
+                        expf(-ld(join, J_ABS2, n, widx) * dist));
+        }
+        const float p_rr = fmaxf(att.x, fmaxf(att.y, att.z));
+        ok = rand01(seed) <= p_rr;
+        att = scale(att, 1.0f / fmaxf(p_rr, 1e-30f));
+        const float side = dot(new_d, nrm) > 0.0f ? 1.0f : -1.0f;
+        new_o = add(p, scale(nrm, DIELECTRIC_OFFSET * side));
+      } else {  // DIFFUSE_LIGHT absorbs, no draws (materials.h:135-137)
+        ok = false;
+      }
+      if (!ok) {
+        ended = true;
+        continue;
+      }
+      beta = mul(beta, att);
+      o = new_o;
+      d = new_d;
+      ended = ++depth == max_depth;
+      continue;
+    }
     // -- the fixed 8-draw budget (tracer_torch/materials/scatter.py)
     const float u_choice = rand01(seed);
     V3 hemi = rand_unit_vector(seed);
@@ -674,10 +799,10 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
 // ---- the kernel ----
 
 // K1 (RECORD = false, ISECT = BRUTE), K1-rec (RECORD), K1-cl (ISECT =
-// CLUSTERED) and K1-bvh (ISECT = BVH). With SMEM the block first stages
-// the primitive records in dynamic shared memory, with NSMEM the node
-// records (after them), in one loop.
-template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT>
+// CLUSTERED), K1-bvh (ISECT = BVH) and K1-ref (REF, ISECT BRUTE or BVH).
+// With SMEM the block first stages the primitive records in dynamic shared
+// memory, with NSMEM the node records (after them), in one loop.
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF>
 __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
   extern __shared__ float4 records[];
   Prims<SMEM> P{L.sph, L.pla, L.num_s, L.num_p};
@@ -704,10 +829,10 @@ __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
   }
   const int lin = blockIdx.x * blockDim.x + threadIdx.x;
   if (lin >= L.width * L.height) return;  // ragged last block
-  trace_pixel<RECORD, ISECT, SMEM, NSMEM, COUNT>(L, P, N, lin);
+  trace_pixel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF>(L, P, N, lin);
 }
 
-template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT>
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF = false>
 int launch(const Launch& L, cudaStream_t st) {
   const int blocks = (L.width * L.height + THREADS - 1) / THREADS;
   const size_t bytes = sizeof(float4) * ((SMEM ? (size_t)L.num_s * SPHERE_F4 +
@@ -715,11 +840,11 @@ int launch(const Launch& L, cudaStream_t st) {
                                          (NSMEM ? 2 * (size_t)L.num_nodes : 0));
   if (bytes > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT>,
+        cudaFuncSetAttribute(trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT><<<blocks, THREADS, bytes, st>>>(L);
+  trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF><<<blocks, THREADS, bytes, st>>>(L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -733,6 +858,14 @@ int launch_mode(const Launch& L, bool smem, cudaStream_t st) {
               : launch<RECORD, ISECT, false, NSMEM, false>(L, st);
 }
 
+// K1-ref's uncounted instantiations; its one counted instantiation (brute,
+// records in global memory, for any scene) is launched by the entry point.
+template <int ISECT, bool NSMEM>
+int launch_ref(const Launch& L, bool smem, cudaStream_t st) {
+  return smem ? launch<false, ISECT, true, NSMEM, false, true>(L, st)
+              : launch<false, ISECT, false, NSMEM, false, true>(L, st);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes by tracer_torch/kernels/megakernel.py.
@@ -744,7 +877,9 @@ int launch_mode(const Launch& L, bool smem, cudaStream_t st) {
 // slots [clusters * k] as tracer_torch/kernels/cluster.py packs them), 3
 // renders through the BVH (K1-bvh: nodes [num_nodes, 2] float4 records as
 // tracer_torch/kernels/pack.py:pack_bvh packs them; the tree's depth at
-// most BVH_STACK). sph and pla are 16-byte aligned record tables
+// most BVH_STACK), 4 and 5 render modes 0 and 3 on the reference stream
+// (K1-ref: rng_mode="reference"; counted in mode 4 only; rr_start is
+// ignored). sph and pla are 16-byte aligned record tables
 // (tracer_torch/kernels/pack.py); shared_tables stages them in shared
 // memory, shared_nodes the nodes. strat_k > 0 stratifies the jitter over a
 // strat_k x strat_k grid (every mode). row_offset >= 0 makes the launch the
@@ -775,6 +910,12 @@ extern "C" int tracer_megakernel_launch(
                                      : launch_mode<false, CLUSTERED, false>(L, smem, st);
     case 3: return shared_nodes != 0 ? launch_mode<false, BVH, true>(L, smem, st)
                                      : launch_mode<false, BVH, false>(L, smem, st);
+    case 4: return counts != nullptr ? launch<false, BRUTE, false, false, true, true>(L, st)
+                                     : launch_ref<BRUTE, false>(L, smem, st);
+    case 5:
+      if (counts != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      return shared_nodes != 0 ? launch_ref<BVH, true>(L, smem, st)
+                               : launch_ref<BVH, false>(L, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

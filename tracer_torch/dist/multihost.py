@@ -104,7 +104,9 @@ def render_animation_multihost(scene, params, frame_shard: bool = True, **kwargs
     frame_shard=False: every frame is rendered by row bands over the whole
     group (driver.render_animation with `mesh`), and only rank 0 prints the
     TSV and writes the files; every rank returns the whole last frame.
-    Without a group (one process) this is driver.render_animation."""
+    Without a group (one process) this is driver.render_animation.
+    `rng_mode` passes through as the other keywords do (tracer/dist/
+    multihost.py:123 passes it to its sharded renderer)."""
     if frame_shard:
         return driver.render_animation(scene, params, frames=my_frames(params.num_frames),
                                        **kwargs)

@@ -126,12 +126,14 @@ def render_frame_sharded(scene, cam: camera_mod.CameraData, width: int, height: 
                          max_depth: int, mesh: Mesh, intersector: str = "brute",
                          reference_quirk: bool = True, chunk: int = renderer.DEFAULT_CHUNK,
                          stratify: bool = False, rr_start=None, sample_start: int = 0,
-                         strat_sqrt_spp: int = 0):
+                         strat_sqrt_spp: int = 0, rng_mode: str = "fixed"):
     """`[height, width, 3]` raw sample sums, bit for bit
     renderer.render_frame's: each rank renders its contiguous range of flat
     pixels (`pixel_range`) with the plain renderer on its device, chunked
     by `chunk`. `sample_start` and `strat_sqrt_spp` take a sample chunk of
-    a larger frame, as render_frame's."""
+    a larger frame, as render_frame's; `rng_mode` picks the stream, as
+    render_frame's (a lane's stream depends on its pixel and sample only,
+    so the split stays invisible)."""
     _check(scene, mesh)
     n = width * height
     start, stop = pixel_range(n, mesh.size, mesh.rank)
@@ -141,7 +143,7 @@ def render_frame_sharded(scene, cam: camera_mod.CameraData, width: int, height: 
         fb[start:stop] = renderer.render_pixels(
             scene, cam, i[start:stop], j[start:stop], base[start:stop], spp, max_depth,
             chunk=chunk, sample_start=sample_start, rr_start=rr_start, stratify=stratify,
-            strat_sqrt_spp=strat_sqrt_spp, intersector=intersector)
+            strat_sqrt_spp=strat_sqrt_spp, intersector=intersector, rng_mode=rng_mode)
     dist.all_reduce(fb, op=dist.ReduceOp.SUM, group=mesh.group)
     return fb.reshape(height, width, 3)
 
@@ -150,12 +152,13 @@ def render_frame_spp_sharded(scene, cam: camera_mod.CameraData, width: int, heig
                              spp: int, max_depth: int, mesh: Mesh, intersector: str = "brute",
                              reference_quirk: bool = True,
                              chunk: int = renderer.DEFAULT_CHUNK, stratify: bool = False,
-                             rr_start=None):
+                             rr_start=None, rng_mode: str = "fixed"):
     """Sample-axis sharding: every rank renders all pixels with its slice of
     `spp / n` global samples from `rank * spp / n` (stratified over the
     whole frame's sqrt(spp) grid), and the raw sums are summed over the
     ranks: renderer.render_frame's frame up to float32 addition order.
-    Raises when spp does not divide over the ranks."""
+    `rng_mode` as render_frame's. Raises when spp does not divide over the
+    ranks."""
     _check(scene, mesh)
     if spp % mesh.size:
         raise ValueError(f"spp {spp} does not divide over {mesh.size} ranks")
@@ -164,7 +167,8 @@ def render_frame_spp_sharded(scene, cam: camera_mod.CameraData, width: int, heig
     i, j, base = renderer.pixel_grid(width, height, reference_quirk, device=mesh.device)
     fb = renderer.render_pixels(scene, cam, i, j, base, local, max_depth, chunk=chunk,
                                 sample_start=mesh.rank * local, rr_start=rr_start,
-                                stratify=bool(k), strat_sqrt_spp=k, intersector=intersector)
+                                stratify=bool(k), strat_sqrt_spp=k, intersector=intersector,
+                                rng_mode=rng_mode)
     dist.all_reduce(fb, op=dist.ReduceOp.SUM, group=mesh.group)
     return fb.reshape(height, width, 3)
 
@@ -173,14 +177,14 @@ def render_frame_kernel_sharded(scene, cam: camera_mod.CameraData, width: int, h
                                 spp: int, max_depth: int, mesh: Mesh,
                                 reference_quirk: bool = True, rr_start=None,
                                 sample_start: int = 0, stratify: bool = False,
-                                strat_sqrt_spp: int = 0):
+                                strat_sqrt_spp: int = 0, rng_mode: str = "fixed"):
     """The forward kernel over row bands (port of render_frame_pallas_sharded):
-    each rank launches K1 on its band (`row_band`) with the band's
-    `row_offset`, and the bands are summed into the whole `[height, width,
-    3]` frame on every rank, bit for bit the one-launch frame of
-    megakernel.render_frame_kernel. Brute force, as tracer's. Needs a
-    CUDA scene and raises on any other: render_frame_sharded is the plain
-    path."""
+    each rank launches K1 (K1-ref with `rng_mode="reference"`) on its band
+    (`row_band`) with the band's `row_offset`, and the bands are summed
+    into the whole `[height, width, 3]` frame on every rank, bit for bit
+    the one-launch frame of megakernel.render_frame_kernel. Brute force, as
+    tracer's. Needs a CUDA scene and raises on any other:
+    render_frame_sharded is the plain path."""
     if scene.device.type != "cuda":
         raise ValueError(f"render_frame_kernel_sharded launches the CUDA kernel: the scene is "
                          f"on {scene.device} (render_frame_sharded renders with the plain "
@@ -189,7 +193,7 @@ def render_frame_kernel_sharded(scene, cam: camera_mod.CameraData, width: int, h
     return _frame_by_bands(megakernel.render_frame_kernel, scene, cam, width, height, mesh,
                            spp=spp, max_depth=max_depth, reference_quirk=reference_quirk,
                            rr_start=rr_start, sample_start=sample_start, stratify=stratify,
-                           strat_sqrt_spp=strat_sqrt_spp)
+                           strat_sqrt_spp=strat_sqrt_spp, rng_mode=rng_mode)
 
 
 def _scene_leaves(scene, cam):

@@ -33,6 +33,15 @@ passes as the whole frame's k.
 starting at that image row: a row band of a taller frame with the frame's
 seeds and rays, which tracer_torch.dist.sharding launches on each rank.
 
+With `rng_mode="reference"` it launches the reference-stream kernel
+(K1-ref, brute force or BVH): the same bounce loop with the reference
+binary's own scatter stream (rejection samplers, conditional draws) in
+place of the 8-draw budget, whose plain version is `render_frame(...,
+rng_mode="reference")`. tracer renders that stream with its XLA renderer
+only (tracer/render/driver.py drops from Pallas to XLA for it); here the
+card renders it with K1-ref. It refuses `rr_start` and `cluster_k` > 0,
+as the plain version does.
+
 `render_frame_kernel_record` is the record mode (port of
 render_frame_pallas_record), whose plain version is
 `tracer_torch.render.renderer.render_frame_record`: the same frame plus
@@ -54,8 +63,9 @@ most `NODE_SHARED_BYTES_MAX` bytes.
 
 The kernels are compiled at first use by `nvcc` (tracer_torch.kernels.
 nvcc) into shared libraries with plain C entry points, loaded with ctypes.
-`LAUNCHES`, `LAUNCHES_RECORD`, `LAUNCHES_CLUSTERED` and `LAUNCHES_BVH`
-count the four kernels' launches, so a run can show that its main path
+`LAUNCHES`, `LAUNCHES_RECORD`, `LAUNCHES_CLUSTERED`, `LAUNCHES_BVH` and
+`LAUNCHES_REF` count the five kernels' launches (K1-ref's brute and BVH
+launches both in `LAUNCHES_REF`), so a run can show that its main path
 went through them.
 """
 
@@ -76,6 +86,7 @@ LAUNCHES = 0  # launches of the forward kernel since import (or since reset to 0
 LAUNCHES_RECORD = 0  # launches of the record-mode kernel
 LAUNCHES_CLUSTERED = 0  # launches of the cluster-culled kernel
 LAUNCHES_BVH = 0  # launches of the BVH kernel
+LAUNCHES_REF = 0  # launches of the reference-stream kernel (brute or BVH)
 # scene records up to this many bytes are staged in shared memory: on the
 # H100 that was faster for the canonical scene (10 KB) and slower for the
 # 2000-sphere field (32 KB, fewer resident blocks); PERF.md has the times
@@ -88,7 +99,7 @@ NODE_SHARED_BYTES_MAX = 16 * 1024
 BVH_STACK = 32  # K1-bvh's per-thread stack of node indices (BVH_STACK in csrc/megakernel.cu)
 # the counted instantiation's counters (COUNTS in csrc/megakernel.cu)
 COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests")
-MODE_RENDER, MODE_RECORD, MODE_CLUSTERED, MODE_BVH = 0, 1, 2, 3
+MODE_RENDER, MODE_RECORD, MODE_CLUSTERED, MODE_BVH, MODE_REF, MODE_BVH_REF = 0, 1, 2, 3, 4, 5
 
 
 class LoopWork(NamedTuple):
@@ -199,7 +210,8 @@ def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_st
 def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth: int,
                         reference_quirk: bool = True, rr_start=None, sample_start: int = 0,
                         cluster_k: int = 0, stratify: bool = False, strat_sqrt_spp: int = 0,
-                        intersector: str = "brute", row_offset: int = 0):
+                        intersector: str = "brute", row_offset: int = 0,
+                        rng_mode: str = "fixed"):
     """Render one frame; returns `[height, width, 3]` raw sample sums of the
     global samples `sample_start .. sample_start + spp - 1`. With
     `row_offset` > 0 the `height` rows are the image rows `row_offset ..
@@ -212,19 +224,26 @@ def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth
     on the CPU. For a CUDA scene it launches the kernel on the current
     stream without synchronising, or raises. `cluster_k` > 0 takes the
     cluster-culled kernel over clusters of at most that many primitives,
-    `intersector="bvh"` the BVH kernel ("brute" and "fast" the brute one).
+    `intersector="bvh"` the BVH kernel ("brute" and "fast" the brute one),
+    `rng_mode="reference"` the reference-stream kernel K1-ref (brute or
+    BVH; it refuses `rr_start` and `cluster_k` > 0).
     """
     if scene.device.type == "cpu":
         return renderer.render_frame(scene, cam, width, height, spp, max_depth,
                                      reference_quirk=reference_quirk, rr_start=rr_start,
                                      sample_start=sample_start, cluster_k=cluster_k,
                                      stratify=stratify, strat_sqrt_spp=strat_sqrt_spp,
-                                     intersector=intersector, row_offset=row_offset)
+                                     intersector=intersector, row_offset=row_offset,
+                                     rng_mode=rng_mode)
     if scene.device.type != "cuda":
         raise ValueError(f"render_frame_kernel: no kernel for device {scene.device}")
     k = camera_mod.strat_grid(stratify, spp, strat_sqrt_spp)
     integrator.check_intersector(intersector, scene)
     args = (scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start)
+    if integrator.check_rng_mode(rng_mode, rr_start) == "reference":
+        if cluster_mod.check_k(cluster_k):
+            raise ValueError("cluster_k > 0 runs the fixed-budget RNG stream only")
+        return _render_ref(*args, None, intersector, strat_k=k, row_offset=row_offset)
     if cluster_mod.check_k(cluster_k):
         if intersector == "bvh":
             raise ValueError("intersector 'bvh' and cluster_k > 0 exclude each other")
@@ -244,7 +263,8 @@ def _forward(mode, scene, cam, width, height, spp, max_depth, reference_quirk, r
                   counts=counts, row_offset=row_offset)
     if err != 0:
         name = {MODE_RENDER: "megakernel", MODE_CLUSTERED: "clustered megakernel",
-                MODE_BVH: "BVH megakernel"}[mode]
+                MODE_BVH: "BVH megakernel", MODE_REF: "reference-stream megakernel",
+                MODE_BVH_REF: "reference-stream BVH megakernel"}[mode]
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
 
@@ -278,13 +298,26 @@ def _render_bvh(scene, cam, width, height, spp, max_depth, reference_quirk, rr_s
     return out
 
 
+def _render_ref(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
+                sample_start, counts, intersector, strat_k=0, row_offset=0):
+    nodes = pack_mod.pack_bvh(scene, BVH_STACK) if intersector == "bvh" else None
+    out = _forward(MODE_BVH_REF if nodes is not None else MODE_REF, scene, cam, width, height,
+                   spp, max_depth, reference_quirk, rr_start, sample_start, counts, strat_k,
+                   nodes=nodes, row_offset=row_offset)
+    global LAUNCHES_REF
+    LAUNCHES_REF += 1
+    return out
+
+
 def loop_work(scene, cam, width: int, height: int, spp: int, max_depth: int,
               reference_quirk: bool = True, rr_start=None, sample_start: int = 0,
               cluster_k: int = 0, record: bool = False, stratify: bool = False,
               strat_sqrt_spp: int = 0, intersector: str = "brute",
-              row_offset: int = 0) -> LoopWork:
+              row_offset: int = 0, rng_mode: str = "fixed") -> LoopWork:
     """The bounce-loop work of one launch of K1 (or K1-cl with `cluster_k`
-    > 0, K1-bvh with `intersector="bvh"`, or K1-rec with `record`) with
+    > 0, K1-bvh with `intersector="bvh"`, K1-rec with `record`, or brute
+    K1-ref with `rng_mode="reference"`, which has no other counted
+    instantiation) with
     these arguments, counted by the kernel's counted instantiation: the
     counterpart of the TPU kernel's `debug_iters`. CUDA scenes only;
     synchronises. Its plain counterpart for the queries is
@@ -300,9 +333,15 @@ def loop_work(scene, cam, width: int, height: int, spp: int, max_depth: int,
                          "the intersector brute")
     if clustered and intersector == "bvh":
         raise ValueError("intersector 'bvh' and cluster_k > 0 exclude each other")
+    ref = integrator.check_rng_mode(rng_mode, rr_start) == "reference"
+    if ref and (record or clustered or intersector == "bvh"):
+        raise ValueError("the counted reference-stream kernel is brute force only, and neither "
+                         "records nor culls")
     args = (scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start)
     kw = dict(strat_k=k, row_offset=row_offset)
-    if record:
+    if ref:
+        launch = lambda counts: _render_ref(*args, counts, "brute", **kw)
+    elif record:
         launch = lambda counts: _record(*args, 9, counts, **kw)
     elif clustered:
         launch = lambda counts: _render_clustered(*args, cluster_k, counts, **kw)

@@ -5,7 +5,9 @@ src/camera.cu:290-394).
 A sequential frame loop: camera for frame n, render (the CUDA kernel or
 its plain PyTorch twin), time the frame to the device's completion, print
 the reference's `frame \\t ms \\t total_rays` TSV line (camera.cu:344-346)
-and hand the framebuffer to a background writer. With a `mesh`
+and hand the framebuffer to a background writer: the native C++ writer
+(tracer_torch.io.native) for `bin` and `ppm` where g++ can build it, else
+io/image.py's ThreadedWriter. With a `mesh`
 (tracer_torch.dist.sharding) every rank of the group runs the loop, each
 frame is rendered across the ranks, and rank 0 alone prints and writes.
 """
@@ -19,14 +21,26 @@ import torch
 
 from tracer_torch.dist import sharding
 from tracer_torch.io import image as image_io
+from tracer_torch.io import native as io_native
 from tracer_torch.kernels import megakernel
 from tracer_torch.render import camera as camera_mod
 from tracer_torch.render import integrator, renderer
 from tracer_torch.scene.params import SceneParams
 from tracer_torch.scene.types import Scene
+from tracer_torch.utils import resilience
 
 ENGINES = ("cuda", "torch")
 MAX_RAYS_PER_LAUNCH = 128 * 1024 * 1024
+RETRY_BACKOFF_S = 5.0  # the first retry's wait (resilience.retry_transient doubles it)
+
+
+def frame_writer(saver: str):
+    """The background writer for `saver`: the native writer for "bin" and
+    "ppm" when it can be built (tracer/render/driver.py:95-104), else
+    io/image.py's ThreadedWriter."""
+    if saver in io_native.FORMATS and io_native.available():
+        return io_native.AsyncFrameWriter()
+    return image_io.ThreadedWriter()
 
 
 def render_animation(
@@ -43,6 +57,8 @@ def render_animation(
     stratify: bool = False,
     intersector: str = "brute",
     mesh=None,
+    rng_mode: str = "fixed",
+    retries: int = 0,
 ):
     """Render `params.num_frames` frames (or the indices in `frames`) on the
     scene's device; returns the last framebuffer as a numpy array. The TSV
@@ -76,6 +92,19 @@ def render_animation(
     for bit the one-device frame, and only rank 0 prints the TSV and
     writes the files. The spp chunks above stay, inside each share.
 
+    `rng_mode`: "fixed" (the 8-draw budget) or "reference" (the reference
+    binary's own per-lane stream): engine "cuda" renders it with K1-ref,
+    "torch" with the plain renderer (integrator.RNG_MODES); tracer's
+    driver drops from its Pallas engine to XLA for it.
+
+    `retries`: each frame is retried up to that many times on a transient
+    failure (resilience.retry_transient, RETRY_BACKOFF_S first; a line on
+    stderr a retry). A retry renders the whole frame again, every spp chunk
+    and the synchronize; the failed attempt's chunks are dropped first. A
+    CUDA error is never retried (a faulted context is sticky). With a
+    `mesh`, retries > 0 raises ValueError: one rank retrying alone would
+    leave the others waiting in the all_reduce of the frame it left.
+
     `saver_spp_quirk`: the reference drivers build their savers with
     sqrt_rays_per_pixel while accumulating sqrt_spp^2 samples
     (camera.cu:300/357 vs :319-320), so reference image bytes are
@@ -94,8 +123,14 @@ def render_animation(
     if saver not in image_io.SAVERS:
         raise ValueError(f"unknown saver {saver!r}")
     integrator.check_intersector(intersector, scene)
+    integrator.check_rng_mode(rng_mode, rr_start)
+    if isinstance(retries, bool) or not (isinstance(retries, int) and retries >= 0):
+        raise ValueError(f"retries must be an int >= 0, got {retries!r}")
     lead = mesh is None or mesh.rank == 0  # prints the TSV and writes the files
     if mesh is not None:
+        if retries:
+            raise ValueError("retries > 0 with a mesh: one rank retrying alone would leave the "
+                             "others waiting in the frame's all_reduce")
         if engine == "cuda":
             if intersector == "bvh":
                 raise ValueError("the sharded kernel path is brute force only, as tracer's")
@@ -111,10 +146,21 @@ def render_animation(
     rays = renderer.total_rays(width, height, sqrt_spp)
     chunk = spp_chunk or max(1, MAX_RAYS_PER_LAUNCH // (width * height))
     opts = dict(reference_quirk=reference_quirk, rr_start=rr_start, stratify=stratify,
-                strat_sqrt_spp=sqrt_spp if stratify else 0, intersector=intersector)
+                strat_sqrt_spp=sqrt_spp if stratify else 0, intersector=intersector,
+                rng_mode=rng_mode)
+
+    def render_whole_frame(cam):
+        fb_dev = None
+        for c0 in range(0, spp, chunk):
+            part = render(scene, cam, width, height, min(chunk, spp - c0),
+                          params.render.max_depth, sample_start=c0, **opts)
+            fb_dev = part if fb_dev is None else fb_dev + part
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return fb_dev
 
     out = sys.stdout if out is None else out
-    writer = image_io.ThreadedWriter()
+    writer = frame_writer(saver)
     fb = None
     try:
         for n in range(params.num_frames) if frames is None else frames:
@@ -123,13 +169,17 @@ def render_animation(
                 params.fov_degrees, background=(0.0, 0.0, 0.0), device=device,  # camera.cu:323
             )
             t0 = time.perf_counter()
-            fb_dev = None
-            for c0 in range(0, spp, chunk):
-                part = render(scene, cam, width, height, min(chunk, spp - c0),
-                              params.render.max_depth, sample_start=c0, **opts)
-                fb_dev = part if fb_dev is None else fb_dev + part
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            if retries:
+                # a failed attempt's chunks live in its frame, which the
+                # traceback holds until retry_transient's handler ends,
+                # before the next attempt starts
+                fb_dev = resilience.retry_transient(
+                    lambda: render_whole_frame(cam), retries=retries, backoff_s=RETRY_BACKOFF_S,
+                    on_retry=lambda k, e, n=n: print(
+                        f"tracer: frame {n} transient backend failure "
+                        f"(retry {k}): {str(e).splitlines()[0][:120]}", file=sys.stderr))
+            else:
+                fb_dev = render_whole_frame(cam)
             ms = (time.perf_counter() - t0) * 1e3
             fb = fb_dev.cpu().numpy()
             if not lead:

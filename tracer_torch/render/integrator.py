@@ -1,5 +1,5 @@
-"""Path-trace integrator (port of tracer.render.integrator, fixed RNG
-stream; brute, BVH or cluster-culled intersection): the reference's
+"""Path-trace integrator (port of tracer.render.integrator; brute, BVH or
+cluster-culled intersection; the fixed or the reference RNG stream): the reference's
 per-thread bounce loop (src/camera.cu:218-288) over a batch of rays with
 an `alive` mask.
 
@@ -7,6 +7,10 @@ Intersectors (`INTERSECTORS`): "brute" tests every primitive
 (render/hit.py); "fast" is its alias, since the port's one brute
 intersector stands for both of tracer's (hit.py and hit_fast.py);
 "bvh" traverses `scene.bvh` (tracer_torch.bvh.traverse).
+
+`rng_mode` (`RNG_MODES`): "fixed", the 8-draw budget per bounce that the
+kernels share, or "reference", the reference binary's own per-lane
+stream (materials/scatter.py:scatter_reference).
 
 The loop stops as soon as every ray of the batch has terminated (the
 JAX package's `early_exit`), which changes no value: dead rays keep
@@ -33,6 +37,7 @@ from tracer_torch.scene.types import Scene
 
 RR_MIN_P = 0.05  # Russian-roulette survival floor (== the kernel's RR_MIN_P)
 INTERSECTORS = ("fast", "brute", "bvh")
+RNG_MODES = ("fixed", "reference")
 TAPE_FIELDS = (0, 3, 9, 13)  # texture tape widths the recording path writes
 # a tape slot's value where nothing textured was hit: multipliers 1, the rest 0
 TAPE_NEUTRAL = (1.0,) * 3 + (0.0,) * 10
@@ -57,8 +62,19 @@ def check_intersector(intersector: str, scene: Scene = None) -> str:
     return intersector
 
 
+def check_rng_mode(rng_mode: str, rr_start=None) -> str:
+    """`rng_mode` if it is one of RNG_MODES, else ValueError; "reference"
+    with `rr_start` also raises (tracer/render/integrator.py:195: the
+    throughput roulette's extra draw belongs to the fixed stream)."""
+    if rng_mode not in RNG_MODES:
+        raise ValueError(f"unknown rng_mode {rng_mode!r}; expected one of {RNG_MODES}")
+    if rng_mode == "reference" and rr_start is not None:
+        raise ValueError("rr_start requires the fixed-budget RNG stream")
+    return rng_mode
+
+
 def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields=None,
-            clusters=None, intersector="brute", work=None):
+            clusters=None, intersector="brute", work=None, rng_mode="fixed"):
     origin, direction, beta, final, seed, alive = carry
     if clusters is not None:
         rec = hit_mod.hit_scene_clustered(scene, clusters, origin, direction)
@@ -90,7 +106,8 @@ def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields
     # emission before scatter (camera.cu:237-238)
     final = final + torch.where(active[..., None], beta * rec.emit, 0.0)
 
-    seed, new_origin, new_dir, attenuation, ok = scatter_mod.scatter(
+    scatter_fn = scatter_mod.scatter_reference if rng_mode == "reference" else scatter_mod.scatter
+    seed, new_origin, new_dir, attenuation, ok = scatter_fn(
         origin, direction, rec.point, rec.normal, rec.front_face,
         rec.mtype, rec.fuzz, rec.ir, rec.absorption, albedo, seed,
     )
@@ -117,7 +134,7 @@ def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields
 
 def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_start=None,
           tape_fields=None, clusters=None, queries=None, intersector: str = "brute",
-          work=None):
+          work=None, rng_mode: str = "fixed"):
     """Radiance `[R, 3]` for a batch of rays; `seed` is `[R]` int64 holding
     uint32, already advanced past ray generation. `clusters` (the scene's
     kernels.cluster.ClusterTables, or None) selects the cluster-culled
@@ -129,8 +146,13 @@ def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_
     or None with no texture or no fields)
     per bounce executed. `queries`, a list, receives per bounce executed the
     count (a 0-d tensor) of rays alive at its start: its nearest-hit
-    queries."""
+    queries. `rng_mode`: "fixed" or "reference" (RNG_MODES); "reference"
+    refuses `rr_start` and `tape_fields`, as tracer's recording path has no
+    reference stream."""
     check_intersector(intersector, scene)
+    check_rng_mode(rng_mode, rr_start)
+    if rng_mode == "reference" and tape_fields is not None:
+        raise ValueError("the recording path runs the fixed-budget RNG stream only")
     beta = torch.ones_like(origin)
     final = torch.zeros_like(origin)
     alive = torch.ones(origin.shape[0], dtype=torch.bool, device=origin.device)
@@ -140,7 +162,7 @@ def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_
         if queries is not None:
             queries.append(carry[-1].sum())
         kw = dict(rr_start=rr_start, depth=depth, clusters=clusters, intersector=intersector,
-                  work=work)
+                  work=work, rng_mode=rng_mode)
         if tape_fields is None:
             carry = _bounce(scene, background, carry, **kw)
         else:

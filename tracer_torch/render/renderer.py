@@ -24,7 +24,8 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
                   spp: int, max_depth: int, chunk: int = DEFAULT_CHUNK,
                   sample_start: int = 0, rr_start=None, tape_fields=None,
                   cluster_k: int = 0, queries=None, stratify: bool = False,
-                  strat_sqrt_spp: int = 0, intersector: str = "brute", work=None):
+                  strat_sqrt_spp: int = 0, intersector: str = "brute", work=None,
+                  rng_mode: str = "fixed"):
     """Raw sample sums `[N, 3]` for a flat list of pixels.
 
     i_flat/j_flat: `[N]` pixel column/row; base_seed: `[N]` per-pixel seed
@@ -50,12 +51,20 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
 
     `queries`, a list, receives the nearest-hit query counts of every
     bounce (see `integrator.trace`).
+
+    `rng_mode`: "fixed" (the 8-draw budget) or "reference" (the reference
+    binary's per-lane stream, integrator.RNG_MODES); "reference" refuses
+    `rr_start`, `tape_fields` and `cluster_k` > 0 (tracer's clustered path
+    is its Pallas kernel, which has no reference stream).
     """
     n, dev = i_flat.shape[0], i_flat.device
     k = camera_mod.strat_grid(stratify, spp, strat_sqrt_spp)
     integrator.check_intersector(intersector, scene)
+    integrator.check_rng_mode(rng_mode, rr_start)
     clusters = None
     if cluster_mod.check_k(cluster_k):
+        if rng_mode == "reference":
+            raise ValueError("cluster_k > 0 runs the fixed-budget RNG stream only")
         if tape_fields is not None:
             # as tracer's record path, which asserts `not clustered`
             raise ValueError("the recording renderer is brute force only: cluster_k must be 0")
@@ -87,7 +96,7 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
             res = integrator.trace(scene, cam.background, origin, direction, seed, max_depth,
                                    rr_start=rr_start, tape_fields=tape_fields,
                                    clusters=clusters, queries=queries, intersector=intersector,
-                                   work=work)
+                                   work=work, rng_mode=rng_mode)
             for d, (w, t) in enumerate(res[2] if idx is not None else ()):
                 idx[s, d, c0:c1] = w
                 if tex is not None:
@@ -116,7 +125,8 @@ def pixel_grid(width: int, height: int, reference_quirk: bool = True, *, device,
 def render_frame(scene: Scene, cam: camera_mod.CameraData, width: int, height: int,
                  spp: int, max_depth: int, reference_quirk: bool = True, rr_start=None,
                  sample_start: int = 0, cluster_k: int = 0, stratify: bool = False,
-                 strat_sqrt_spp: int = 0, intersector: str = "brute", row_offset: int = 0):
+                 strat_sqrt_spp: int = 0, intersector: str = "brute", row_offset: int = 0,
+                 rng_mode: str = "fixed"):
     """Render one frame on the scene's device; returns `[height, width, 3]`
     raw sample sums of samples `sample_start .. sample_start + spp - 1`
     (with `row_offset`, of the image rows `row_offset .. row_offset +
@@ -126,19 +136,22 @@ def render_frame(scene: Scene, cam: camera_mod.CameraData, width: int, height: i
     that bounce index on (see integrator._bounce). cluster_k (int, default
     0 = brute force): the cluster-culled nearest hit over clusters of at
     most that many primitives; intersector: "brute" (or "fast") or "bvh";
-    stratify, strat_sqrt_spp: stratified jitter (see render_pixels)."""
+    stratify, strat_sqrt_spp: stratified jitter; rng_mode: "fixed" or
+    "reference" (see render_pixels)."""
     i_flat, j_flat, base_seed = pixel_grid(width, height, reference_quirk, device=scene.device,
                                            row_offset=row_offset)
     fb = render_pixels(scene, cam, i_flat, j_flat, base_seed, spp, max_depth,
                        sample_start=sample_start, rr_start=rr_start, cluster_k=cluster_k,
-                       stratify=stratify, strat_sqrt_spp=strat_sqrt_spp, intersector=intersector)
+                       stratify=stratify, strat_sqrt_spp=strat_sqrt_spp, intersector=intersector,
+                       rng_mode=rng_mode)
     return fb.reshape(height, width, 3)
 
 
 def query_count(scene: Scene, cam: camera_mod.CameraData, width: int, height: int, spp: int,
                 max_depth: int, reference_quirk: bool = True, rr_start=None,
                 sample_start: int = 0, cluster_k: int = 0, stratify: bool = False,
-                strat_sqrt_spp: int = 0, intersector: str = "brute") -> int:
+                strat_sqrt_spp: int = 0, intersector: str = "brute",
+                rng_mode: str = "fixed") -> int:
     """The nearest-hit queries of `render_frame` with these arguments: one
     per bounce a path starts, its miss included. The plain count beside the
     kernels' counted instantiation (`kernels.megakernel.loop_work`)."""
@@ -147,7 +160,7 @@ def query_count(scene: Scene, cam: camera_mod.CameraData, width: int, height: in
     render_pixels(scene, cam, i_flat, j_flat, base_seed, spp, max_depth,
                   sample_start=sample_start, rr_start=rr_start, cluster_k=cluster_k,
                   queries=queries, stratify=stratify, strat_sqrt_spp=strat_sqrt_spp,
-                  intersector=intersector)
+                  intersector=intersector, rng_mode=rng_mode)
     return int(torch.stack(queries).sum())
 
 
