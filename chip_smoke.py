@@ -2102,11 +2102,15 @@ def ref_phase(dev, kind, card, canon_p, cams, W, H, env):
     work = mk.loop_work(canon, cams[1], W, H, 32, 50, **REF)
     k1_work = mk.loop_work(canon, cams[1], W, H, 32, 50)
     n_s, n_p = canon.num_spheres, canon.num_planes
-    tables = 4 * (n_s * 4 + n_p * 20 + (n_s + n_p) * 13) + canon.textures.numel() * 4 + 15 * 4
+    tables = 4 * (n_s * 4 + n_p * 20 + (n_s + n_p) * 13) + 15 * 4
 
-    def k1_bound(wk, npix):  # K1's formula: every query tests every primitive, every hit shades
+    def k1_bound(wk, npix):
+        # K1's formula: every query tests every primitive, every hit shades;
+        # of the texture, only what the hits can read (a bilinear sample's 4
+        # texels of 12 bytes a hit, the whole texture at most)
+        tex_b = min(canon.textures.numel() * 4, wk.hits * 4 * 12)
         return bound(wk.queries * (n_s * OPS_SPHERE + n_p * OPS_PLANE) + wk.hits * OPS_SHADE,
-                     tables + npix * 12)
+                     tables + tex_b + npix * 12)
 
     b_big = k1_bound(work, W * H)
     print(f"  times on {kind} ({card}), canonical + texture {W}x{H} spp32 d50, best of 3 frames "
@@ -2122,7 +2126,7 @@ def ref_phase(dev, kind, card, canon_p, cams, W, H, env):
     # plain version runs in seconds
     tw, th, tspp, td = REF_TIMED
     cam_t = C.camera_at(canon_p.camera_path, 1, canon_p.num_frames, tw, th, canon_p.fov_degrees,
-                        device=dev)
+                        background=SKY, device=dev)
     mk.render_frame_kernel(canon, cam_t, tw, th, tspp, td, **REF)
     ms = cuda_ms(lambda: mk.render_frame_kernel(canon, cam_t, tw, th, tspp, td, **REF), reps=3)
     got = mk.render_frame_kernel(canon, cam_t, tw, th, tspp, td, **REF)

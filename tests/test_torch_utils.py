@@ -3,12 +3,16 @@ writer (tracer_torch.io.native, built here with g++) and their use in the
 frame driver, against tracer.utils and tracer.io.image where tracer has
 the same function.
 
-Tolerances: none; the writer's files are byte-equal to io/image.py's
-savers, and retried frames bit-equal to frames that were not retried.
+Tolerances: none; the writer's files are byte-equal to tracer.io.image's
+savers, and to tracer's own native writer wherever its quantize (a
+multiply by the divisor's float reciprocal) rounds as the division does;
+retried frames are bit-equal to frames that were not retried.
 """
 
+import ctypes
 import io
 import os
+import subprocess
 import sys
 import time
 from typing import NamedTuple
@@ -17,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from tracer.io import image as jax_image
+from tracer.io import native as jax_native
 from tracer.utils import debug as jax_debug
 from tracer.utils import profiling as jax_profiling
 from tracer.utils import resilience as jax_resilience
@@ -296,9 +302,24 @@ def test_debug_nans_is_scoped_and_checks_the_backward():
 
 # ---- the native frame writer -----------------------------------------------------
 
+def _quantize_by_reciprocal(fb, divisor):
+    """tracer's native quantize (frame_writer.cpp): the sum times the
+    divisor's float reciprocal, where io/image.py divides."""
+    c = np.asarray(fb, np.float32) * np.float32(1.0 / divisor)
+    g = np.sqrt(np.maximum(c, np.float32(0.0)))
+    return (np.float32(256.0) * np.clip(g, np.float32(0.0), np.float32(0.999))).astype(np.uint8)
+
+
 def _frames(n=3, shape=(24, 40)):
+    """Seeded raw sums; the first frame's leading values are ones where
+    dividing by 3 and multiplying by the float 1/3 quantize differently."""
     g = np.random.default_rng(7)
-    return [(g.uniform(0.0, 1.0, shape + (3,)) ** 2 * 3).astype(np.float32) for _ in range(n)]
+    frames = [(g.uniform(0.0, 1.0, shape + (3,)) ** 2 * 3).astype(np.float32) for _ in range(n)]
+    pool = (g.uniform(0.0, 1.0, 1 << 21) ** 2 * 3).astype(np.float32)
+    split = pool[_quantize_by_reciprocal(pool, 3) != image_io.quantize(pool, 3)]
+    assert split.size >= 2
+    frames[0].reshape(-1)[:split.size] = split
+    return frames
 
 
 def test_native_writer_is_built_with_gpp():
@@ -315,8 +336,66 @@ def test_native_writer_bytes_equal_the_python_savers(tmp_path, fmt, divisor):
         for k, fb in enumerate(frames):
             w.submit(str(tmp_path / f"native_{k}"), fb, divisor, fmt=fmt)
     for k, fb in enumerate(frames):
+        jax_image.SAVERS[fmt](str(tmp_path / f"tracer_{k}"), fb, divisor)
         image_io.SAVERS[fmt](str(tmp_path / f"python_{k}"), fb, divisor)
-        assert (tmp_path / f"native_{k}").read_bytes() == (tmp_path / f"python_{k}").read_bytes()
+        want = (tmp_path / f"tracer_{k}").read_bytes()
+        assert (tmp_path / f"native_{k}").read_bytes() == want
+        assert (tmp_path / f"python_{k}").read_bytes() == want
+
+
+@pytest.fixture(scope="module")
+def tracer_writer_lib(tmp_path_factory):
+    """tracer's own frame_writer.cpp, built with the port's flags, bound
+    as tracer/io/native binds it (its submit takes 1 / divisor)."""
+    src = os.path.join(os.path.dirname(jax_native.__file__), "frame_writer.cpp")
+    so = tmp_path_factory.mktemp("tracer_writer") / "libtracer_io.so"
+    subprocess.run(["g++", *io_native.CXX_FLAGS, "-o", str(so), src], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.tracer_writer_create.restype = ctypes.c_void_p
+    lib.tracer_writer_submit.argtypes = [
+        ctypes.c_void_p, np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_char_p, ctypes.c_int,
+    ]
+    lib.tracer_writer_failures.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+    lib.tracer_writer_failures.restype = ctypes.c_int
+    lib.tracer_writer_wait.argtypes = [ctypes.c_void_p]
+    lib.tracer_writer_destroy.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+@pytest.mark.parametrize("fmt", ["bin", "ppm"])
+@pytest.mark.parametrize("divisor", [1, 3, 4])
+def test_native_writer_against_tracers_native_writer(tmp_path, tracer_writer_lib, fmt,
+                                                     divisor):
+    """Byte-equal to tracer's writer where the divisor is a power of two;
+    at 3 the frames differ exactly where tracer's reciprocal quantize rounds
+    to another byte than the division (the port's one change)."""
+    fb = _frames(1)[0]
+    h, w, _ = fb.shape
+    lib = tracer_writer_lib
+    handle = lib.tracer_writer_create()
+    lib.tracer_writer_submit(handle, fb.reshape(-1), w, h, 1.0 / divisor,
+                             os.fsencode(tmp_path / "tracer"), io_native.FORMATS[fmt])
+    lib.tracer_writer_wait(handle)
+    assert lib.tracer_writer_failures(handle, None, 0) == 0
+    lib.tracer_writer_destroy(handle)
+    with io_native.AsyncFrameWriter() as writer:
+        writer.submit(str(tmp_path / "port"), fb, divisor, fmt=fmt)
+    ours, theirs = (tmp_path / "port").read_bytes(), (tmp_path / "tracer").read_bytes()
+    split = _quantize_by_reciprocal(fb, divisor) != image_io.quantize(fb, divisor)
+    assert split.any() == (divisor == 3)
+    if fmt == "bin":
+        assert ours[:8] == theirs[:8]
+        differ = np.frombuffer(ours[8:], np.uint8) != np.frombuffer(theirs[8:], np.uint8)
+        np.testing.assert_array_equal(differ, split.reshape(-1))
+    else:
+        assert ours.split(b"\n")[:3] == theirs.split(b"\n")[:3]
+        ours_px = np.array(ours.split()[4:], np.uint8)
+        theirs_px = np.array(theirs.split()[4:], np.uint8)
+        np.testing.assert_array_equal(ours_px, image_io.quantize(fb, divisor).reshape(-1))
+        np.testing.assert_array_equal(theirs_px, _quantize_by_reciprocal(fb, divisor).reshape(-1))
+    if divisor != 3:
+        assert ours == theirs
 
 
 def test_native_writer_reports_a_failed_write(tmp_path):

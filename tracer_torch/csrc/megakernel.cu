@@ -384,6 +384,50 @@ __device__ __forceinline__ V3 hemisphere_dir_ref(uint32_t& s, V3 nrm) {
   return zero ? nrm : h;
 }
 
+// The dielectric's scatter (materials.h:97-133) in K1's float forms, for
+// both streams: a statement list over trace_pixel's locals (it reads p, o,
+// ud, nrm, front, join, n and widx, and sets new_d, att, new_o and ok).
+// U_REFL and U_RR are the reflectance and roulette uniforms: the fixed
+// stream passes the ones it drew; REF passes rand01(seed) for both, and the
+// || evaluates the first only when refraction is possible (materials.h:109),
+// as the reference binary draws. A macro, not an inlined function, so that
+// the fixed instantiations compile the same tokens as before REF existed:
+// a __forceinline__ function in their place changed the registers and
+// spills ptxas gave two of them.
+#define DIELECTRIC_SCATTER(U_REFL, U_RR)                                     \
+  const float ir = ld(join, J_IR, n, widx);                                \
+  const float ratio = front ? 1.0f / ir : ir;                              \
+  const float cos_t = fminf(-dot(ud, nrm), 1.0f);                          \
+  const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));            \
+  const bool cannot_refract = ratio * sin_t > 1.0f;                        \
+  float r0 = (1.0f - ratio) / (1.0f + ratio);                              \
+  r0 = r0 * r0;                                                            \
+  const float x = 1.0f - cos_t;                                            \
+  const float x2 = x * x;                                                  \
+  const float refl_p = r0 + (1.0f - r0) * (x2 * x2 * x);                   \
+  if (cannot_refract || refl_p > U_REFL) {                                 \
+    new_d = reflect(ud, nrm);                                              \
+  } else {                                                                 \
+    const V3 perp = scale(add(ud, scale(nrm, cos_t)), ratio);              \
+    const float par = -sqrtf(fabsf(1.0f - dot(perp, perp)));               \
+    new_d = add(perp, scale(nrm, par));                                    \
+  }                                                                        \
+  /* Beer-Lambert absorption on back-face exit, then survival roulette */  \
+  if (front) {                                                             \
+    att = make_v3(1.0f, 1.0f, 1.0f);                                       \
+  } else {                                                                 \
+    const V3 od = sub(p, o);                                               \
+    const float dist = sqrtf(dot(od, od));                                 \
+    att = make_v3(expf(-ld(join, J_ABS0, n, widx) * dist),                 \
+                  expf(-ld(join, J_ABS1, n, widx) * dist),                 \
+                  expf(-ld(join, J_ABS2, n, widx) * dist));                \
+  }                                                                        \
+  const float p_rr = fmaxf(att.x, fmaxf(att.y, att.z));                    \
+  ok = U_RR <= p_rr;                                                       \
+  att = scale(att, 1.0f / fmaxf(p_rr, 1e-30f));                            \
+  const float side = dot(new_d, nrm) > 0.0f ? 1.0f : -1.0f;                \
+  new_o = add(p, scale(nrm, DIELECTRIC_OFFSET * side));
+
 // ---- the bounce loop ----
 
 // One pixel's samples: the raw radiance sum into L.out[lin], one bounce
@@ -651,40 +695,8 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
           new_d = hemisphere_dir_ref(seed, nrm);
           ok = true;
         }
-      } else if (mtype == DIELECTRIC) {  // materials.h:97-133, K1's float forms
-        const float ir = ld(join, J_IR, n, widx);
-        const float ratio = front ? 1.0f / ir : ir;
-        const float cos_t = fminf(-dot(ud, nrm), 1.0f);
-        const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-        bool reflects = ratio * sin_t > 1.0f;  // cannot refract
-        if (!reflects) {  // the reflectance draw only when refraction is possible
-          float r0 = (1.0f - ratio) / (1.0f + ratio);
-          r0 = r0 * r0;
-          const float x = 1.0f - cos_t;
-          const float x2 = x * x;
-          reflects = r0 + (1.0f - r0) * (x2 * x2 * x) > rand01(seed);
-        }
-        if (reflects) {
-          new_d = reflect(ud, nrm);
-        } else {
-          const V3 perp = scale(add(ud, scale(nrm, cos_t)), ratio);
-          const float par = -sqrtf(fabsf(1.0f - dot(perp, perp)));
-          new_d = add(perp, scale(nrm, par));
-        }
-        if (front) {
-          att = make_v3(1.0f, 1.0f, 1.0f);
-        } else {
-          const V3 od = sub(p, o);
-          const float dist = sqrtf(dot(od, od));
-          att = make_v3(expf(-ld(join, J_ABS0, n, widx) * dist),
-                        expf(-ld(join, J_ABS1, n, widx) * dist),
-                        expf(-ld(join, J_ABS2, n, widx) * dist));
-        }
-        const float p_rr = fmaxf(att.x, fmaxf(att.y, att.z));
-        ok = rand01(seed) <= p_rr;
-        att = scale(att, 1.0f / fmaxf(p_rr, 1e-30f));
-        const float side = dot(new_d, nrm) > 0.0f ? 1.0f : -1.0f;
-        new_o = add(p, scale(nrm, DIELECTRIC_OFFSET * side));
+      } else if (mtype == DIELECTRIC) {  // materials.h:97-133
+        DIELECTRIC_SCATTER(rand01(seed), rand01(seed))
       } else {  // DIFFUSE_LIGHT absorbs, no draws (materials.h:135-137)
         ok = false;
       }
@@ -727,38 +739,7 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
         ok = true;
       }
     } else if (mtype == DIELECTRIC) {  // materials.h:97-133
-      const float ir = ld(join, J_IR, n, widx);
-      const float ratio = front ? 1.0f / ir : ir;
-      const float cos_t = fminf(-dot(ud, nrm), 1.0f);
-      const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-      const bool cannot_refract = ratio * sin_t > 1.0f;
-      float r0 = (1.0f - ratio) / (1.0f + ratio);
-      r0 = r0 * r0;
-      const float x = 1.0f - cos_t;
-      const float x2 = x * x;
-      const float refl_p = r0 + (1.0f - r0) * (x2 * x2 * x);
-      if (cannot_refract || refl_p > u_refl) {
-        new_d = reflect(ud, nrm);
-      } else {
-        const V3 perp = scale(add(ud, scale(nrm, cos_t)), ratio);
-        const float par = -sqrtf(fabsf(1.0f - dot(perp, perp)));
-        new_d = add(perp, scale(nrm, par));
-      }
-      // Beer-Lambert absorption on back-face exit, then survival roulette
-      if (front) {
-        att = make_v3(1.0f, 1.0f, 1.0f);
-      } else {
-        const V3 od = sub(p, o);
-        const float dist = sqrtf(dot(od, od));
-        att = make_v3(expf(-ld(join, J_ABS0, n, widx) * dist),
-                      expf(-ld(join, J_ABS1, n, widx) * dist),
-                      expf(-ld(join, J_ABS2, n, widx) * dist));
-      }
-      const float p_rr = fmaxf(att.x, fmaxf(att.y, att.z));
-      ok = u_rr <= p_rr;
-      att = scale(att, 1.0f / fmaxf(p_rr, 1e-30f));
-      const float side = dot(new_d, nrm) > 0.0f ? 1.0f : -1.0f;
-      new_o = add(p, scale(nrm, DIELECTRIC_OFFSET * side));
+      DIELECTRIC_SCATTER(u_refl, u_rr)
     } else {  // DIFFUSE_LIGHT absorbs (materials.h:135-137)
       ok = false;
       new_d = lam_dir;
@@ -795,6 +776,8 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
     }
   }
 }
+
+#undef DIELECTRIC_SCATTER
 
 // ---- the kernel ----
 
