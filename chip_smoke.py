@@ -194,12 +194,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      --gpu --bvh --stratify` once, as a subprocess;
    - K1-bvh's times and work (node tests, leaves reached = primitive tests
      per query, lane utilisation, from the counted instantiation): the
-     canonical scene at 800x600 spp32 d50 textured (beside phase 5's K1)
-     and untextured, and with its nodes in global memory; the field at
+     canonical scene at 800x600 spp32 d50 textured (beside phase 5's K1
+     and K1-bvh-ref, mode 5, which runs the same walk) and untextured, and
+     with its child-pair records in global memory; the field at
      spp8 d20 with and without rr_start=3, beside K1-cl and K1; the sweep
      of phase 10 (n 250-20,000, spp4 d10 rr_start=3) beside K1-cl; its
      bound from work no traversal avoids (a plane test a query, each hit's
-     shading; tables, nodes and frame once), as K1-cl's.
+     shading; tables, the 64-byte child-pair records and frame once), as
+     K1-cl's.
 
 14. Distribution (tracer_torch.dist) on the one card:
    - K1 and K1-rec on row bands (`row_offset`) against one launch, bit for
@@ -1164,7 +1166,7 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
     from tracer_torch.bvh import builder as bb
     from tracer_torch.bvh import native
     from tracer_torch.io import image as image_io
-    from tracer_torch.kernels import bwd, tex_scatter
+    from tracer_torch.kernels import bwd, pack, tex_scatter
     from tracer_torch.kernels import megakernel as mk
     from tracer_torch.render import camera as C
     from tracer_torch.render import driver, renderer
@@ -1204,7 +1206,7 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
     # K1-bvh against the plain traversal (and against K1)
     field, _ = sphere_field(2000, dev)
     field = field._replace(bvh=bb.build_scene_bvh_from_scene(field))
-    nodes_b = lambda s: 32 * s.bvh.left.shape[0]
+    nodes_b = lambda s: 4 * pack.pack_bvh(s, mk.BVH_STACK).numel()  # the child-pair records
     where = lambda s: "shared" if nodes_b(s) <= mk.NODE_SHARED_BYTES_MAX else "global"
     cam_c = C.camera_at(canon_p.camera_path, 0, canon_p.num_frames, 64, 48, canon_p.fov_degrees,
                         background=SKY, device=dev)
@@ -1228,8 +1230,8 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
             scene, cam, w, h, spp, depth, intersector="bvh")))
         want = out.pop("fb")
         k1 = mk.render_frame_kernel(scene, cam, w, h, spp, depth)
-        print(f"  {name}: {scene.bvh.left.shape[0]} nodes ({nodes_b(scene)} bytes) in "
-              f"{where(scene)} memory", flush=True)
+        print(f"  {name}: {scene.bvh.left.shape[0]} nodes, {nodes_b(scene) // 64} child-pair "
+              f"records ({nodes_b(scene)} bytes) in {where(scene)} memory", flush=True)
         if not compare(f"K1-bvh vs the plain traversal, {w}x{h} spp{spp} d{depth}", got, want,
                        errs):
             return f"K1-bvh and the plain traversal disagree on the {name}", None
@@ -1325,13 +1327,16 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
               f"{canon.num_spheres + canon.num_planes} tests)", flush=True)
         if name == "textured":
             canon_ms, canon_work = t_b, work
+            t_ref = best(scene, cams, W, H, 32, 50, intersector="bvh", rng_mode="reference")
+            print(f"    canonical textured {W}x{H} spp32 d50: K1-bvh-ref (mode 5, the same "
+                  f"walk on the reference stream) {t_ref:.3f} ms", flush=True)
     saved = mk.NODE_SHARED_BYTES_MAX
     mk.NODE_SHARED_BYTES_MAX = -1
     try:
         t_glob = best(canon, cams, W, H, 32, 50, intersector="bvh")
     finally:
         mk.NODE_SHARED_BYTES_MAX = saved
-    print(f"    canonical textured, K1-bvh with its nodes in global memory instead of shared: "
+    print(f"    canonical textured, K1-bvh with its records in global memory instead of shared: "
           f"{t_glob:.3f} ms", flush=True)
     frays = W * H * 8
     for rr in (None, 3):
@@ -1346,8 +1351,8 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
               f"K1-cl/K1-bvh {t_c / t_b:.3f}; per query {bvh_work_line(work)}", flush=True)
     SW_SPP, SW_D = 4, 10
     print(f"    sweep (benchmarks/prim_scaling.py): {W}x{H} spp{SW_SPP} d{SW_D} rr_start=3, its "
-          f"camera; nodes in shared memory up to {mk.NODE_SHARED_BYTES_MAX} bytes:", flush=True)
-    print("      n | BVH nodes | nodes in | K1-bvh ms | K1-bvh Mrays/s | K1-cl ms | "
+          f"camera; records in shared memory up to {mk.NODE_SHARED_BYTES_MAX} bytes:", flush=True)
+    print("      n | BVH nodes | records in | K1-bvh ms | K1-bvh Mrays/s | K1-cl ms | "
           "K1-cl/K1-bvh | K1-bvh per query")
     srays = W * H * SW_SPP
     for n in (250, 500, 1000, 2000, 5000, 10000, 20000):
@@ -1378,7 +1383,7 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
     fb_ = bound(field_work.queries * OPS_PLANE + field_work.hits * OPS_SHADE,
                 tables_b + W * H * 12)
     print(f"    bounds (work no traversal avoids: a plane test a query, each hit's shading; "
-          f"tables, nodes and frame once): field {cw}x{ch} spp{spp} d{depth} {b[0]:.6f} ms "
+          f"tables, records and frame once): field {cw}x{ch} spp{spp} d{depth} {b[0]:.6f} ms "
           f"({b[1]}); field {W}x{H} spp8 d20 {fb_[0]:.6f} ms ({fb_[1]}); canonical {W}x{H} "
           f"spp32 d50 textured {cb[0]:.6f} ms ({cb[1]}) against K1-bvh's {canon_ms:.3f} ms",
           flush=True)

@@ -30,7 +30,7 @@ import torch.distributed as dist
 
 from tracer_torch.bvh import builder as bvh_builder
 from tracer_torch.dist import sharding
-from tracer_torch.kernels import bwd, diff, megakernel, nvcc, replay, tex_scatter
+from tracer_torch.kernels import bwd, diff, megakernel, nvcc, pack, replay, tex_scatter
 from tracer_torch.render import camera, renderer
 from tracer_torch.scene import builders, config
 from tracer_torch.scene import types as T
@@ -588,7 +588,7 @@ def test_chunked_stratified_gradients_match_one_shot(dev):
 # ---- the BVH kernel (K1-bvh) ---------------------------------------------------
 
 def _bvh_case(name, dev):
-    if name == "field1000":  # 1999 nodes, 64 KB: above NODE_SHARED_BYTES_MAX
+    if name == "field1000":  # 1000 child-pair records, 64 KB: above NODE_SHARED_BYTES_MAX
         scene, _ = sphere_field(1000, dev)
         scene = scene._replace(bvh=bvh_builder.build_scene_bvh_from_scene(scene))
         params = config.read_scene_params(io.StringIO(config.default_config_text()))
@@ -609,7 +609,7 @@ def _bvh_case(name, dev):
                                                    ("field1000", None, 3)])
 def test_bvh_kernel_matches_plain(dev, name, rr_start, depth):
     scene, cam = _bvh_case(name, dev)
-    nodes = 32 * scene.bvh.left.shape[0]
+    nodes = 4 * pack.pack_bvh(scene, megakernel.BVH_STACK).numel()
     assert (nodes > megakernel.NODE_SHARED_BYTES_MAX) == (name == "field1000")
     before = (megakernel.LAUNCHES, megakernel.LAUNCHES_BVH)
     got = megakernel.render_frame_kernel(scene, cam, 64, 48, 2, depth, rr_start=rr_start,
@@ -621,12 +621,29 @@ def test_bvh_kernel_matches_plain(dev, name, rr_start, depth):
     _agree(got, megakernel.render_frame_kernel(scene, cam, 64, 48, 2, depth, rr_start=rr_start))
 
 
-def test_bvh_nodes_in_shared_and_global_memory_give_the_same_frame(dev, monkeypatch):
-    scene, cam = _bvh_case("smoke", dev)
-    shared = megakernel.render_frame_kernel(scene, cam, 64, 48, 2, 6, intersector="bvh")
+@pytest.mark.parametrize("name", ["smoke", "field1000"])
+def test_bvh_nodes_in_shared_and_global_memory_give_the_same_frame(dev, monkeypatch, name):
+    """K1-bvh, its counted instantiation and K1-bvh-ref render the same
+    frame with the child-pair records in shared and in global memory (the
+    walk's stack lives in local memory in both)."""
+    scene, cam = _bvh_case(name, dev)
+    depth = 6 if name == "smoke" else 3
+    nodes = 4 * pack.pack_bvh(scene, megakernel.BVH_STACK).numel()
+
+    def frames():
+        counts = torch.zeros(len(megakernel.COUNT_NAMES), dtype=torch.int64, device=dev)
+        return (megakernel.render_frame_kernel(scene, cam, 64, 48, 2, depth, intersector="bvh"),
+                megakernel._render_bvh(scene, cam, 64, 48, 2, depth, True, None, 0, counts),
+                megakernel.render_frame_kernel(scene, cam, 64, 48, 2, depth, intersector="bvh",
+                                               rng_mode="reference"))
+
+    monkeypatch.setattr(megakernel, "NODE_SHARED_BYTES_MAX", nodes)
+    shared = frames()
     monkeypatch.setattr(megakernel, "NODE_SHARED_BYTES_MAX", -1)
-    glob = megakernel.render_frame_kernel(scene, cam, 64, 48, 2, 6, intersector="bvh")
-    assert torch.equal(shared, glob)
+    glob = frames()
+    assert torch.equal(shared[0], shared[1])  # counting changes no decision
+    for a, b in zip(shared, glob):
+        assert torch.equal(a, b)
 
 
 def test_bvh_work_counts_the_plain_walk(dev):

@@ -19,7 +19,8 @@ cluster_k=...)`: the same estimator, with each ray testing only the
 primitives of the clusters whose box it may hit (kernels/cluster.py).
 
 With `intersector="bvh"` it launches the BVH kernel (K1-bvh), whose
-nearest hit walks `scene.bvh` with a per-thread stack: the counterpart of
+nearest hit walks `scene.bvh`'s child-pair records (kernels/pack.py:
+pack_bvh) near child first, in the plain walk's order: the counterpart of
 tracer/bvh/traverse.py:traverse, which tracer runs in XLA; its plain
 version is `render_frame(..., intersector="bvh")`
 (tracer_torch/bvh/traverse.py), the same walk in eager PyTorch.
@@ -58,7 +59,7 @@ shared memory when they take at most `TABLE_SHARED_BYTES_MAX` bytes (the
 canonical scene, about 10 KB); a larger scene, such as the 2000-sphere
 field (32 KB), takes the kernel's variant that reads them from global
 memory. K1-cl's cluster-tree nodes (kernels/cluster.py) and K1-bvh's BVH
-nodes (kernels/pack.py:pack_bvh) are staged there too when they take at
+records (kernels/pack.py:pack_bvh) are staged there too when they take at
 most `NODE_SHARED_BYTES_MAX` bytes.
 
 The kernels are compiled at first use by `nvcc` (tracer_torch.kernels.
@@ -94,9 +95,10 @@ TABLE_SHARED_BYTES_MAX = 16 * 1024
 # K1-cl's tree nodes up to this many bytes (32 a node) are staged in shared
 # memory: on the H100 that was faster for the 2000-sphere field's 8 KB and
 # slower for the 5000-sphere field's 32 KB (fewer resident blocks); PERF.md
-# has the times. K1-bvh's nodes take the same rule.
+# has the times. K1-bvh's records (64 bytes an internal node) take the same
+# rule: the canonical scene's 12.7 KB are staged, a 1000-sphere field's not.
 NODE_SHARED_BYTES_MAX = 16 * 1024
-BVH_STACK = 32  # K1-bvh's per-thread stack of node indices (BVH_STACK in csrc/megakernel.cu)
+BVH_STACK = 32  # K1-bvh's per-thread stack and depth guard (BVH_STACK in csrc/megakernel.cu)
 # the counted instantiation's counters (COUNTS in csrc/megakernel.cu)
 COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests")
 MODE_RENDER, MODE_RECORD, MODE_CLUSTERED, MODE_BVH, MODE_REF, MODE_BVH_REF = 0, 1, 2, 3, 4, 5

@@ -25,11 +25,15 @@ offsets from `JROWS`: the plane d and its texture-uv frame), and the
 camera as `CAMV_ROWS`. `csrc/common.cuh` declares the same rows in its
 `TableRow` and `CamvRow` enums.
 
-The BVH kernel reads the scene's BVH as `pack_bvh`'s node records: two
-float4s a node, (box min x, y, z, split axis or -1 for a leaf) and (box
-max x, y, z, right child or the leaf's primitive id, spheres first), the
-int fields as int32 bits. An internal node's left child is the next node,
-so the records do not hold it.
+The BVH kernel reads the scene's BVH as `pack_bvh`'s child-pair records,
+four float4s (64 bytes) a record, int fields as int32 bits. Record 0 holds
+the root as its first child: (box min x, y, z, split axis or -1 for a
+leaf), (box max x, y, z, record or primitive id); its other two float4s
+are unread zeros. Record r >= 1 belongs to the r-th internal node in node
+order and holds its two children in that form, left then right: a child's
+box, then its split axis and record if it is internal, or -1 and its
+primitive id (spheres first) if it is a leaf. So the kernel tests both
+children of a node from one record.
 """
 
 from __future__ import annotations
@@ -107,33 +111,39 @@ _BVH_CACHE_MAX = 8
 
 def _bvh_records(bvh, num_s: int, max_depth: int) -> torch.Tensor:
     left = bvh.left.detach().cpu().numpy()
+    right = bvh.right.detach().cpu().numpy()
     n = left.shape[0]
     if n == 0:
         raise ValueError("the scene's BVH has no nodes")
-    internal = np.nonzero(left >= 0)[0]
-    if not np.array_equal(left[internal], internal + 1):
-        raise ValueError("BVH node records need left == node + 1 (a preorder tree, left "
-                         "subtree first)")
-    bvh_builder.check_stack_capacity(left, bvh.right.detach().cpu().numpy())
-    depth = bvh_builder.tree_depth(left, bvh.right.detach().cpu().numpy())
+    bvh_builder.check_stack_capacity(left, right)
+    depth = bvh_builder.tree_depth(left, right)
     if depth > max_depth:
         raise ValueError(f"BVH depth {depth} exceeds the kernel's stack of {max_depth}")
+    internal = np.nonzero(left >= 0)[0]
+    record = np.zeros(n, np.int32)
+    record[internal] = np.arange(1, len(internal) + 1)
+    dev = bvh.left.device
     leaf = bvh.left < 0
+    # every node as a child: (box min, axis or -1), (box max, record or primitive)
     w_lo = torch.where(leaf, -1, bvh.axis.to(torch.int32)).to(torch.int32)
     prim = torch.where(bvh.kind == 0, bvh.right, num_s + bvh.right)
-    w_hi = torch.where(leaf, prim, bvh.right).to(torch.int32)
+    w_hi = torch.where(leaf, prim, torch.tensor(record, device=dev)).to(torch.int32)
     lo = torch.cat([bvh.box_min.float(), w_lo.view(torch.float32)[:, None]], dim=1)
     hi = torch.cat([bvh.box_max.float(), w_hi.view(torch.float32)[:, None]], dim=1)
-    return torch.stack([lo, hi], dim=1).contiguous()
+    child = torch.stack([lo, hi], dim=1)  # [n, 2, 4]
+    kids = torch.tensor(np.stack([left[internal], right[internal]], axis=1).reshape(-1),
+                        dtype=torch.int64, device=dev)
+    root = torch.cat([child[0], torch.zeros_like(child[0])])[None]
+    return torch.cat([root, child[kids].reshape(-1, 4, 4)]).contiguous()
 
 
 def pack_bvh(scene: Scene, max_depth: int) -> torch.Tensor:
-    """`[N, 2, 4]` float32 node records of `scene.bvh` (see the module
-    note) on its device, for a kernel whose stack holds `max_depth` nodes.
-    Checks on the host, once per tree, that left children follow their
-    parents and that the tree fits the stack; cached per BVH tensors while
-    they live and are not changed in place, so a cached call reads nothing
-    from the device."""
+    """`[I + 1, 4, 4]` float32 child-pair records of `scene.bvh`, I its
+    internal nodes (see the module note), on its device, for a kernel whose
+    stack holds `max_depth` entries. Checks on the host, once per tree,
+    that the tree fits the stack; cached per BVH tensors while they live
+    and are not changed in place, so a cached call reads nothing from the
+    device."""
     bvh = scene.bvh
     if bvh is None:
         raise ValueError("the scene has no BVH (builders.create_scene(with_bvh=True))")
