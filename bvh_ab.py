@@ -26,12 +26,10 @@ into its own `build/tracer_torch/`:
   than K1-bvh's must be the parent's.
 
 Each `--define` adds a variant of this tree built with `-D NAME=VALUE`
-(several, comma-separated), timed and checked beside it; a variant with a
-name that ends in `_STACK` times only the scenes whose BVH depth is at
-most VALUE + 1.
+(several, comma-separated), timed and checked beside it.
 
 The card's name and power limit (nvidia-smi) go beside the numbers; the
-summary goes to chiprun_out/bvh_ab/summary.json. Exits 1 if a frame or a
+summary goes to build/bvh_ab/summary.json. Exits 1 if a frame or a
 count differs, a ptxas line of another kernel moved, or a worker fails.
 """
 
@@ -48,7 +46,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-OUT = os.path.join(HERE, "chiprun_out", "bvh_ab")
+OUT = os.path.join(HERE, "build", "bvh_ab")
 SWEEP = (250, 500, 1000, 2000, 5000, 10000, 20000)
 W, H = 800, 600
 
@@ -105,12 +103,6 @@ def worker(tree: str, role: str, fmad: str, define: str, out: str) -> int:
     nvcc.SOURCE_FLAGS = {**nvcc.SOURCE_FLAGS, "megakernel": flags}
     build = nvcc.build_all()["megakernel"]
     dev = torch.device("cuda", 0)
-    slots = None
-    for x in defines:
-        if x.split("=")[0].endswith("_STACK"):
-            slots = int(x.split("=")[1])
-    fits = lambda s: slots is None or bb.tree_depth(s.bvh.left.cpu().numpy(),
-                                                    s.bvh.right.cpu().numpy()) <= slots + 1
     p = config.read_scene_params(io.StringIO(config.default_config_text()))
     canon = builders.create_scene(p, with_bvh=True, texture_loader=synthetic_floor, device=dev)
     cam_at = lambda k, w, h, **kw: C.camera_at(p.camera_path, k, p.num_frames, w, h,
@@ -128,8 +120,6 @@ def worker(tree: str, role: str, fmad: str, define: str, out: str) -> int:
                   "canonical 800x600 spp32 d50": (canon, cams[1], W, H, 32, 50)}
         arrays = {}
         for name, (scene, cam, w, h, spp, d) in shapes.items():
-            if not fits(scene):
-                continue
             counts = torch.zeros(len(mk.COUNT_NAMES), dtype=torch.int64, device=dev)
             arrays[f"{name}|bvh"] = mk.render_frame_kernel(scene, cam, w, h, spp, d,
                                                            intersector="bvh")
@@ -143,8 +133,6 @@ def worker(tree: str, role: str, fmad: str, define: str, out: str) -> int:
         np.savez(out + ".npz", **{k: v.cpu().numpy() for k, v in arrays.items()})
     else:
         def best(scene, cam_list, w, h, spp, depth, **kw):
-            if not fits(scene):
-                return None
             mk.render_frame_kernel(scene, cam_list[0], w, h, spp, depth, **kw)  # warm-up
             return min(cuda_ms(lambda c=c: mk.render_frame_kernel(scene, c, w, h, spp, depth,
                                                                   **kw))
@@ -259,11 +247,9 @@ def main() -> int:
         row = []
         for name in names:
             vals = [r[key] for r in times[name]]
-            row.append(f"{name} " + ", ".join("n/a" if v is None else f"{v:.3f}" for v in vals))
-        pv = [v for v in (r[key] for r in times["parent"]) if v is not None]
-        cv = [v for v in (r[key] for r in times["change"]) if v is not None]
-        ratio = f"; parent/change {min(pv) / min(cv):.3f}" if pv and cv else ""
-        print(f"  {key}: {'; '.join(row)}{ratio}", flush=True)
+            row.append(f"{name} " + ", ".join(f"{v:.3f}" for v in vals))
+        pv, cv = ([r[key] for r in times[n]] for n in ("parent", "change"))
+        print(f"  {key}: {'; '.join(row)}; parent/change {min(pv) / min(cv):.3f}", flush=True)
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump({"card": card, "device": torch.cuda.get_device_name(0), "order": order,
                    "times": times, "checks_build_s": {n: c["build_s"] for n, c in checks.items()},

@@ -375,32 +375,6 @@ def test_pack_bvh_records():
     assert rec1.view(torch.int32)[0, 0, 3] == -1 and rec1.view(torch.int32)[0, 1, 3] == 0
 
 
-def _roots(scene, o, d):
-    """`[R, S+P]` roots of every (ray, primitive) pair, spheres first, by the
-    plain traversal's own leaf tests (its gathered forms, over (T_MIN,
-    K_INFINITY))."""
-    from tracer_torch.core import T_MIN
-    from tracer_torch.geometry import plane as plane_mod
-    from tracer_torch.geometry import sphere as sphere_mod
-
-    r, n, num_s = o.shape[0], scene.num_spheres + scene.num_planes, scene.num_spheres
-    oo, dd = o.repeat_interleave(n, 0), d.repeat_interleave(n, 0)
-    k = torch.arange(n).repeat(r)
-    t = torch.full((r * n,), T.K_INFINITY)
-    if num_s:
-        s = torch.where(k < num_s, k, 0)
-        sp = scene.spheres
-        t = torch.where(k < num_s, sphere_mod.sphere_t_gathered(
-            oo, dd, sp.center[s], sp.radius[s], T_MIN, T.K_INFINITY), t)
-    if scene.num_planes:
-        q = torch.where(k < num_s, 0, k - num_s)
-        pl = scene.planes
-        t = torch.where(k < num_s, t, plane_mod.plane_t_gathered(
-            oo, dd, pl.ptype[q], pl.base[q], pl.u[q], pl.v[q], pl.normal[q], pl.d[q], pl.w[q],
-            T_MIN, T.K_INFINITY))
-    return t.reshape(r, n)
-
-
 def _walk_rays(scene, g):
     """Rays for the walk: random ones through the scene's box; rays at
     points on random primitives; rays that start on a node's box face with
@@ -481,7 +455,8 @@ def test_kernel_walk_takes_the_plain_walks_decisions(name):
     jscene, scene = _walk_scene(name)
     o, d, edge = _walk_rays(scene, np.random.default_rng(11))
     ot, dt = torch.tensor(o), torch.tensor(d)
-    t_all = _roots(scene, ot, dt).numpy()
+    # every root over (T_MIN, K_INFINITY), the bounds of the plain traversal's leaf tests
+    t_all = hit._all_ts(scene, ot, dt, 1e-3, T.K_INFINITY).numpy()
     rec = pack.pack_bvh(scene, megakernel.BVH_STACK)
     t, winner, node_tests, leaves, order = bvh_walk.walk(rec.numpy(), o, d, t_all)
     b = scene.bvh
