@@ -3,7 +3,7 @@ one CUDA device: frames, work and times of the BVH kernel and its
 reference-stream twin, the two trees in turns in one run.
 
     git archive <parent> | tar -x -C build/parent    # build/ is git-ignored
-    python3 bvh_ab.py build/parent [--define NAME=VALUE ...]
+    python3 bvh_ab.py build/parent
 
 Each tree runs in worker processes of its own (this script with
 `--worker`), which import that tree's `tracer_torch` and build its kernels
@@ -16,17 +16,14 @@ into its own `build/tracer_torch/`:
   spp2 d10, canonical 800x600 spp32 d50 textured. The frames must be
   bit-equal between the trees, and the counted launches' node tests and
   leaves equal;
-- time workers build with the default flags and time K1-bvh (CUDA events,
-  best of three cameras after a warm-up, as chip_smoke.py's phase 13) at
-  canonical 800x600 spp32 d50 textured and untextured, textured with its
-  records in global memory, K1-bvh-ref textured, the field at 800x600
-  spp8 d20 with and without rr_start=3, and the sweep over n spheres
-  (spp4 d10 rr_start=3). They run parent, change, ..., change, parent.
-  They also print each build's ptxas lines; every instantiation other
-  than K1-bvh's must be the parent's.
-
-Each `--define` adds a variant of this tree built with `-D NAME=VALUE`
-(several, comma-separated), timed and checked beside it.
+- time workers build with the default flags and time K1-bvh at the shapes
+  of this tree's chip_smoke.py phase 13 (`chip_smoke.bvh_times`, which
+  they call with their own tree's `tracer_torch`). TURNS turns run
+  parent, change, change, parent, parent, change, ...; each shape's line
+  gives every turn's time, the ratio of the best times and the spread of
+  the ratios within turns. The first time workers also print each
+  build's ptxas lines (registers, stack frame and spills); every
+  instantiation other than K1-bvh's must be the parent's.
 
 The card's name and power limit (nvidia-smi) go beside the numbers; the
 summary goes to build/bvh_ab/summary.json. Exits 1 if a frame or a
@@ -37,36 +34,20 @@ from __future__ import annotations
 
 import argparse
 import glob
+import importlib.util
 import io
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "build", "bvh_ab")
-SWEEP = (250, 500, 1000, 2000, 5000, 10000, 20000)
 W, H = 800, 600
-
-
-def synthetic_floor(_path):
-    """Stand-in for floor.jpg at its real size, as bench.py makes it."""
-    import numpy as np
-
-    return np.random.default_rng(0).uniform(0.1, 1.0, size=(1330, 2000, 3)).astype(np.float32)
-
-
-def cuda_ms(fn):
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
+TURNS = 8  # pairs of time workers, one of each tree
 
 
 def ptxas_lines(log: str) -> dict:
@@ -77,8 +58,8 @@ def ptxas_lines(log: str) -> dict:
         if m:  # without the anonymous namespace's per-file hash
             name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1))
             out[name] = []
-        elif name and "ptxas info" in line and ("Used" in line or "spill" in line):
-            out[name].append(line.split(":", 1)[1].strip())
+        elif name and ("Used" in line or "spill" in line):
+            out[name].append(line.strip().removeprefix("ptxas info    : "))
     return out
 
 
@@ -87,24 +68,29 @@ def is_bvh(name: str) -> bool:
     return re.search(r"trace_kernelILb\dELi2E", name) is not None
 
 
-def worker(tree: str, role: str, fmad: str, define: str, out: str) -> int:
+def worker(tree: str, role: str, out: str) -> int:
     sys.path[:0] = [tree, os.path.join(HERE, "tests")]
     import torch
 
-    from torch_scenes import SKY, sphere_field, sphere_field_camera
+    from torch_scenes import SKY, sphere_field
     from tracer_torch.bvh import builder as bb
     from tracer_torch.kernels import megakernel as mk
     from tracer_torch.kernels import nvcc
     from tracer_torch.render import camera as C
     from tracer_torch.scene import builders, config
 
-    defines = define.split(",") if define else []
-    flags = (("-fmad=false",) if fmad == "off" else ()) + tuple(f"-D{x}" for x in defines)
-    nvcc.SOURCE_FLAGS = {**nvcc.SOURCE_FLAGS, "megakernel": flags}
+    # this tree's chip_smoke.py, whatever tree the worker renders
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    if role == "check":
+        nvcc.SOURCE_FLAGS = {**nvcc.SOURCE_FLAGS, "megakernel": ("-fmad=false",)}
     build = nvcc.build_all()["megakernel"]
     dev = torch.device("cuda", 0)
     p = config.read_scene_params(io.StringIO(config.default_config_text()))
-    canon = builders.create_scene(p, with_bvh=True, texture_loader=synthetic_floor, device=dev)
+    canon = builders.create_scene(p, with_bvh=True, texture_loader=smoke.synthetic_floor,
+                                  device=dev)
     cam_at = lambda k, w, h, **kw: C.camera_at(p.camera_path, k, p.num_frames, w, h,
                                                p.fov_degrees, device=dev, **kw)
     field, _ = sphere_field(2000, dev)
@@ -132,43 +118,17 @@ def worker(tree: str, role: str, fmad: str, define: str, out: str) -> int:
         torch.cuda.synchronize()
         np.savez(out + ".npz", **{k: v.cpu().numpy() for k, v in arrays.items()})
     else:
-        def best(scene, cam_list, w, h, spp, depth, **kw):
-            mk.render_frame_kernel(scene, cam_list[0], w, h, spp, depth, **kw)  # warm-up
-            return min(cuda_ms(lambda c=c: mk.render_frame_kernel(scene, c, w, h, spp, depth,
-                                                                  **kw))
-                       for c in cam_list[1:])
-
-        t = {}
-        t["canonical textured spp32 d50"] = best(canon, cams, W, H, 32, 50, intersector="bvh")
-        t["canonical untextured spp32 d50"] = best(canon._replace(textures=None), cams, W, H,
-                                                   32, 50, intersector="bvh")
-        saved, mk.NODE_SHARED_BYTES_MAX = mk.NODE_SHARED_BYTES_MAX, -1
-        t["canonical textured, records in global memory"] = best(canon, cams, W, H, 32, 50,
-                                                                 intersector="bvh")
-        mk.NODE_SHARED_BYTES_MAX = saved
-        t["K1-bvh-ref canonical textured spp32 d50"] = best(canon, cams, W, H, 32, 50,
-                                                            intersector="bvh",
-                                                            rng_mode="reference")
-        for rr in (None, 3):
-            t[f"field n=2000 spp8 d20 rr_start={rr}"] = best(field, cams, W, H, 8, 20,
-                                                             intersector="bvh", rr_start=rr)
-        for n in SWEEP:
-            scene_n, cols = sphere_field(n, dev)
-            scene_n = scene_n._replace(bvh=bb.build_scene_bvh_from_scene(scene_n))
-            cam_n = sphere_field_camera(cols, W, H, dev)
-            t[f"sweep n={n} spp4 d10 rr_start=3"] = best(scene_n, [cam_n] * 4, W, H, 4, 10,
-                                                          rr_start=3, intersector="bvh")
-        res["ms"] = t
+        res["ms"] = smoke.bvh_times(dev, canon, field, cams, W, H)
     with open(out + ".json", "w") as f:
         json.dump(res, f)
     return 0
 
 
-def run_worker(tree, role, fmad, define, tag):
+def run_worker(tree, role, tag):
     out = os.path.join(OUT, tag)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree, role, fmad,
-                           define or "", out], capture_output=True, text=True, timeout=1500)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree, role, out],
+                          capture_output=True, text=True, timeout=1500)
     print(f"  worker {tag}: rc {proc.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
     if proc.returncode != 0:
         print(proc.stdout[-2000:] + proc.stderr[-4000:], flush=True)
@@ -179,11 +139,9 @@ def run_worker(tree, role, fmad, define, tag):
 
 def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
-        return worker(*sys.argv[2:7])
+        return worker(*sys.argv[2:5])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", help="a checkout of the tree to compare with")
-    ap.add_argument("--define", action="append", default=[],
-                    help="a variant of this tree built with -D NAME=VALUE")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -194,62 +152,58 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
-    parent = os.path.abspath(args.parent)
-    trees = {"parent": (parent, None), "change": (HERE, None)}
-    for k, d in enumerate(args.define):
-        trees[f"variant {d}"] = (HERE, d)
-    print(f"bvh_ab on {torch.cuda.get_device_name(0)} ({card}); trees {list(trees)}", flush=True)
-    for tree in {t for t, _ in trees.values()}:  # so that the first workers print ptxas lines
+    trees = {"parent": os.path.abspath(args.parent), "change": HERE}
+    print(f"bvh_ab on {torch.cuda.get_device_name(0)} ({card}); {TURNS} turns", flush=True)
+    for tree in trees.values():  # so that the first workers print ptxas lines
         for lib in glob.glob(os.path.join(tree, "build", "tracer_torch", "libtracer_megakernel-*")):
             os.remove(lib)
     ok = True
     # frames and work, built with -fmad=false
-    checks = {name: run_worker(tree, "check", "off", define, f"check-{k}")
-              for k, (name, (tree, define)) in enumerate(trees.items())}
-    frames = {name: np.load(os.path.join(OUT, f"check-{k}.npz"))
-              for k, name in enumerate(trees)}
-    base = frames["parent"]
-    for name in list(trees)[1:]:
-        for key in frames[name].files:
-            same = np.array_equal(base[key], frames[name][key])
-            ok &= same
-            extra = ""
-            if key.endswith("|counts"):
-                c = dict(zip(("queries", "hits", "visits", "tests", "passes", "active_lanes",
-                              "node_tests"), frames[name][key].tolist()))
-                extra = f" {c}"
-            print(f"  -fmad=false {name} vs parent, {key}: {'equal' if same else 'DIFFER'}{extra}",
-                  flush=True)
-    # times, in turns: parent, change, variants, variants reversed, change, parent
-    names = list(trees)
-    order = names + names[::-1]
-    times = {name: [] for name in names}
+    checks = {name: run_worker(tree, "check", f"check-{name}") for name, tree in trees.items()}
+    base, new = (np.load(os.path.join(OUT, f"check-{name}.npz")) for name in trees)
+    for key in new.files:
+        same = np.array_equal(base[key], new[key])
+        ok &= same
+        extra = ""
+        if key.endswith("|counts"):
+            c = dict(zip(("queries", "hits", "visits", "tests", "passes", "active_lanes",
+                          "node_tests"), new[key].tolist()))
+            extra = f" {c}"
+        print(f"  -fmad=false change vs parent, {key}: {'equal' if same else 'DIFFER'}{extra}",
+              flush=True)
+    # times, in turns: parent, change, change, parent, parent, change, ...
+    order = [name for k in range(TURNS)
+             for name in (("parent", "change") if k % 2 == 0 else ("change", "parent"))]
+    times = {name: [] for name in trees}
     for k, name in enumerate(order):
-        tree, define = trees[name]
-        res = run_worker(tree, "time", "on", define, f"time-{k}")
+        res = run_worker(trees[name], "time", f"time-{k}")
         times[name].append(res["ms"])
-        if k < len(names):
-            if name == "parent":
-                parent_ptx = res["ptxas"]
-            else:
-                moved = [n for n in set(parent_ptx) | set(res["ptxas"])
-                         if not is_bvh(n) and parent_ptx.get(n) != res["ptxas"].get(n)]
-                ok &= not moved
-                print(f"  ptxas, {name}: {len(moved)} non-BVH instantiations differ from the "
-                      f"parent's {moved}", flush=True)
-                for n, lines in sorted(res["ptxas"].items()):
-                    if is_bvh(n):
-                        print(f"    {n}: {' | '.join(lines)} (parent: "
-                              f"{' | '.join(parent_ptx.get(n, ['-']))})", flush=True)
+        if k == 0:
+            parent_ptx = res["ptxas"]
+        elif k == 1:
+            moved = [n for n in set(parent_ptx) | set(res["ptxas"])
+                     if not is_bvh(n) and parent_ptx.get(n) != res["ptxas"].get(n)]
+            ok &= not moved
+            print(f"  ptxas: {len(moved)} non-BVH instantiations differ from the parent's {moved}",
+                  flush=True)
+            for n, lines in sorted(res["ptxas"].items()):
+                if is_bvh(n):
+                    print(f"    {n}: {' | '.join(lines)} (parent: "
+                          f"{' | '.join(parent_ptx.get(n, ['-']))})", flush=True)
     print(f"times in ms on {torch.cuda.get_device_name(0)} ({card}), run order {order}:",
           flush=True)
+    def median_iqr(v):
+        q = statistics.quantiles(v, n=4)
+        return f"median {statistics.median(v):.3f}, quartiles {q[2] - q[0]:.3f} apart"
+
     for key in times["parent"][0]:
-        row = []
-        for name in names:
-            vals = [r[key] for r in times[name]]
-            row.append(f"{name} " + ", ".join(f"{v:.3f}" for v in vals))
         pv, cv = ([r[key] for r in times[n]] for n in ("parent", "change"))
-        print(f"  {key}: {'; '.join(row)}; parent/change {min(pv) / min(cv):.3f}", flush=True)
+        turns = [p / c for p, c in zip(pv, cv)]
+        print(f"  {key}: parent {', '.join(f'{v:.3f}' for v in pv)} ({median_iqr(pv)}); change "
+              f"{', '.join(f'{v:.3f}' for v in cv)} ({median_iqr(cv)}); change faster in "
+              f"{sum(t > 1 for t in turns)} of {TURNS} turns; parent/change of the best "
+              f"{min(pv) / min(cv):.3f}, within turns {min(turns):.3f}-{max(turns):.3f} "
+              f"(median {statistics.median(turns):.3f})", flush=True)
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump({"card": card, "device": torch.cuda.get_device_name(0), "order": order,
                    "times": times, "checks_build_s": {n: c["build_s"] for n, c in checks.items()},

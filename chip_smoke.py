@@ -1152,6 +1152,60 @@ def bvh_work_line(work):
             f"(= primitive tests), lane utilisation {work.lane_utilisation:.4f}")
 
 
+BVH_SWEEP = (250, 500, 1000, 2000, 5000, 10000, 20000)  # benchmarks/prim_scaling.py's n
+SW_SPP, SW_D = 4, 10
+
+
+def best_of_cameras(scene, cam_list, w, h, spp, depth, **kw):
+    """render_frame_kernel's best time over cam_list[1:] after a warm-up on
+    cam_list[0], in ms (CUDA events)."""
+    from tracer_torch.kernels import megakernel as mk
+
+    mk.render_frame_kernel(scene, cam_list[0], w, h, spp, depth, **kw)
+    return min(cuda_ms(lambda c=c: mk.render_frame_kernel(scene, c, w, h, spp, depth, **kw))
+               for c in cam_list[1:])
+
+
+def sweep_scene(n, dev, w, h):
+    """The sweep's field of n spheres with its BVH, and its camera."""
+    from torch_scenes import sphere_field, sphere_field_camera
+
+    from tracer_torch.bvh import builder as bb
+
+    scene, cols = sphere_field(n, dev)
+    return (scene._replace(bvh=bb.build_scene_bvh_from_scene(scene)),
+            sphere_field_camera(cols, w, h, dev))
+
+
+def bvh_times(dev, canon, field, cams, w, h):
+    """K1-bvh's timed shapes, {shape: best_of_cameras ms}: the canonical
+    scene (`canon`, textured, with its BVH) at spp32 d50 textured,
+    untextured, with its records in global memory, and K1-bvh-ref textured;
+    the 2000-sphere `field` at spp8 d20 with and without rr_start=3; the
+    sweep. Phase 13 prints them; bvh_ab.py times them on two trees."""
+    from tracer_torch.kernels import megakernel as mk
+
+    def t(scene, cam_list, spp, depth, **kw):
+        return best_of_cameras(scene, cam_list, w, h, spp, depth, intersector="bvh", **kw)
+
+    out = {"canonical textured spp32 d50": t(canon, cams, 32, 50),
+           "canonical untextured spp32 d50": t(canon._replace(textures=None), cams, 32, 50),
+           "K1-bvh-ref canonical textured spp32 d50": t(canon, cams, 32, 50,
+                                                         rng_mode="reference")}
+    saved, mk.NODE_SHARED_BYTES_MAX = mk.NODE_SHARED_BYTES_MAX, -1
+    try:
+        out["canonical textured, records in global memory"] = t(canon, cams, 32, 50)
+    finally:
+        mk.NODE_SHARED_BYTES_MAX = saved
+    for rr in (None, 3):
+        out[f"field n=2000 spp8 d20 rr_start={rr}"] = t(field, cams, 8, 20, rr_start=rr)
+    for n in BVH_SWEEP:
+        scene_n, cam_n = sweep_scene(n, dev, w, h)
+        out[f"sweep n={n} spp{SW_SPP} d{SW_D} rr_start=3"] = t(scene_n, [cam_n] * 4, SW_SPP,
+                                                               SW_D, rr_start=3)
+    return out
+
+
 def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
     """Phase 13: the BVH path. The builders' times; K1-bvh against the
     plain traversal; the slice's main path, render_animation(engine="cuda",
@@ -1161,7 +1215,7 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
     import numpy as np
     import torch
 
-    from torch_scenes import SKY, sphere_field, sphere_field_camera, sphere_field_fields
+    from torch_scenes import SKY, sphere_field, sphere_field_fields
 
     from tracer_torch.bvh import builder as bb
     from tracer_torch.bvh import native
@@ -1310,16 +1364,11 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
     print(f"  times on {kind} ({card}), CUDA events, best of 3 after a warm-up; work from the "
           f"counted instantiation (megakernel.loop_work):", flush=True)
     untex = canon._replace(textures=None)
-
-    def best(scene, cam_list, w, h, spp, depth, **kw):
-        mk.render_frame_kernel(scene, cam_list[0], w, h, spp, depth, **kw)  # warm-up
-        return min(cuda_ms(lambda c=c: mk.render_frame_kernel(scene, c, w, h, spp, depth, **kw))
-                   for c in cam_list[1:])
-
+    t_bvh = bvh_times(dev, canon, field, cams, W, H)
     rays = W * H * 32
     for name, scene in (("textured", canon), ("untextured", untex)):
-        t_b = best(scene, cams, W, H, 32, 50, intersector="bvh")
-        t_k = best(scene, cams, W, H, 32, 50) if name == "untextured" else k1_ms
+        t_b = t_bvh[f"canonical {name} spp32 d50"]
+        t_k = best_of_cameras(scene, cams, W, H, 32, 50) if name == "untextured" else k1_ms
         work = mk.loop_work(scene, cams[1], W, H, 32, 50, intersector="bvh")
         print(f"    canonical {name} {W}x{H} spp32 d50: K1-bvh {t_b:.3f} ms = "
               f"{rays / t_b / 1e3:.3f} Mrays/s, K1 {t_k:.3f} ms ({'phase 5' if name == 'textured' else 'now'}), "
@@ -1327,40 +1376,32 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
               f"{canon.num_spheres + canon.num_planes} tests)", flush=True)
         if name == "textured":
             canon_ms, canon_work = t_b, work
-            t_ref = best(scene, cams, W, H, 32, 50, intersector="bvh", rng_mode="reference")
+            t_ref = t_bvh["K1-bvh-ref canonical textured spp32 d50"]
             print(f"    canonical textured {W}x{H} spp32 d50: K1-bvh-ref (mode 5, the same "
                   f"walk on the reference stream) {t_ref:.3f} ms", flush=True)
-    saved = mk.NODE_SHARED_BYTES_MAX
-    mk.NODE_SHARED_BYTES_MAX = -1
-    try:
-        t_glob = best(canon, cams, W, H, 32, 50, intersector="bvh")
-    finally:
-        mk.NODE_SHARED_BYTES_MAX = saved
     print(f"    canonical textured, K1-bvh with its records in global memory instead of shared: "
-          f"{t_glob:.3f} ms", flush=True)
+          f"{t_bvh['canonical textured, records in global memory']:.3f} ms", flush=True)
     frays = W * H * 8
     for rr in (None, 3):
-        t_b = best(field, cams, W, H, 8, 20, intersector="bvh", rr_start=rr)
-        t_c = best(field, cams, W, H, 8, 20, cluster_k=CLUSTER_K, rr_start=rr)
-        t_k = best(field, cams, W, H, 8, 20, rr_start=rr)
+        t_b = t_bvh[f"field n=2000 spp8 d20 rr_start={rr}"]
+        t_c = best_of_cameras(field, cams, W, H, 8, 20, cluster_k=CLUSTER_K, rr_start=rr)
+        t_k = best_of_cameras(field, cams, W, H, 8, 20, rr_start=rr)
         work = mk.loop_work(field, cams[1], W, H, 8, 20, intersector="bvh", rr_start=rr)
         if rr is None:
             field_work = work
         print(f"    sphere field n=2000 {W}x{H} spp8 d20 rr_start={rr}: K1-bvh {t_b:.3f} ms = "
               f"{frays / t_b / 1e3:.3f} Mrays/s, K1-cl {t_c:.3f} ms, K1 {t_k:.3f} ms; "
               f"K1-cl/K1-bvh {t_c / t_b:.3f}; per query {bvh_work_line(work)}", flush=True)
-    SW_SPP, SW_D = 4, 10
     print(f"    sweep (benchmarks/prim_scaling.py): {W}x{H} spp{SW_SPP} d{SW_D} rr_start=3, its "
           f"camera; records in shared memory up to {mk.NODE_SHARED_BYTES_MAX} bytes:", flush=True)
     print("      n | BVH nodes | records in | K1-bvh ms | K1-bvh Mrays/s | K1-cl ms | "
           "K1-cl/K1-bvh | K1-bvh per query")
     srays = W * H * SW_SPP
-    for n in (250, 500, 1000, 2000, 5000, 10000, 20000):
-        scene_n, cols_n = sphere_field(n, dev)
-        scene_n = scene_n._replace(bvh=bb.build_scene_bvh_from_scene(scene_n))
-        cam_n = sphere_field_camera(cols_n, W, H, dev)
-        t_b = best(scene_n, [cam_n] * 4, W, H, SW_SPP, SW_D, rr_start=3, intersector="bvh")
-        t_c = best(scene_n, [cam_n] * 4, W, H, SW_SPP, SW_D, rr_start=3, cluster_k=CLUSTER_K)
+    for n in BVH_SWEEP:
+        scene_n, cam_n = sweep_scene(n, dev, W, H)
+        t_b = t_bvh[f"sweep n={n} spp{SW_SPP} d{SW_D} rr_start=3"]
+        t_c = best_of_cameras(scene_n, [cam_n] * 4, W, H, SW_SPP, SW_D, rr_start=3,
+                              cluster_k=CLUSTER_K)
         w_n = mk.loop_work(scene_n, cam_n, W, H, SW_SPP, SW_D, rr_start=3, intersector="bvh")
         print(f"      {n} | {scene_n.bvh.left.shape[0]} | {where(scene_n)} | {t_b:.3f} | "
               f"{srays / t_b / 1e3:.3f} | {t_c:.3f} | {t_c / t_b:.3f} | {bvh_work_line(w_n)}",
