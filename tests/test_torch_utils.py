@@ -14,7 +14,6 @@ import io
 import os
 import subprocess
 import sys
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -24,7 +23,6 @@ import torch
 from tracer.io import image as jax_image
 from tracer.io import native as jax_native
 from tracer.utils import debug as jax_debug
-from tracer.utils import profiling as jax_profiling
 from tracer.utils import resilience as jax_resilience
 from tracer_torch.dist import sharding
 from tracer_torch.io import image as image_io
@@ -206,23 +204,6 @@ def test_driver_refuses_retries_with_a_mesh(tmp_path):
 
 
 # ---- profiling -----------------------------------------------------------------
-
-def test_time_fn_returns_the_median_and_the_last_result():
-    delays = iter([0.0, 0.03, 0.001, 0.05])  # warm-up, then three timed runs
-
-    def fn(x):
-        time.sleep(next(delays))
-        return torch.full((2,), x)
-
-    seconds, out = profiling.time_fn(fn, 3.0, iters=3)
-    assert 0.025 <= seconds < 0.045  # the median of 0.03, 0.001, 0.05
-    assert torch.equal(out, torch.full((2,), 3.0))
-
-
-def test_mrays_per_s_matches_tracer():
-    assert profiling.mrays_per_s(1080, 720, 16, 0.25) == jax_profiling.mrays_per_s(
-        1080, 720, 16, 0.25)
-
 
 def test_profile_trace_on_the_cpu_writes_a_chrome_trace(tmp_path):
     log_dir = tmp_path / "prof"

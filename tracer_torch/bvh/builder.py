@@ -28,6 +28,7 @@ import torch
 
 from tracer_torch.geometry import aabb as aabb_mod
 from tracer_torch.scene.types import BVHArrays
+from tracer_torch.utils import profiling
 
 KIND_SPHERE = 0  # bvh_builder.h:108 (type 0)
 KIND_PLANE = 1  # bvh_builder.h:114 (type 1)
@@ -208,13 +209,14 @@ def _build(lo, hi, centroid, kind, index):
 def build_bvh_arrays(sphere_center, sphere_radius, plane_base, plane_u, plane_v, plane_type,
                      device) -> BVHArrays:
     """Primitives -> boxes -> flat BVH, as tensors on `device`."""
-    lo, hi, cent, kind, index = primitive_boxes(
-        sphere_center, sphere_radius, plane_base, plane_u, plane_v, plane_type
-    )
-    bmin, bmax, left, right, nkind, axis = _build(lo, hi, cent, kind, index)
-    check_stack_capacity(left, right)
-    return BVHArrays(*(torch.tensor(a, device=device)
-                       for a in (bmin, bmax, left, right, nkind, axis)))
+    with profiling.span("tracer.bvh.build"):
+        lo, hi, cent, kind, index = primitive_boxes(
+            sphere_center, sphere_radius, plane_base, plane_u, plane_v, plane_type
+        )
+        bmin, bmax, left, right, nkind, axis = _build(lo, hi, cent, kind, index)
+        check_stack_capacity(left, right)
+        return BVHArrays(*(torch.tensor(a, device=device)
+                           for a in (bmin, bmax, left, right, nkind, axis)))
 
 
 def build_scene_bvh(buf, device) -> BVHArrays:

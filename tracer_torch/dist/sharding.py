@@ -41,6 +41,7 @@ import torch.distributed as dist
 from tracer_torch.kernels import bwd, megakernel, replay
 from tracer_torch.render import camera as camera_mod
 from tracer_torch.render import renderer
+from tracer_torch.utils import profiling
 
 AXIS = "tiles"
 
@@ -115,10 +116,12 @@ def _frame_by_bands(render, scene, cam, width, height, mesh, **kw):
     """The whole frame from each rank's row band, rendered by `render`
     (render_frame_kernel, which dispatches by the scene's device)."""
     row0, rows = row_band(height, mesh.size, mesh.rank)
-    fb = torch.zeros((height, width, 3), dtype=torch.float32, device=mesh.device)
-    if rows:
-        fb[row0:row0 + rows] = render(scene, cam, width, rows, row_offset=row0, **kw)
-    dist.all_reduce(fb, op=dist.ReduceOp.SUM, group=mesh.group)
+    with profiling.span("tracer.band.render"):
+        fb = torch.zeros((height, width, 3), dtype=torch.float32, device=mesh.device)
+        if rows:
+            fb[row0:row0 + rows] = render(scene, cam, width, rows, row_offset=row0, **kw)
+    with profiling.span("tracer.band.all_reduce"):
+        dist.all_reduce(fb, op=dist.ReduceOp.SUM, group=mesh.group)
     return fb
 
 

@@ -82,6 +82,7 @@ from tracer_torch.kernels import nvcc
 from tracer_torch.kernels import pack as pack_mod
 from tracer_torch.render import camera as camera_mod
 from tracer_torch.render import integrator, renderer
+from tracer_torch.utils import profiling
 
 LAUNCHES = 0  # launches of the forward kernel since import (or since reset to 0)
 LAUNCHES_RECORD = 0  # launches of the record-mode kernel
@@ -228,7 +229,8 @@ def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth
     cluster-culled kernel over clusters of at most that many primitives,
     `intersector="bvh"` the BVH kernel ("brute" and "fast" the brute one),
     `rng_mode="reference"` the reference-stream kernel K1-ref (brute or
-    BVH; it refuses `rr_start` and `cluster_k` > 0).
+    BVH; it refuses `rr_start` and `cluster_k` > 0). The host side of a
+    CUDA launch is the span `tracer.launch` (utils/profiling.span).
     """
     if scene.device.type == "cpu":
         return renderer.render_frame(scene, cam, width, height, spp, max_depth,
@@ -239,20 +241,22 @@ def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth
                                      rng_mode=rng_mode)
     if scene.device.type != "cuda":
         raise ValueError(f"render_frame_kernel: no kernel for device {scene.device}")
-    k = camera_mod.strat_grid(stratify, spp, strat_sqrt_spp)
-    integrator.check_intersector(intersector, scene)
-    args = (scene, cam, width, height, spp, max_depth, reference_quirk, rr_start, sample_start)
-    if integrator.check_rng_mode(rng_mode, rr_start) == "reference":
+    with profiling.span("tracer.launch"):
+        k = camera_mod.strat_grid(stratify, spp, strat_sqrt_spp)
+        integrator.check_intersector(intersector, scene)
+        args = (scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
+                sample_start)
+        if integrator.check_rng_mode(rng_mode, rr_start) == "reference":
+            if cluster_mod.check_k(cluster_k):
+                raise ValueError("cluster_k > 0 runs the fixed-budget RNG stream only")
+            return _render_ref(*args, None, intersector, strat_k=k, row_offset=row_offset)
         if cluster_mod.check_k(cluster_k):
-            raise ValueError("cluster_k > 0 runs the fixed-budget RNG stream only")
-        return _render_ref(*args, None, intersector, strat_k=k, row_offset=row_offset)
-    if cluster_mod.check_k(cluster_k):
+            if intersector == "bvh":
+                raise ValueError("intersector 'bvh' and cluster_k > 0 exclude each other")
+            return _render_clustered(*args, cluster_k, None, strat_k=k, row_offset=row_offset)
         if intersector == "bvh":
-            raise ValueError("intersector 'bvh' and cluster_k > 0 exclude each other")
-        return _render_clustered(*args, cluster_k, None, strat_k=k, row_offset=row_offset)
-    if intersector == "bvh":
-        return _render_bvh(*args, None, strat_k=k, row_offset=row_offset)
-    return _render(*args, None, strat_k=k, row_offset=row_offset)
+            return _render_bvh(*args, None, strat_k=k, row_offset=row_offset)
+        return _render(*args, None, strat_k=k, row_offset=row_offset)
 
 
 def _forward(mode, scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,

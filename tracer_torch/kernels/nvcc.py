@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, NamedTuple
 
+from tracer_torch.utils import profiling
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tracer_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -68,25 +70,27 @@ def build_all() -> Dict[str, Build]:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        procs = {}
-        for stem, path in missing.items():
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            procs[stem] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(stem, ()), "-o", str(tmp),
-                 str(CSRC_DIR / f"{stem}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        failed = []
-        for stem, (tmp, proc) in procs.items():
-            logs[stem] = proc.communicate()[0]
-            if proc.returncode != 0:
-                failed.append(f"{stem}.cu ({proc.returncode}):\n{logs[stem]}")
-            else:
-                os.replace(tmp, missing[stem])  # atomic: never load half a file
+        with profiling.span("tracer.kernels.build"):
+            procs = {}
+            for stem, path in missing.items():
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                procs[stem] = (tmp, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(stem, ()), "-o", str(tmp),
+                     str(CSRC_DIR / f"{stem}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            failed = []
+            for stem, (tmp, proc) in procs.items():
+                logs[stem] = proc.communicate()[0]
+                if proc.returncode != 0:
+                    failed.append(f"{stem}.cu ({proc.returncode}):\n{logs[stem]}")
+                else:
+                    os.replace(tmp, missing[stem])  # atomic: never load half a file
         seconds = time.perf_counter() - t0
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {stem: Build(ctypes.CDLL(str(path)), path, seconds if stem in missing else 0.0,
-                        logs.get(stem, "")) for stem, path in todo.items()}
+    with profiling.span("tracer.kernels.load"):
+        return {stem: Build(ctypes.CDLL(str(path)), path, seconds if stem in missing else 0.0,
+                            logs.get(stem, "")) for stem, path in todo.items()}
 
 
 def library(stem: str) -> ctypes.CDLL:
