@@ -1,6 +1,6 @@
-"""K1-bvh of this tree against K1-bvh of another checkout (its parent), on
-one CUDA device: frames, work and times of the BVH kernel and its
-reference-stream twin, the two trees in turns in one run.
+"""The nearest-hit kernels of this tree against those of another checkout
+(its parent), on one CUDA device: frames, work and times, the two trees in
+turns in one run.
 
     git archive <parent> | tar -x -C build/parent    # build/ is git-ignored
     python3 bvh_ab.py build/parent
@@ -9,25 +9,33 @@ Each tree runs in worker processes of its own (this script with
 `--worker`), which import that tree's `tracer_torch` and build its kernels
 into its own `build/tracer_torch/`:
 
+- a ptxas worker builds megakernel.cu with the default flags and reads its
+  ptxas lines (registers, stack frame and spills). The instantiations
+  whose lines differ from the parent's are printed beside the parent's,
+  and name the families that the time workers time: the brute kernels
+  (K1, K1-rec, brute K1-ref: ISECT 0) and the BVH kernels (K1-bvh,
+  K1-bvh-ref: ISECT 2);
 - check workers build megakernel.cu with `-fmad=false`, so that every
-  float operation rounds as written, and render K1-bvh (its uncounted and
-  its counted instantiation, with the counters) and K1-bvh-ref at three
+  float operation rounds as written, and render both families at three
   shapes: canonical 64x48 spp2 d5 textured, the 2000-sphere field 256x192
-  spp2 d10, canonical 800x600 spp32 d50 textured. The frames must be
-  bit-equal between the trees, and the counted launches' node tests and
-  leaves equal;
-- time workers build with the default flags and time K1-bvh at the shapes
-  of this tree's chip_smoke.py phase 13 (`chip_smoke.bvh_times`, which
-  they call with their own tree's `tracer_torch`). TURNS turns run
+  spp2 d10, canonical 800x600 spp32 d50 textured. K1, K1-bvh (uncounted
+  and counted, with the counters), K1-ref and K1-bvh-ref, and on the
+  canonical scene K1-rec's frame, index tape and 13-field texture tape at
+  spp2 (by their sha256). Frames and tapes must be bit-equal between the
+  trees, and the counted launches' queries, hits, passes and active lanes
+  equal; their work counters (groups or leaves reached, primitive tests,
+  node tests) too, in a family whose ptxas lines did not move;
+- time workers build with the default flags and time the moved families:
+  K1-bvh at the shapes of this tree's chip_smoke.py phase 13
+  (`chip_smoke.bvh_times`), the brute kernels at `k1_times`' shapes, each
+  called with the worker's own tree's `tracer_torch`. TURNS turns run
   parent, change, change, parent, parent, change, ...; each shape's line
   gives every turn's time, the ratio of the best times and the spread of
-  the ratios within turns. The first time workers also print each
-  build's ptxas lines (registers, stack frame and spills); every
-  instantiation other than K1-bvh's must be the parent's.
+  the ratios within turns.
 
 The card's name and power limit (nvidia-smi) go beside the numbers; the
-summary goes to build/bvh_ab/summary.json. Exits 1 if a frame or a
-count differs, a ptxas line of another kernel moved, or a worker fails.
+summary goes to build/bvh_ab/summary.json. Exits 1 if a frame, a tape or
+a count differs, or a worker fails.
 """
 
 from __future__ import annotations
@@ -63,12 +71,71 @@ def ptxas_lines(log: str) -> dict:
     return out
 
 
-def is_bvh(name: str) -> bool:
-    """K1-bvh's instantiations (ISECT == BVH == 2), K1-bvh-ref's included."""
-    return re.search(r"trace_kernelILb\dELi2E", name) is not None
+def family(name: str):
+    """"brute" for K1's, K1-rec's and brute K1-ref's instantiations (ISECT
+    0), "bvh" for K1-bvh's and K1-bvh-ref's (ISECT 2), else None."""
+    m = re.search(r"trace_kernelILb\dELi(\d)E", name)
+    return {"0": "brute", "2": "bvh"}.get(m.group(1)) if m else None
 
 
-def worker(tree: str, role: str, out: str) -> int:
+# the counters that the answers fix; the others count a family's own work
+SAME = ("queries", "hits", "passes", "active_lanes")
+
+
+def k1_times(smoke, dev, canon, cams, p):
+    """The brute kernels' timed shapes, {shape: ms}: K1 on the canonical
+    scene at 800x600 spp32 d50 textured (best of cams[1:]) and with its
+    records in global memory, K1-ref there, the sum of one 172-spp launch
+    at 1080x720 d50 (the benchmark's chunk) on frames 0, 4, 8 and 12,
+    K1-rec at 800x600 spp32 d8 with 9 and 13 tape fields (the fit's shape;
+    its tapes' fill included), and one l2_grads_deep(texture_grads=True)
+    step at 800x600 spp32 d50 in chunks of 8 (chip_smoke.py's main
+    gradient path; host clock, best of 2)."""
+    import torch
+
+    from tracer_torch.kernels import bwd
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import camera as C
+
+    def t(**kw):
+        return smoke.best_of_cameras(canon, cams, W, H, 32, 50, **kw)
+
+    out = {"canonical textured spp32 d50": t(),
+           "K1-ref canonical textured spp32 d50": t(rng_mode="reference")}
+    saved, mk.TABLE_SHARED_BYTES_MAX = mk.TABLE_SHARED_BYTES_MAX, -1
+    try:
+        out["canonical textured, records in global memory"] = t()
+    finally:
+        mk.TABLE_SHARED_BYTES_MAX = saved
+    frames = [C.camera_at(p.camera_path, k, p.num_frames, 1080, 720, p.fov_degrees, device=dev)
+              for k in (0, 4, 8, 12)]
+    mk.render_frame_kernel(canon, frames[0], 1080, 720, 172, 50)
+    out["1080x720 spp172 d50, frames 0, 4, 8, 12"] = sum(
+        smoke.cuda_ms(lambda c=c: mk.render_frame_kernel(canon, c, 1080, 720, 172, 50))
+        for c in frames)
+    for fields in (9, 13):
+        rec = lambda c: mk.render_frame_kernel_record(canon, c, W, H, 32, 8, tape_fields=fields)
+        rec(cams[0])
+        out[f"K1-rec spp32 d8, {fields} fields"] = min(smoke.cuda_ms(lambda c=c: rec(c))
+                                                       for c in cams[1:])
+    truth = canon._replace(materials=canon.materials._replace(
+        albedo=canon.materials.albedo * 0.85))
+    target = mk.render_frame_kernel(truth, cams[1], W, H, 32, 50) / 32
+    step = lambda: bwd.l2_grads_deep(canon, cams[1], target, W, H, 32, 50, spp_chunk=8,
+                                     texture_grads=True)
+    step()
+    best = float("inf")
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    out["l2_grads_deep(texture_grads=True) spp32 d50, chunks of 8"] = best
+    return out
+
+
+def worker(tree: str, role: str, out: str, families: str) -> int:
     sys.path[:0] = [tree, os.path.join(HERE, "tests")]
     import torch
 
@@ -87,6 +154,11 @@ def worker(tree: str, role: str, out: str) -> int:
     if role == "check":
         nvcc.SOURCE_FLAGS = {**nvcc.SOURCE_FLAGS, "megakernel": ("-fmad=false",)}
     build = nvcc.build_all()["megakernel"]
+    res = {"ptxas": ptxas_lines(build.log), "build_s": build.seconds}
+    if role == "ptxas":
+        with open(out + ".json", "w") as f:
+            json.dump(res, f)
+        return 0
     dev = torch.device("cuda", 0)
     p = config.read_scene_params(io.StringIO(config.default_config_text()))
     canon = builders.create_scene(p, with_bvh=True, texture_loader=smoke.synthetic_floor,
@@ -96,8 +168,9 @@ def worker(tree: str, role: str, out: str) -> int:
     field, _ = sphere_field(2000, dev)
     field = field._replace(bvh=bb.build_scene_bvh_from_scene(field))
     cams = [cam_at(k, W, H) for k in range(4)]
-    res = {"ptxas": ptxas_lines(build.log), "build_s": build.seconds}
     if role == "check":
+        import hashlib
+
         import numpy as np
 
         shapes = {"canonical 64x48 spp2 d5": (canon, cam_at(0, 64, 48, background=SKY), 64, 48,
@@ -106,29 +179,46 @@ def worker(tree: str, role: str, out: str) -> int:
                   "canonical 800x600 spp32 d50": (canon, cams[1], W, H, 32, 50)}
         arrays = {}
         for name, (scene, cam, w, h, spp, d) in shapes.items():
-            counts = torch.zeros(len(mk.COUNT_NAMES), dtype=torch.int64, device=dev)
+            brute, bvh = (torch.zeros(len(mk.COUNT_NAMES), dtype=torch.int64, device=dev)
+                          for _ in range(2))
+            arrays[f"{name}|K1"] = mk.render_frame_kernel(scene, cam, w, h, spp, d)
+            arrays[f"{name}|K1 counted"] = mk._render(scene, cam, w, h, spp, d, True, None, 0,
+                                                      brute)
+            arrays[f"{name}|K1-ref"] = mk.render_frame_kernel(scene, cam, w, h, spp, d,
+                                                              rng_mode="reference")
+            arrays[f"{name}|brute counts"] = brute
+            if scene is canon:  # the tapes (GBs at 800x600) by their hash
+                rec = mk.render_frame_kernel_record(scene, cam, w, h, 2, d, tape_fields=13)
+                for k, a in zip(("fb", "idx", "tex"), rec):
+                    digest = hashlib.sha256(a.contiguous().cpu().numpy().tobytes())
+                    arrays[f"{name}|K1-rec spp2 {k}"] = np.array(digest.hexdigest())
             arrays[f"{name}|bvh"] = mk.render_frame_kernel(scene, cam, w, h, spp, d,
                                                            intersector="bvh")
             arrays[f"{name}|bvh counted"] = mk._render_bvh(scene, cam, w, h, spp, d, True, None,
-                                                           0, counts)
+                                                           0, bvh)
             arrays[f"{name}|bvh-ref"] = mk.render_frame_kernel(scene, cam, w, h, spp, d,
                                                                intersector="bvh",
                                                                rng_mode="reference")
-            arrays[f"{name}|counts"] = counts
+            arrays[f"{name}|bvh counts"] = bvh
         torch.cuda.synchronize()
-        np.savez(out + ".npz", **{k: v.cpu().numpy() for k, v in arrays.items()})
+        np.savez(out + ".npz", **{k: v if isinstance(v, np.ndarray) else v.cpu().numpy()
+                                  for k, v in arrays.items()})
     else:
-        res["ms"] = smoke.bvh_times(dev, canon, field, cams, W, H)
+        res["ms"] = {}
+        if "brute" in families.split(","):
+            res["ms"].update(k1_times(smoke, dev, canon, cams, p))
+        if "bvh" in families.split(","):
+            res["ms"].update(smoke.bvh_times(dev, canon, field, cams, W, H))
     with open(out + ".json", "w") as f:
         json.dump(res, f)
     return 0
 
 
-def run_worker(tree, role, tag):
+def run_worker(tree, role, tag, families=""):
     out = os.path.join(OUT, tag)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree, role, out],
-                          capture_output=True, text=True, timeout=1500)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree, role, out,
+                           families], capture_output=True, text=True, timeout=1500)
     print(f"  worker {tag}: rc {proc.returncode} in {time.perf_counter() - t0:.1f} s", flush=True)
     if proc.returncode != 0:
         print(proc.stdout[-2000:] + proc.stderr[-4000:], flush=True)
@@ -139,7 +229,7 @@ def run_worker(tree, role, tag):
 
 def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
-        return worker(*sys.argv[2:5])
+        return worker(*sys.argv[2:6])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", help="a checkout of the tree to compare with")
     args = ap.parse_args()
@@ -154,62 +244,68 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     trees = {"parent": os.path.abspath(args.parent), "change": HERE}
     print(f"bvh_ab on {torch.cuda.get_device_name(0)} ({card}); {TURNS} turns", flush=True)
-    for tree in trees.values():  # so that the first workers print ptxas lines
+    for tree in trees.values():  # so that the ptxas workers build and print ptxas lines
         for lib in glob.glob(os.path.join(tree, "build", "tracer_torch", "libtracer_megakernel-*")):
             os.remove(lib)
+    # which instantiations moved, with the default flags
+    ptx = {name: run_worker(tree, "ptxas", f"ptxas-{name}")["ptxas"]
+           for name, tree in trees.items()}
+    moved = sorted(n for n in set(ptx["parent"]) | set(ptx["change"])
+                   if ptx["parent"].get(n) != ptx["change"].get(n))
+    families = sorted({family(n) for n in moved} - {None})
+    print(f"  ptxas: {len(moved)} instantiations differ from the parent's; timed families "
+          f"{families or 'none'}", flush=True)
+    for n in moved:
+        print(f"    {n}: {' | '.join(ptx['change'].get(n, ['-']))} (parent: "
+              f"{' | '.join(ptx['parent'].get(n, ['-']))})", flush=True)
     ok = True
-    # frames and work, built with -fmad=false
+    # frames, tapes and work, built with -fmad=false
     checks = {name: run_worker(tree, "check", f"check-{name}") for name, tree in trees.items()}
     base, new = (np.load(os.path.join(OUT, f"check-{name}.npz")) for name in trees)
+    names = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests")
     for key in new.files:
         same = np.array_equal(base[key], new[key])
-        ok &= same
         extra = ""
-        if key.endswith("|counts"):
-            c = dict(zip(("queries", "hits", "visits", "tests", "passes", "active_lanes",
-                          "node_tests"), new[key].tolist()))
+        if key.endswith(" counts"):
+            c, b = (dict(zip(names, x[key].tolist())) for x in (new, base))
             extra = f" {c}"
+            if key.split("|")[1].split()[0] in families:  # the moved family's own work
+                same = all(c[n] == b[n] for n in SAME)
+                extra += (f" (parent's visits {b['visits']}, tests {b['tests']}, node tests "
+                          f"{b['node_tests']})")
+        ok &= same
         print(f"  -fmad=false change vs parent, {key}: {'equal' if same else 'DIFFER'}{extra}",
               flush=True)
-    # times, in turns: parent, change, change, parent, parent, change, ...
-    order = [name for k in range(TURNS)
-             for name in (("parent", "change") if k % 2 == 0 else ("change", "parent"))]
-    times = {name: [] for name in trees}
-    for k, name in enumerate(order):
-        res = run_worker(trees[name], "time", f"time-{k}")
-        times[name].append(res["ms"])
-        if k == 0:
-            parent_ptx = res["ptxas"]
-        elif k == 1:
-            moved = [n for n in set(parent_ptx) | set(res["ptxas"])
-                     if not is_bvh(n) and parent_ptx.get(n) != res["ptxas"].get(n)]
-            ok &= not moved
-            print(f"  ptxas: {len(moved)} non-BVH instantiations differ from the parent's {moved}",
-                  flush=True)
-            for n, lines in sorted(res["ptxas"].items()):
-                if is_bvh(n):
-                    print(f"    {n}: {' | '.join(lines)} (parent: "
-                          f"{' | '.join(parent_ptx.get(n, ['-']))})", flush=True)
-    print(f"times in ms on {torch.cuda.get_device_name(0)} ({card}), run order {order}:",
-          flush=True)
-    def median_iqr(v):
-        q = statistics.quantiles(v, n=4)
-        return f"median {statistics.median(v):.3f}, quartiles {q[2] - q[0]:.3f} apart"
+    summary = {"card": card, "device": torch.cuda.get_device_name(0), "moved": moved,
+               "families": families, "checks_build_s": {n: c["build_s"] for n, c in checks.items()}}
+    if families:
+        # times, in turns: parent, change, change, parent, parent, change, ...
+        order = [name for k in range(TURNS)
+                 for name in (("parent", "change") if k % 2 == 0 else ("change", "parent"))]
+        times = {name: [] for name in trees}
+        for k, name in enumerate(order):
+            times[name].append(run_worker(trees[name], "time", f"time-{k}",
+                                          ",".join(families))["ms"])
+        print(f"times in ms on {torch.cuda.get_device_name(0)} ({card}), run order {order}:",
+              flush=True)
 
-    for key in times["parent"][0]:
-        pv, cv = ([r[key] for r in times[n]] for n in ("parent", "change"))
-        turns = [p / c for p, c in zip(pv, cv)]
-        print(f"  {key}: parent {', '.join(f'{v:.3f}' for v in pv)} ({median_iqr(pv)}); change "
-              f"{', '.join(f'{v:.3f}' for v in cv)} ({median_iqr(cv)}); change faster in "
-              f"{sum(t > 1 for t in turns)} of {TURNS} turns; parent/change of the best "
-              f"{min(pv) / min(cv):.3f}, within turns {min(turns):.3f}-{max(turns):.3f} "
-              f"(median {statistics.median(turns):.3f})", flush=True)
+        def median_iqr(v):
+            q = statistics.quantiles(v, n=4)
+            return f"median {statistics.median(v):.3f}, quartiles {q[2] - q[0]:.3f} apart"
+
+        for key in times["parent"][0]:
+            pv, cv = ([r[key] for r in times[n]] for n in ("parent", "change"))
+            turns = [p / c for p, c in zip(pv, cv)]
+            print(f"  {key}: parent {', '.join(f'{v:.3f}' for v in pv)} ({median_iqr(pv)}); "
+                  f"change {', '.join(f'{v:.3f}' for v in cv)} ({median_iqr(cv)}); change faster "
+                  f"in {sum(t > 1 for t in turns)} of {TURNS} turns; parent/change of the best "
+                  f"{min(pv) / min(cv):.3f}, within turns {min(turns):.3f}-{max(turns):.3f} "
+                  f"(median {statistics.median(turns):.3f})", flush=True)
+        summary.update(order=order, times=times)
+    summary["ok"] = bool(ok)
     with open(os.path.join(OUT, "summary.json"), "w") as f:
-        json.dump({"card": card, "device": torch.cuda.get_device_name(0), "order": order,
-                   "times": times, "checks_build_s": {n: c["build_s"] for n, c in checks.items()},
-                   "ok": bool(ok)}, f, indent=1)
-    print(f"bvh_ab: {'every frame and count equal, no other kernel moved' if ok else 'FAIL'}",
-          flush=True)
+        json.dump(summary, f, indent=1)
+    print(f"bvh_ab: {'every frame, tape and count equal' if ok else 'FAIL'}", flush=True)
     return 0 if ok else 1
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on a CUDA device:
 the forward megakernel, its cluster-culled, BVH, record and reference-stream
-modes (each with and without stratified jitter, and on row bands), the backward kernel
+modes (each with and without stratified jitter, and on row bands), the brute
+kernels' object cull against every primitive, the backward kernel
 and the texture-gradient scatter, fit on the card, and the sharded kernel
 paths of tracer_torch.dist on one NCCL rank.
 
@@ -17,6 +18,7 @@ sample takes another valid path); >= 99% of pixels must agree and the frame
 means must agree to a relative 1e-3.
 """
 
+import dataclasses
 import datetime
 import io
 import os
@@ -367,6 +369,65 @@ def test_shared_and_global_tables_give_the_same_frame(dev, monkeypatch):
     monkeypatch.setattr(megakernel, "TABLE_SHARED_BYTES_MAX", 0)
     for a, b in zip(shared, run()):
         assert torch.equal(a, b)
+
+
+def _config_txt(dev):
+    """config.txt's scene (its three polyhedra noted as groups, a 48x64
+    floor texture) and its parameters."""
+    params = config.read_scene_params(io.StringIO(config.default_config_text()))
+    tex = np.random.default_rng(5).uniform(0.1, 1.0, size=(48, 64, 3)).astype(np.float32)
+    scene = builders.create_scene(params, texture_loader=lambda _p: tex, device=dev)
+    assert len(scene.groups) == 3
+    return scene, params
+
+
+@pytest.mark.parametrize("frame, w, h, far", [(0, 64, 48, False), (50, 64, 48, False),
+                                              (20, 256, 192, False), (0, 128, 96, True)],
+                         ids=["frame0", "frame50", "frame20-256x192", "far"])
+def test_group_cull_keeps_brute_bit_for_bit(dev, monkeypatch, frame, w, h, far):
+    """config.txt with its groups and with groups=None (every primitive
+    tested): K1 (with roulette and stratified jitter too), K1-ref, a row
+    band, and K1-rec's frame, index tape and 13-field texture tape, bit for
+    bit, with the records in shared and in global memory; also from a
+    camera ten times as far away with a twentieth of the field of view,
+    where the kernel's rounding grows (more of its rays miss)."""
+    scene, p = _config_txt(dev)
+    path, fov = p.camera_path, p.fov_degrees
+    if far:
+        path, fov = dataclasses.replace(path, rc0=10 * path.rc0), fov / 20
+    cam = camera.camera_at(path, frame, p.num_frames, w, h, fov, device=dev)
+
+    def run(sc):
+        return (megakernel.render_frame_kernel(sc, cam, w, h, 4, 50),
+                megakernel.render_frame_kernel(sc, cam, w, h, 4, 50, rr_start=3, stratify=True),
+                megakernel.render_frame_kernel(sc, cam, w, h, 4, 50, rng_mode="reference"),
+                megakernel.render_frame_kernel(sc, cam, w, 20, 4, 50, row_offset=17),
+                *megakernel.render_frame_kernel_record(sc, cam, w, h, 2, 50, tape_fields=13))
+
+    culled = run(scene)
+    every = run(scene._replace(groups=None))
+    monkeypatch.setattr(megakernel, "TABLE_SHARED_BYTES_MAX", 0)  # the records in global memory
+    for got in (every, run(scene)):
+        for a, b in zip(got, culled):
+            assert torch.equal(a, b)
+    assert culled[0].sum() > 0 and (culled[5] >= 0).sum() > (w * h // 2 if far else w * h)
+
+
+def test_group_cull_counts_fewer_tests_and_the_same_queries(dev):
+    """The counted K1, K1-rec and brute K1-ref with and without groups: the
+    same queries, hits, warp passes and active lanes; without groups every
+    query tests all 199 primitives and enters no group, with them fewer
+    tests and some groups."""
+    scene, p = _config_txt(dev)
+    cam = camera.camera_at(p.camera_path, 0, p.num_frames, 64, 48, p.fov_degrees, device=dev)
+    n = scene.num_spheres + scene.num_planes
+    for kw in (dict(), dict(record=True), dict(rng_mode="reference")):
+        on = megakernel.loop_work(scene, cam, 64, 48, 4, 50, **kw)
+        off = megakernel.loop_work(scene._replace(groups=None), cam, 64, 48, 4, 50, **kw)
+        assert (on.queries, on.hits, on.passes, on.active_lanes) == (
+            off.queries, off.hits, off.passes, off.active_lanes), kw
+        assert off.tests == n * off.queries and off.visits == 0 and off.node_tests == 0
+        assert 0 < on.visits < 3 * on.queries and 0 < on.tests < 0.5 * n * on.queries
 
 
 def test_loop_work_counts_the_plain_queries(dev):

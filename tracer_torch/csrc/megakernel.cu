@@ -37,11 +37,62 @@
 // (each lane gathers only its winner's column); the texture is one
 // [th, tw, 3] float32 layer in global memory.
 //
-// What bounds it on this card: FP32 ALU work, about 199 ray-primitive
-// tests per nearest-hit query on the canonical scene, each a few dozen
-// FLOPs, and the lanes a warp leaves idle: threads finish their samples
-// at different times, and take different material branches. Not bytes:
-// the tables are ~10 KB.
+// Object cull (ISECT == BRUTE: K1, K1-rec, K1-ref mode 4, and so the row
+// bands). A scene may list its objects (Scene.groups: one per polyhedron),
+// each as an index range of spheres and one of planes; pack.py:pack_groups
+// gives each a ball around its primitives, staged with the primitive
+// records. Once a query, each lane tests its ray against every ball with
+// no square root and no new division: oc = o - c, b = oc.d, l = oc -
+// d (b / a) (oc's part across the ray, with the query's 1/a), rr = R +
+// A |oc|^2, and the ball may be reached iff |l|^2 <= rr^2 (the line meets
+// it) and (b <= 0 or |oc|^2 <= rr^2) (its far root is not behind the
+// origin); the results are the bits of a register. The sphere loop then
+// runs over the sphere table in ascending order and jumps past the range
+// of each group whose bit is clear, and the plane loop likewise; a
+// primitive outside every group (the floor, the point lights, every
+// primitive of a scene built another way) is always tested. With no
+// groups the loops are the plain ones.
+// Why the answer is brute's, bit for bit: a primitive's test (sphere_t,
+// plane_hit) does not depend on the others, so leaving out primitives
+// that cannot report a hit changes nothing, and the tests that remain
+// run in brute's order with its strict <, so the winner, best, alpha and
+// beta are brute's, ties included. So the ball has to hold, for an
+// origin at any distance D = |oc|, every point at which a primitive of
+// the group can report a hit, rounding included, and the test's own
+// rounding. With e = 2^-24 and R0 the primitives' tight radius:
+// - R = R0 (1 + 2^-10) + 2^-16 |c| + B is the radius at D = 0: 2^-10 R0
+//   covers the test's rounding near the ball, 2^-16 |c| a few ulps of
+//   absolute coordinates;
+// - sphere_t's b^2 - a c is off by at most about 20 e a D^2 (D from the
+//   sphere's centre), so it reports a rounding-only hit on a line up to
+//   10 e D^2 / r beyond a sphere of radius r, or from an origin up to
+//   14 e D^2 / r outside it: the radius grows by 2^-18 (D + R0)^2 / r_min,
+//   r_min the group's smallest sphere;
+// - plane_hit's hit point p = o + t d and its alpha and beta, and l, are
+//   off by a few e (D + R0 + |c|), times 1 / sin of a plane's corner
+//   angle (its u and v): the radius grows by 2^-18 k (D + R0 + |c|), k
+//   one plus the group's largest 1 / sin;
+// both grow by at most A D^2 + B (pack_groups bounds (D + R0)^2 and D by
+// D^2 and constants), so no rounding-only hit lies outside rr, from an
+// origin at any distance: a far origin only makes the ball larger.
+// DIELECTRIC_OFFSET (1e-4) moves an origin off a face, not a hit point, so
+// it needs no room: the test takes any origin, inside the ball or out. A
+// zero or non-finite direction or origin fails the ball test and hits
+// nothing in brute's tests either. tests/test_torch_groups.py replays the
+// plain renderer's queries through a float32 copy of the test, and grazes
+// small spheres on a ball's surface from far away.
+// The mask is each lane's own: a lane tests its own primitives, and the
+// lanes of a warp that need different groups run the same loop body at
+// different indices, so a warp pass costs its busiest lane's tests. The
+// warp's union of the masks (every lane testing what any lane needs, the
+// reads broadcast) was 1.13-1.16x slower on config.txt (PERF.md, section 6).
+//
+// What bounds it on this card: FP32 ALU work, the ray-primitive tests per
+// nearest-hit query (199 on the canonical scene without the cull), each a
+// few dozen FLOPs, and the lanes a warp leaves idle: threads finish their
+// samples at different times, take different material branches and, with
+// the cull, test different numbers of primitives. Not bytes: the tables
+// are ~10 KB.
 //
 // Record mode (RECORD, entry mode 1) replaces the same TPU kernel with
 // record_idx=True (tracer/pallas/kernels.py:411-452, entry tracer/pallas/
@@ -187,9 +238,10 @@ constexpr int COUNTS = 7;  // COUNT's counters, see Launch::counts
 // cluster tree's walk (K1-cl) or the BVH's (K1-bvh)
 enum Isect { BRUTE = 0, CLUSTERED = 1, BVH = 2 };
 constexpr int BVH_STACK = 32;  // the BVH walk's stack (bvh.h:23); the wrapper checks the depth
-// float4s a node record: K1-cl's (lo, skip), (hi, cluster); K1-bvh's child pair
+// float4s a node record: K1-cl's (lo, skip), (hi, cluster); K1-bvh's child pair;
+// the brute kernels' object group (pack_groups)
 template <int ISECT>
-constexpr int NODE_F4 = ISECT == BVH ? 4 : 2;
+constexpr int NODE_F4 = ISECT == BVH ? 4 : ISECT == BRUTE ? 3 : 2;
 constexpr int BVH_NONE = -1;  // the BVH walk's `next` when no node is pending
 // The walk skips a subtree whose box's entry exceeds best * PRUNE: a
 // primitive's root rounds below the entry of a box that holds it by about
@@ -227,7 +279,8 @@ struct Launch {
   float* tex_tape;    // RECORD: [tape_f * spp * max_depth, npx] or nullptr
   int tape_f;
   // CLUSTERED: [num_nodes * 2] (lo, skip), (hi, cluster) records; BVH:
-  // [num_nodes * 4] child-pair records (kernels/pack.py:pack_bvh)
+  // [num_nodes * 4] child-pair records (kernels/pack.py:pack_bvh); BRUTE:
+  // [num_nodes * 3] object groups' (ball, ranges, growth) records (pack_groups)
   const float4* nodes;
   const int* slots;    // CLUSTERED: [clusters * k], -1 pads a cluster's end
   int num_nodes, k;
@@ -235,24 +288,50 @@ struct Launch {
   int row_offset;      // the image row of the launch's first row: a band of `height`
                        // rows of a taller image keeps the image's seeds and camera rays
   // COUNT: [COUNTS] sums over the launch: nearest-hit queries, hits,
-  // leaves reached, primitives tested, warp passes, active lanes, node tests
+  // leaves reached (BRUTE: groups whose ball a query entered), primitives
+  // tested, warp passes, active lanes, node tests
   unsigned long long* counts;
 };
 
-// The primitive records, in shared memory (SMEM) or read through the
-// read-only cache.
+// The primitive records and (BRUTE) the object groups' records, in shared
+// memory (SMEM) or read through the read-only cache.
 template <bool SMEM>
 struct Prims {
   const float4* sph;
   const float4* pla;
   int num_s, num_p;
+  const float4* grp = nullptr;  // BRUTE: [num_g * 3] (ball, ranges, growth) records
+  int num_g = 0;
   __device__ __forceinline__ float4 sphere(int k) const {
     if constexpr (SMEM) return sph[k]; else return __ldg(sph + k);
   }
   __device__ __forceinline__ float4 plane(int k, int q) const {
     if constexpr (SMEM) return pla[k * PLANE_F4 + q]; else return __ldg(pla + k * PLANE_F4 + q);
   }
+  __device__ __forceinline__ float4 group(int g, int q) const {
+    if constexpr (SMEM) return grp[3 * g + q]; else return __ldg(grp + 3 * g + q);
+  }
+  // the first index of group g's range of spheres (LO 0) or planes (LO 2),
+  // or of its end (LO 1, 3); -1 past the last group
+  template <int LO>
+  __device__ __forceinline__ int bound(int g) const {
+    if (g >= num_g) return -1;
+    const float4 r = group(g, 1);
+    return __float_as_int(LO == 0 ? r.x : LO == 1 ? r.y : LO == 2 ? r.z : r.w);
+  }
 };
+
+// The brute block's walk over one table (LO 0 spheres, 2 planes): at k ==
+// at, the first index of group g's range, the walk enters the range if
+// bit g of `use` is set and else jumps past it, then takes the next group.
+template <int LO, bool SMEM>
+__device__ __forceinline__ void skip_groups(const Prims<SMEM>& P, unsigned use, int& k, int& g,
+                                            int& at) {
+  while (k == at) {
+    if (!((use >> g) & 1u)) k = P.template bound<LO + 1>(g);
+    at = P.template bound<LO>(++g);
+  }
+}
 
 // The cluster tree's or the BVH's node records (kernels/cluster.py,
 // kernels/pack.py:pack_bvh), in shared memory (NSMEM) or read through the
@@ -676,15 +755,44 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
       }
     } else {
       // -- brute nearest hit: spheres then planes, strict < (lowest index
-      //    wins ties), as tracer_torch/render/hit.py's argmin
-      for (int k = 0; k < num_s; ++k) {
+      //    wins ties), as tracer_torch/render/hit.py's argmin, past the
+      //    object groups whose ball the ray cannot reach (the note at the top)
+      unsigned use = 0;  // bit g: the ray may reach group g's ball
+      for (int g = 0; g < P.num_g; ++g) {
+        const float4 c = P.group(g, 0);  // centre, radius at the centre
+        const V3 oc = sub(o, xyz(c));
+        const float b = dot(oc, d);
+        const V3 l = sub(oc, scale(d, b * inv_a));
+        const float oo = dot(oc, oc);
+        const float rr = P.group(g, 2).x * oo + c.w;  // grown with the origin's distance
+        const float r2 = rr * rr;
+        if (dot(l, l) <= r2 && (b <= 0.0f || oo <= r2)) use |= 1u << g;
+      }
+      if constexpr (COUNT) {  // groups entered; every primitive but the skipped ranges'
+        cnt[2] += __popc(use);
+        cnt[3] += num_s + num_p;
+        for (int g = 0; g < P.num_g; ++g) {
+          if (!((use >> g) & 1u)) {
+            cnt[3] -= P.template bound<1>(g) - P.template bound<0>(g) +
+                      P.template bound<3>(g) - P.template bound<2>(g);
+          }
+        }
+      }
+      int g = 0, at = P.template bound<0>(0);
+      for (int k = 0;; ++k) {
+        skip_groups<0>(P, use, k, g, at);
+        if (k >= num_s) break;
         const float t = sphere_t(P, k, o, d, a, inv_a);
         if (t < best) {
           best = t;
           widx = k;
         }
       }
-      for (int k = 0; k < num_p; ++k) {
+      g = 0;
+      at = P.template bound<2>(0);
+      for (int k = 0;; ++k) {
+        skip_groups<2>(P, use, k, g, at);
+        if (k >= num_p) break;
         if (plane_hit(P, k, o, d, &best, &best_alpha, &best_beta)) widx = num_s + k;
       }
     }
@@ -850,16 +958,22 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
 // K1 (RECORD = false, ISECT = BRUTE), K1-rec (RECORD), K1-cl (ISECT =
 // CLUSTERED), K1-bvh (ISECT = BVH) and K1-ref (REF, ISECT BRUTE or BVH).
 // With SMEM the block first stages the primitive records in dynamic shared
-// memory, with NSMEM the node records (after them), in one loop.
+// memory, with NSMEM the node records (after them), in one loop; a BRUTE
+// block with SMEM stages its group records in the node records' place.
 template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF>
 __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
   extern __shared__ float4 records[];
   Prims<SMEM> P{L.sph, L.pla, L.num_s, L.num_p};
   Nodes<NSMEM> N{L.nodes};
+  constexpr bool GSMEM = SMEM && ISECT == BRUTE;  // the group records in shared memory
+  if constexpr (ISECT == BRUTE) {
+    P.grp = L.nodes;
+    P.num_g = L.num_nodes;
+  }
   if constexpr (SMEM || NSMEM) {
     const int ns4 = SMEM ? L.num_s * SPHERE_F4 : 0;
     const int np4 = ns4 + (SMEM ? L.num_p * PLANE_F4 : 0);
-    const int n4 = np4 + (NSMEM ? NODE_F4<ISECT> * L.num_nodes : 0);
+    const int n4 = np4 + (NSMEM || GSMEM ? NODE_F4<ISECT> * L.num_nodes : 0);
     for (int q = threadIdx.x; q < n4; q += blockDim.x) {
       if (q < ns4) {
         records[q] = __ldg(L.sph + q);
@@ -875,6 +989,7 @@ __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
       P.pla = records + ns4;
     }
     if constexpr (NSMEM) N.rec = records + np4;
+    if constexpr (GSMEM) P.grp = records + np4;
   }
   const int lin = blockIdx.x * blockDim.x + threadIdx.x;
   if (lin >= L.width * L.height) return;  // ragged last block
@@ -884,9 +999,10 @@ __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
 template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF = false>
 int launch(const Launch& L, cudaStream_t st) {
   const int blocks = (L.width * L.height + THREADS - 1) / THREADS;
+  const bool stage_nodes = NSMEM || (SMEM && ISECT == BRUTE);  // the kernel's GSMEM
   const size_t bytes = sizeof(float4) * ((SMEM ? (size_t)L.num_s * SPHERE_F4 +
                                                      (size_t)L.num_p * PLANE_F4 : 0) +
-                                         (NSMEM ? NODE_F4<ISECT> * (size_t)L.num_nodes : 0));
+                                         (stage_nodes ? NODE_F4<ISECT> * (size_t)L.num_nodes : 0));
   if (bytes > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF>,
@@ -928,10 +1044,13 @@ int launch_ref(const Launch& L, bool smem, cudaStream_t st) {
 // records as tracer_torch/kernels/pack.py:pack_bvh packs them; the tree's
 // depth at most BVH_STACK), 4 and 5 render modes 0 and 3 on the reference stream
 // (K1-ref: rng_mode="reference"; counted in mode 4 only; rr_start is
-// ignored). sph and pla are 16-byte aligned record tables
-// (tracer_torch/kernels/pack.py); shared_tables stages them in shared
-// memory, shared_nodes the nodes. strat_k > 0 stratifies the jitter over a
-// strat_k x strat_k grid (every mode). row_offset >= 0 makes the launch the
+// ignored). In the brute modes 0, 1 and 4, nodes [num_nodes, 3] float4 are
+// the scene's object groups as tracer_torch/kernels/pack.py:pack_groups
+// packs them (num_nodes 0: no groups, every primitive tested). sph and pla
+// are 16-byte aligned record tables (tracer_torch/kernels/pack.py);
+// shared_tables stages them in shared memory (with a brute mode's groups),
+// shared_nodes the nodes of modes 2, 3 and 5. strat_k > 0 stratifies the
+// jitter over a strat_k x strat_k grid (every mode). row_offset >= 0 makes the launch the
 // band of rows row_offset .. row_offset + height - 1 of a taller image (every
 // mode): out and the tapes stay band-sized, seeds and rays are the image's.
 // counts is nullptr (the uncounted kernels) or COUNTS zeroed counters (the

@@ -54,13 +54,16 @@ active lanes, and K1-cl's and K1-bvh's node tests, leaves reached and
 primitive tests);
 the plain query count is `tracer_torch.render.renderer.query_count`.
 
-The scene's sphere and plane records (kernels/pack.py) are staged in
-shared memory when they take at most `TABLE_SHARED_BYTES_MAX` bytes (the
-canonical scene, about 10 KB); a larger scene, such as the 2000-sphere
-field (32 KB), takes the kernel's variant that reads them from global
-memory. K1-cl's cluster-tree nodes (kernels/cluster.py) and K1-bvh's BVH
-records (kernels/pack.py:pack_bvh) are staged there too when they take at
-most `NODE_SHARED_BYTES_MAX` bytes.
+The brute kernels (K1, K1-rec, brute K1-ref) cull by object
+(`Scene.groups`; csrc/megakernel.cu's note, kernels/pack.py:pack_groups).
+
+The scene's sphere and plane records (kernels/pack.py), with the brute
+kernels' group records, are staged in shared memory when they take at
+most `TABLE_SHARED_BYTES_MAX` bytes (the canonical scene, about 10 KB); a
+larger scene, such as the 2000-sphere field (32 KB), takes the kernel's
+variant that reads them from global memory. K1-cl's cluster-tree nodes
+(kernels/cluster.py) and K1-bvh's BVH records (kernels/pack.py:pack_bvh)
+are staged there too when they take at most `NODE_SHARED_BYTES_MAX` bytes.
 
 The kernels are compiled at first use by `nvcc` (tracer_torch.kernels.
 nvcc) into shared libraries with plain C entry points, loaded with ctypes.
@@ -109,8 +112,8 @@ class LoopWork(NamedTuple):
     """One launch's bounce-loop work, counted by the kernel."""
     queries: int  # nearest-hit queries (one per pass of a lane)
     hits: int  # queries that hit a primitive
-    visits: int  # K1-cl, K1-bvh: leaves the queries' walks reached (0 for K1, K1-rec)
-    tests: int  # K1-cl, K1-bvh: primitives tested in those leaves (0 for K1, K1-rec)
+    visits: int  # K1-cl, K1-bvh: leaves the walks reached; brute: groups whose ball was entered
+    tests: int  # primitives tested (K1-cl, K1-bvh: in those leaves)
     passes: int  # warp passes: loop passes, each counted once per warp
     active_lanes: int  # the active lanes of those passes, summed
     node_tests: int  # K1-cl, K1-bvh: the walks' slab tests of nodes (0 for K1, K1-rec)
@@ -186,12 +189,16 @@ def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_st
             reference_quirk, rr_start, idx=None, ttape=None, tape_f=0, tables=None,
             nodes=None, strat_k=0, counts=None, row_offset=0):
     """Pack the scene and camera and launch `mode` on the current stream;
-    `nodes` is K1-cl's (`tables.nodes`) or K1-bvh's node records; the
-    launch covers image rows row_offset .. row_offset + height - 1."""
+    `nodes` is K1-cl's (`tables.nodes`) or K1-bvh's node records, and a
+    brute mode's the scene's group records; the launch covers image rows
+    row_offset .. row_offset + height - 1."""
     packed = pack_mod.pack_scene(scene)
     cam_t = pack_mod.pack_camera(cam)
     th, tw = (0, 0) if tex is None else (int(tex.shape[0]), int(tex.shape[1]))
-    table_bytes = 4 * (packed.sph.numel() + packed.pla.numel())
+    brute = mode in (MODE_RENDER, MODE_RECORD, MODE_REF)
+    if brute:
+        nodes = pack_mod.pack_groups(scene)  # staged with the tables
+    table_bytes = 4 * (packed.sph.numel() + packed.pla.numel() + (nodes.numel() if brute else 0))
     ptr = lambda t: None if t is None else t.data_ptr()
     if counts is not None and (counts.dtype != torch.int64 or counts.numel() < len(COUNT_NAMES)):
         raise ValueError(f"counts must be {len(COUNT_NAMES)} int64 counters")

@@ -34,6 +34,9 @@ order and holds its two children in that form, left then right: a child's
 box, then its split axis and record if it is internal, or -1 and its
 primitive id (spheres first) if it is a leaf. So the kernel tests both
 children of a node from one record.
+
+The brute kernels read the scene's objects (`Scene.groups`) as
+`pack_groups`' records.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import numpy as np
 import torch
 
 from tracer_torch.bvh import builder as bvh_builder
-from tracer_torch.scene.types import Scene
+from tracer_torch.scene.types import TRIANGLE, Scene
 
 SPHERE_ROWS = ("cx", "cy", "cz", "radius")
 PLANE_ROWS = ("nx", "ny", "nz", "d", "bx", "by", "bz", "ptype", "ux", "uy", "uz", "pad0",
@@ -105,8 +108,24 @@ def pack_camera(cam) -> torch.Tensor:
                       cam.background]).to(torch.float32).contiguous()
 
 
-_BVH_CACHE = []  # (weak refs to the BVH's tensors, their versions, num_s, records), newest last
-_BVH_CACHE_MAX = 8
+_CACHE = []  # (weak refs to the tensors, their versions, key, records), newest last
+_CACHE_MAX = 8
+
+
+def _cached(tensors, key, make):
+    """make(), cached while `tensors` live and are not changed in place (an
+    inference tensor has no version to key on: made anew every call)."""
+    if any(t.is_inference() for t in tensors):
+        return make()
+    versions = tuple(t._version for t in tensors)
+    for i, (refs, vers, k, rec) in enumerate(_CACHE):
+        if k == key and vers == versions and all(r() is t for r, t in zip(refs, tensors)):
+            _CACHE.append(_CACHE.pop(i))
+            return rec
+    rec = make()
+    _CACHE.append((tuple(weakref.ref(t) for t in tensors), versions, key, rec))
+    del _CACHE[:-_CACHE_MAX]
+    return rec
 
 
 def _bvh_records(bvh, num_s: int, max_depth: int) -> torch.Tensor:
@@ -147,16 +166,110 @@ def pack_bvh(scene: Scene, max_depth: int) -> torch.Tensor:
     bvh = scene.bvh
     if bvh is None:
         raise ValueError("the scene has no BVH (builders.create_scene(with_bvh=True))")
-    tensors = tuple(bvh)
-    if any(t.is_inference() for t in tensors):  # no version counter to key on
-        return _bvh_records(bvh, scene.num_spheres, max_depth)
-    versions = tuple(t._version for t in tensors)
-    key = (scene.num_spheres, max_depth)
-    for i, (refs, vers, k, rec) in enumerate(_BVH_CACHE):
-        if k == key and vers == versions and all(r() is t for r, t in zip(refs, tensors)):
-            _BVH_CACHE.append(_BVH_CACHE.pop(i))
-            return rec
-    rec = _bvh_records(bvh, scene.num_spheres, max_depth)
-    _BVH_CACHE.append((tuple(weakref.ref(t) for t in tensors), versions, key, rec))
-    del _BVH_CACHE[:-_BVH_CACHE_MAX]
-    return rec
+    return _cached(tuple(bvh), ("bvh", scene.num_spheres, max_depth),
+                   lambda: _bvh_records(bvh, scene.num_spheres, max_depth))
+
+
+MAX_GROUPS = 32  # the kernel holds a ray's groups as the bits of one 32-bit mask
+GROUP_F4 = 3  # float4s a group record
+# A group's ball: its primitives' tight radius R0 times 1 + GROUP_MARGIN,
+# plus GROUP_MARGIN_ABS times its centre's distance from the world origin,
+# plus the rounding terms, of coefficient GROUP_ROUNDING, that grow with
+# the ray origin's distance (csrc/megakernel.cu's note)
+GROUP_MARGIN = 2.0**-10
+GROUP_MARGIN_ABS = 2.0**-16
+GROUP_ROUNDING = 2.0**-18
+
+
+def _check_groups(groups, num_s: int, num_p: int) -> tuple:
+    """`groups` as a tuple of (s_lo, s_hi, p_lo, p_hi) int tuples; raises
+    unless each range lies in its table, the ranges of each kind ascend
+    without overlapping, and there are at most MAX_GROUPS groups."""
+    groups = tuple(tuple(int(x) for x in g) for g in groups or ())
+    if len(groups) > MAX_GROUPS:
+        raise ValueError(f"{len(groups)} groups: the kernel takes at most {MAX_GROUPS}")
+    for kind, (lo, hi), n in (("sphere", (0, 1), num_s), ("plane", (2, 3), num_p)):
+        end = 0
+        for g in groups:
+            if len(g) != 4 or not end <= g[lo] <= g[hi] <= n:
+                raise ValueError(f"group {g}: its {kind} range must lie in [{end}, {n}] and "
+                                 f"follow the previous group's")
+            end = g[hi]
+    return groups
+
+
+def _up(x) -> np.float32:
+    """x as float32, rounded up."""
+    x32 = np.float32(x)
+    return np.nextafter(x32, np.float32(np.inf)) if x32 < x else x32
+
+
+def _group_records(scene: Scene, groups: tuple) -> torch.Tensor:
+    sp, pl = scene.spheres, scene.planes
+    center = sp.center.detach().cpu().double().numpy()
+    radius = np.abs(sp.radius.detach().cpu().double().numpy())
+    base, u, v = (x.detach().cpu().double().numpy() for x in (pl.base, pl.u, pl.v))
+    tri = (pl.ptype.detach().cpu().numpy() == TRIANGLE)[:, None]  # no fourth corner
+    corners = np.stack([base, base + u, base + v, np.where(tri, base, base + u + v)], axis=1)
+    rec = np.zeros((len(groups), GROUP_F4, 4), np.float32)
+    for i, (s_lo, s_hi, p_lo, p_hi) in enumerate(groups):
+        rec[i, 1] = np.array([s_lo, s_hi, p_lo, p_hi], np.int32).view(np.float32)
+        cs, rs = center[s_lo:s_hi], radius[s_lo:s_hi]
+        pts = corners[p_lo:p_hi].reshape(-1, 3)
+        if len(cs) + len(pts) == 0:
+            rec[i, 0, 3] = np.nan  # no primitive: never entered
+            continue
+        with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+            lo = np.concatenate([cs - rs[:, None], pts]).min(axis=0)
+            hi = np.concatenate([cs + rs[:, None], pts]).max(axis=0)
+            mid = 0.5 * (lo + hi)
+            r0 = max(np.max(np.linalg.norm(cs - mid, axis=1) + rs, initial=0.0),
+                     np.max(np.linalg.norm(pts - mid, axis=1), initial=0.0))
+            c32 = mid.astype(np.float32)
+            cn = np.linalg.norm(mid)
+            # the rounding terms at distance D: GROUP_ROUNDING (D + R0)^2 / r_min
+            # <= GROUP_ROUNDING (1.25 D^2 + 5 R0^2) / r_min for the spheres, and
+            # GROUP_ROUNDING k (D + R0 + |c|) with D <= D^2 / (2 L) + L / 2 for
+            # the planes and the test, k one plus the largest 1 / sin of a
+            # plane's corner angle
+            inv_r = 1.0 / np.min(rs, initial=np.inf)
+            uu, vv = u[p_lo:p_hi], v[p_lo:p_hi]
+            inv_sin = (np.linalg.norm(uu, axis=1) * np.linalg.norm(vv, axis=1)
+                       / np.linalg.norm(np.cross(uu, vv), axis=1))
+            k = 1.0 + np.max(inv_sin, initial=0.0)
+            ell = r0 if r0 > 0.0 else 1.0
+            grow = GROUP_ROUNDING * (1.25 * inv_r + k / (2.0 * ell))
+            at0 = GROUP_ROUNDING * (5.0 * r0 * r0 * inv_r + k * (0.5 * ell + r0 + cn))
+            r = (r0 * (1.0 + GROUP_MARGIN) + GROUP_MARGIN_ABS * cn + at0
+                 + np.linalg.norm(c32.astype(np.float64) - mid))  # and the centre's rounding
+        if np.isfinite(c32).all() and np.isfinite(r) and np.isfinite(grow):
+            rec[i, 0] = (*c32, _up(r))
+            rec[i, 2, 0] = _up(grow)
+        else:
+            rec[i, 0] = (0.0, 0.0, 0.0, np.inf)  # a primitive not finite: always entered
+            rec[i, 2, 0] = 1.0
+    return torch.from_numpy(rec).to(scene.device)
+
+
+def pack_groups(scene: Scene) -> torch.Tensor:
+    """`[G, GROUP_F4, 4]` float32 records of `scene.groups` on the scene's
+    device, `[0, GROUP_F4, 4]` for `groups=None`: the brute kernels skip a
+    group whose ball a ray cannot reach (csrc/megakernel.cu's note says
+    why that keeps brute force's answers bit for bit). A record is (ball
+    centre x, y, z, radius R at the centre), then the sphere range [s_lo,
+    s_hi) and plane range [p_lo, p_hi) as int32 bits, then (A, 0, 0, 0):
+    the kernel's ball at a ray origin D from the centre has radius R + A
+    D^2. R and A are worked out on the host in float64 from the primitives'
+    own geometry (a sphere's centre and radius, a quad's or an ellipse's
+    four parallelogram corners, a triangle's three) and the rounding bounds
+    of the note, and rounded up; an empty group's R is NaN (never entered),
+    a group with a primitive not finite or a sphere of radius 0 gets an
+    infinite R (always entered). Cached per geometry tensors while they
+    live and are not changed in place, so a cached call reads nothing from
+    the device."""
+    groups = _check_groups(scene.groups, scene.num_spheres, scene.num_planes)
+    if not groups:
+        return torch.zeros((0, GROUP_F4, 4), dtype=torch.float32, device=scene.device)
+    sp, pl = scene.spheres, scene.planes
+    return _cached((sp.center, sp.radius, pl.ptype, pl.base, pl.u, pl.v), ("groups", groups),
+                   lambda: _group_records(scene, groups))

@@ -16,6 +16,7 @@ are element-for-element comparable.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -68,6 +69,9 @@ class SceneBuffers:
     mat_emit: List = field(default_factory=list)
     mat_tex: List = field(default_factory=list)
 
+    # one (s_lo, s_hi, p_lo, p_hi) per polyhedron: its sphere and plane index ranges
+    groups: List = field(default_factory=list)
+
     def add_sphere(self, center, radius, mat_idx):
         self.sphere_center.append(np.asarray(center, np.float32))
         self.sphere_radius.append(float(radius))
@@ -119,6 +123,20 @@ def _light_scale(r: float, face_dist_frac: float, sphere_radius: float) -> float
     return 0.0
 
 
+def _body(build):
+    """Note the sphere and plane index ranges that a polyhedron's builder
+    appends as one group of `buf.groups`."""
+
+    @functools.wraps(build)
+    def noted(buf: SceneBuffers, *args, **kwargs):
+        s_lo, p_lo = len(buf.sphere_radius), len(buf.plane_type)
+        build(buf, *args, **kwargs)
+        buf.groups.append((s_lo, len(buf.sphere_radius), p_lo, len(buf.plane_type)))
+
+    return noted
+
+
+@_body
 def add_cube(buf: SceneBuffers, center, r, mat_idx, lights_on_edge,
              border_mat, light_mat):
     """reference main.cu:62-129. Edge borders first, then 6 face quads."""
@@ -146,6 +164,7 @@ def add_cube(buf: SceneBuffers, center, r, mat_idx, lights_on_edge,
         buf.add_plane(T.QUAD, a, b - a, d - a, mat_idx)
 
 
+@_body
 def add_octahedron(buf: SceneBuffers, center, r, mat_idx, lights_on_edge,
                    border_mat, light_mat):
     """reference main.cu:248-308. 8 face triangles, then 12 edge borders."""
@@ -172,6 +191,7 @@ def add_octahedron(buf: SceneBuffers, center, r, mat_idx, lights_on_edge,
                          light_mat, lights_on_edge, sphere_radius)
 
 
+@_body
 def add_dodecahedron(buf: SceneBuffers, center, r, mat_idx, lights_on_edge,
                      border_mat, light_mat):
     """reference main.cu:134-233. Per face: 3 triangles (pentagon fan),
@@ -261,8 +281,9 @@ def build_buffers(params: SceneParams) -> SceneBuffers:
 
 def buffers_to_scene(buf: SceneBuffers, device, textures: Optional[np.ndarray] = None,
                      with_bvh: bool = False) -> T.Scene:
-    """Assemble the tensor Scene on `device` from host buffers; with
-    `with_bvh`, also the primitives' BVH (tracer_torch.bvh.builder)."""
+    """Assemble the tensor Scene on `device` from host buffers, with the
+    polyhedra's index ranges as `Scene.groups`; with `with_bvh`, also the
+    primitives' BVH (tracer_torch.bvh.builder)."""
     with profiling.span("tracer.scene.build"):
         z3 = np.zeros((0, 3), np.float32)
         spheres = T.make_spheres(
@@ -291,7 +312,7 @@ def buffers_to_scene(buf: SceneBuffers, device, textures: Optional[np.ndarray] =
             with profiling.span("tracer.scene.texture"):
                 tex = torch.tensor(np.asarray(textures, np.float32), device=device)
         return T.Scene(spheres=spheres, planes=planes, materials=materials, textures=tex,
-                       bvh=bvh)
+                       bvh=bvh, groups=tuple(buf.groups) or None)
 
 
 def create_scene(params: SceneParams, with_bvh: bool = False,

@@ -8,7 +8,7 @@ on one device, chosen by the caller.
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple, Optional
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,13 +82,17 @@ class BVHArrays(NamedTuple):
 class Scene(NamedTuple):
     """The scene (analog of reference SceneData, scene.h:9-21); `bvh` is
     the primitives' BVH, or None (builders.create_scene(with_bvh=True)
-    builds it)."""
+    builds it). `groups` lists the scene's objects, each as the index
+    ranges [s_lo, s_hi) of its spheres and [p_lo, p_hi) of its planes,
+    ascending and not overlapping (builders.py notes one per polyhedron),
+    or None: the brute kernels' cull (kernels/pack.py:pack_groups)."""
 
     spheres: Spheres
     planes: Planes
     materials: Materials
     textures: Optional[torch.Tensor]  # [T, Ht, Wt, 3] f32, or None
     bvh: Optional[BVHArrays] = None
+    groups: Optional[Tuple[Tuple[int, int, int, int], ...]] = None
 
     @property
     def num_spheres(self) -> int:
