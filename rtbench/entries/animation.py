@@ -13,11 +13,14 @@ over a frame iterator that hands out frames 0, 1, ... in path order until
 `seconds` have passed since the window's start (rank 0 decides; the others
 follow by a broadcast before each frame, so that no rank waits alone in a
 frame's all_reduce). The window ends when `render_animation` returns, after
-its writer has drained. With `trace` the window runs under the profiler,
-and afterwards the counted kernels count the launches of the window's
-first COUNT_FRAMES frames again (the counted instantiation runs several
-times slower than the timed one); the rooflines read those frames' own
-launches in the trace.
+its writer has drained. With `trace` the program's spans are on from the
+start of set-up (`profiling.set_spans`; untraced runs keep them off), the
+window runs under the profiler, and afterwards the counted kernels count
+the launches of the window's first COUNT_FRAMES frames again (the counted
+instantiation runs several times slower than the timed one); the
+rooflines read those frames' own launches in the trace, the span metrics
+the spans that ended before the window and the window's spans in the trace
+(rtbench/harness/spans.py).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from rtbench.harness import ranks, spec, trace
+from rtbench.harness import ranks, spans, spec, trace
 
 FWD_KERNEL = "trace_kernel"  # the forward kernels' name (megakernel.cu), in the trace
 COUNT_FRAMES = 3
@@ -80,6 +83,7 @@ def rank_main(ctx, rank: int, world: int, port):
     from tracer_torch.kernels import megakernel
     from tracer_torch.render import camera as camera_mod
     from tracer_torch.render import driver
+    from tracer_torch.utils import profiling
 
     for patch in ctx.patches:
         ranks.call(patch)
@@ -96,6 +100,7 @@ def rank_main(ctx, rank: int, world: int, port):
                                 init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
         mesh = sharding.make_mesh(device)
     try:
+        profiling.set_spans(ctx.trace)
         kind = spec.scene_kind(wl.config["scene"])
         inp = kind.inputs(wl.config, ctx.seed, device)
         intersector = tr.get("intersector", "brute")
@@ -151,6 +156,7 @@ def rank_main(ctx, rank: int, world: int, port):
                     engine=ctx.engine, saver_spp_quirk=tr.get("saver_spp_quirk", True),
                     spp_chunk=tr.get("spp_chunk"), mesh=mesh, **opts)
             t_end = time.perf_counter()
+        taken = profiling.take_spans()
         window_s = t_end - t_start
         peak = int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else 0
 
@@ -177,6 +183,8 @@ def rank_main(ctx, rank: int, world: int, port):
                 fwd_kernel_s=sum(s for name, (s, _n) in r.kernels.items() if FWD_KERNEL in name),
                 counted_kernel_s=sum(b - a for a, b in fwd),
                 counted_span_s=fwd[-1][1] if fwd else 0.0,
+                setup_spans=spans.setup(taken, ctx.t0, t_start), setup_total_s=t_start - ctx.t0,
+                spans=r.spans, idle_by_span=r.idle_by_span, span_kernels=r.span_kernels,
                 breakdown=trace.breakdown(r) if rank == 0 else None, work=work,
                 facts=dict(num_spheres=scene.num_spheres, num_planes=scene.num_planes,
                            texels=0 if scene.textures is None else int(scene.textures.numel() // 3),
@@ -204,5 +212,7 @@ def rank_main(ctx, rank: int, world: int, port):
             frame_ms=[float(line.split("\t")[1]) for line in tsv.getvalue().splitlines()],
             saver_divisor=sqrt_spp if tr.get("saver_spp_quirk", True) else spp)
     finally:
+        profiling.set_spans(False)
+        profiling.take_spans()
         if mesh is not None:
             dist.destroy_process_group()

@@ -20,6 +20,10 @@ four numbers, each with the limit the cell's check file sets:
 At most MAX_FRAMES_JUDGED frames of a window are judged: the last, and
 others drawn from the seed.
 
+The reference's estimator is the scene kind's own `render_samples` where
+the kind defines one (rtbench/harness/spec.py), else the plain one,
+`plain.render_samples`; the judge and the control both go through it.
+
 `control(..., dtype)` computes the same numbers for the reference itself in
 another precision put in the program's place: the control.
 """
@@ -76,17 +80,19 @@ def read_frame(path: str, width: int, height: int):
 
 def reference_sums(wl, inputs, seed, frames, device, dtype):
     """(picks, [raw sums [k, 3] of each pick], settings): the reference in
-    `dtype` at the pixels the seed draws in each of `frames`."""
+    `dtype`, with the scene kind's estimator, at the pixels the seed draws
+    in each of `frames`."""
     kind = spec.scene_kind(wl.config["scene"])
+    render_samples = getattr(kind, "render_samples", plain.render_samples)
     scene, camera, st = kind.reference(inputs, wl.config, device, dtype)
     picks = sample_pixels(seed, frames, st["width"], st["height"], wl.check["pixels_per_frame"])
     spp = st["sqrt_spp"] ** 2
     out = []
     for n, px in picks:
         t = torch.as_tensor(px, device=device)
-        out.append(plain.render_samples(scene, camera(n), st["width"], t % st["width"],
-                                        t // st["width"], spp, st["max_depth"], quirk=True,
-                                        dtype=dtype).cpu().numpy())
+        out.append(render_samples(scene, camera(n), st["width"], t % st["width"],
+                                  t // st["width"], spp, st["max_depth"], quirk=True,
+                                  dtype=dtype).cpu().numpy())
     return picks, out, st
 
 

@@ -51,6 +51,37 @@ def _innermost(spans, t):
     return best
 
 
+def marks(events) -> list:
+    """The `tracer.*` annotations of a Chrome trace's events as `(name,
+    start, end)` in us, in order of their start."""
+    got = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"])
+                 for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                 and str(e.get("name", "")).startswith(PREFIX))
+    return [(n, a, b) for a, b, n in got]
+
+
+def cuts_of(spans, w0: float, w1: float) -> list:
+    """Every span boundary strictly inside (w0, w1), sorted."""
+    return sorted({t for _n, a, b in spans for t in (a, b) if w0 < t < w1})
+
+
+def pieces(spans, cuts, a: float, b: float):
+    """[a, b] cut at the span boundaries `cuts`: `(name, us)` a piece, the
+    name of the span innermost at its start, or None where none is open."""
+    edges = [a, *cuts[bisect.bisect_right(cuts, a):bisect.bisect_left(cuts, b)], b]
+    return [(_innermost(spans, x), y - x) for x, y in zip(edges, edges[1:])]
+
+
+def holder(spans, cuts, a: float, b: float):
+    """The span innermost over most of [a, b] (the first of equals), or None
+    where no span is open in it."""
+    held = {}
+    for name, us in pieces(spans, cuts, a, b):
+        if name is not None:
+            held[name] = held.get(name, 0.0) + us
+    return max(held, key=held.get) if held else None
+
+
 def reduce(events, w0: float, w1: float, busy) -> dict:
     """The window's spans from a Chrome trace's events (times in us), the
     window [w0, w1] and `busy`, the merged intervals of device activity:
@@ -64,10 +95,7 @@ def reduce(events, w0: float, w1: float, busy) -> dict:
       (the runtime or driver call with the kernel's correlation id) lies
       in that span, innermost, or OUTSIDE.
     """
-    marks = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"])
-                   for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-                   and str(e.get("name", "")).startswith(PREFIX))
-    spans = [(n, a, b) for a, b, n in marks]
+    spans = marks(events)
     counted = {}
     for n, a, b in spans:
         if w0 <= a < w1:
@@ -82,13 +110,12 @@ def reduce(events, w0: float, w1: float, busy) -> dict:
         if a > prev:
             idle.append((prev, min(a, w1)))
         prev = max(prev, b)
-    cuts = sorted({t for _n, a, b in spans for t in (a, b) if w0 < t < w1})
+    cuts = cuts_of(spans, w0, w1)
     idle_by = {}
     for a, b in idle:
-        edges = [a, *cuts[bisect.bisect_right(cuts, a):bisect.bisect_left(cuts, b)], b]
-        for x, y in zip(edges, edges[1:]):
-            name = _innermost(spans, x) or OUTSIDE
-            idle_by[name] = idle_by.get(name, 0.0) + (y - x) * 1e-6
+        for name, us in pieces(spans, cuts, a, b):
+            name = name or OUTSIDE
+            idle_by[name] = idle_by.get(name, 0.0) + us * 1e-6
 
     launches = {e["args"]["correlation"]: float(e["ts"]) for e in events
                 if e.get("ph") == "X" and e.get("cat") in LAUNCH_CATS

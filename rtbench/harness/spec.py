@@ -10,6 +10,25 @@ BENCHMARK.json gives it, so a cell is added with files alone:
   rtbench/scenes/<scene>.py          a scene kind's inputs, program side and reference side
   rtbench/checks/<workload>.json     what decides `correct` in the cell, with its limits
   rtbench/metrics/<metric>.py        a per-layer metric's reader
+
+A scene kind (rtbench/scenes/<scene>.py) defines
+
+  inputs(cfg, seed, device)                 what both sides get, from the seed
+  program(inputs, cfg, device, with_bvh)    (scene, SceneParams) of the program
+  reference(inputs, cfg, device, dtype)     (reference scene, camera of frame n,
+                                            settings), worked out again from the
+                                            inputs, nothing of the program's
+
+and may define
+
+  render_samples(scene, cam, width, i, j, spp, max_depth, quirk, dtype)
+      its own reference estimator, with the arguments of
+      `plain.render_samples` and its [N, 3] float32 raw sums; it lives
+      under rtbench/reference/ and imports nothing of the program or of
+      JAX. Without it the check renders with `plain.render_samples`.
+  tiny(cfg)
+      the configuration cut to a CPU-sized run for the tests
+      (rtbench/tests/tiny.py); without it the tests run `cfg` as it is.
 """
 
 from __future__ import annotations

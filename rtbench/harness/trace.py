@@ -4,7 +4,9 @@ metrics and the result's `breakdown` read.
 The profiler's Chrome trace gives every device activity (kernels, copies,
 sets) and every host operation on one clock. The window is the harness's
 own span `WINDOW`. Device busy time is the union of device activity inside
-it; an idle gap is named by the host operation that overlaps it most.
+it. An idle gap is named by the program's span (rtbench/harness/spans.py)
+innermost over most of it, or, where no span of the program is open in it,
+by the host operation that overlaps it most.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import os
 import tempfile
 from typing import NamedTuple
 
+from rtbench.harness import spans as spans_mod
+
 WINDOW = "rtbench.window"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TOP = 10
@@ -24,9 +28,13 @@ class Reduced(NamedTuple):
     window_s: float  # the traced window on the trace's clock
     busy_s: float  # union of device activity inside it
     kernels: dict  # kernel name -> [seconds, launches] inside the window
-    gaps: list  # [(host activity, seconds)] of the idle gaps, longest first
+    gaps: list  # [(program span or host operation, seconds)] of the idle gaps, longest first
     device_events: int  # device activities seen inside the window
     launches: dict  # kernel name -> [(start, end)] in seconds from the window's start
+    # spans.reduce's readings of the program's spans (rtbench/harness/spans.py)
+    spans: dict = {}
+    idle_by_span: dict = {}
+    span_kernels: dict = {}
 
 
 def short_name(name: str) -> str:
@@ -85,20 +93,25 @@ def reduce_events(events) -> Reduced:
             k[1] += 1
             launches.setdefault(name, []).append(((a - w0) * 1e-6, (b - w0) * 1e-6))
     busy, merged = _union(dev)
+    program = spans_mod.marks(events)
+    cuts = spans_mod.cuts_of(program, w0, w1)
     host = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"])
             for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
     gaps, prev = [], w0
     for a, b in merged + [[w1, w1]]:
         if a > prev:
-            best, name = 0.0, "no host operation recorded"
-            for h0, h1, hn in host:
-                ov = min(h1, a) - max(h0, prev)
-                if ov > best:
-                    best, name = ov, hn
+            name = spans_mod.holder(program, cuts, prev, a)
+            if name is None:
+                best, name = 0.0, "no host operation recorded"
+                for h0, h1, hn in host:
+                    ov = min(h1, a) - max(h0, prev)
+                    if ov > best:
+                        best, name = ov, hn
             gaps.append((name, (a - prev) * 1e-6))
         prev = max(prev, b)
     gaps.sort(key=lambda g: -g[1])
-    return Reduced((w1 - w0) * 1e-6, busy * 1e-6, kernels, gaps, len(dev), launches)
+    return Reduced((w1 - w0) * 1e-6, busy * 1e-6, kernels, gaps, len(dev), launches,
+                   **spans_mod.reduce(events, w0, w1, merged))
 
 
 @contextlib.contextmanager

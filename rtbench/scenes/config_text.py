@@ -4,7 +4,8 @@ format, its floor texture drawn from the seed.
 `inputs` makes what both sides get (the text and the texture), `program`
 builds the program's scene and parameters from them through its own
 parser and builder, `reference` works the scene out again with the
-frozen copy in rtbench/reference.
+frozen copy in rtbench/reference (rendered by `plain.render_samples`),
+`tiny` cuts the deployment to a CPU-sized run for the tests.
 """
 
 from __future__ import annotations
@@ -43,3 +44,10 @@ def reference(inp: dict, cfg: dict, device, dtype):
     scene = plain.scene_from_arrays(ref_config.arrays(p, inp["texture"]), device, dtype)
     settings = {k: p[k] for k in ("width", "height", "sqrt_spp", "max_depth", "num_frames")}
     return scene, (lambda n: ref_config.camera(p, n, device)), settings
+
+
+def tiny(cfg: dict) -> dict:
+    """24x16 frames of 16 spp at depth 5 over a 20x13 texture."""
+    text = list(cfg["text"])
+    text[2], text[-1] = "24 16 50", "5 4"
+    return dict(cfg, text=text, texture=dict(cfg["texture"], height=13, width=20))

@@ -75,3 +75,8 @@ def reference(inp: dict, cfg: dict, device, dtype):
     scene = plain.scene_from_arrays(ref_field.arrays(inp), device, dtype)
     settings = {k: cfg[k] for k in ("width", "height", "sqrt_spp", "max_depth", "num_frames")}
     return scene, (lambda n: ref_field.camera(inp, n, device)), settings
+
+
+def tiny(cfg: dict) -> dict:
+    """60 spheres, 24x16 frames of 16 spp at depth 5."""
+    return dict(cfg, n=60, width=24, height=16, sqrt_spp=4, max_depth=5)

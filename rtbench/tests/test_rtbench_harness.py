@@ -1,5 +1,6 @@
 """The harness on the CPU: BENCHMARK.json against the contract's rules, the
-files each cell is made of, a cell added as files alone, no JAX anywhere,
+files each cell is made of, a cell and a scene kind with its own estimator
+and cut added as files alone, no JAX anywhere,
 no result without a card, the roofline counts, the trace reduction, the
 faults and the control the check has to reject. Cells run cut to a CPU
 size (tiny.py) with the plain renderer."""
@@ -143,6 +144,119 @@ def test_a_cell_added_as_files_alone_runs(tmp_path):
     assert line["correct"] and set(line["metrics"]) == {"mrays_per_s", "setup_s"}
 
 
+WRAP_REFERENCE = """\"\"\"The plain estimator times GAIN: a scene kind's own estimator.\"\"\"
+
+import torch
+
+from rtbench.reference import plain
+
+GAIN = {gain!r}
+
+
+def render_samples(scene, cam, width, i, j, spp, max_depth, quirk, dtype=torch.float32):
+    return plain.render_samples(scene, cam, width, i, j, spp, max_depth, quirk, dtype) * GAIN
+"""
+
+WRAP_KIND = """\"\"\"The sphere field with an estimator and a CPU cut of its own.\"\"\"
+
+from rtbench.harness import spec
+from rtbench.reference.field_wrap import render_samples  # noqa: F401
+
+_field = spec.scene_kind("sphere_field")
+inputs, program, reference = _field.inputs, _field.program, _field.reference
+
+
+def tiny(cfg):
+    return dict(_field.tiny(cfg), n=40)
+"""
+
+
+def _kind_copy(root, gain=1.0):
+    """A copy of the benchmark with a new scene kind as files alone:
+    `field_wrap` (rtbench/scenes/field_wrap.py) wraps `sphere_field` and
+    brings its own estimator (rtbench/reference/field_wrap.py, the plain
+    one times `gain`) and its own cut (40 spheres); its cell
+    `field_wrap.frames_bvh` and a metric that reads the spheres built."""
+    shutil.copytree(ROOT / "rtbench", root / "rtbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "rtbench/reference/field_wrap.py").write_text(WRAP_REFERENCE.format(gain=gain))
+    (root / "rtbench/scenes/field_wrap.py").write_text(WRAP_KIND)
+    cfg = dict(spec.load_json(ROOT / "rtbench/configs/field_2k.json"), scene="field_wrap")
+    (root / "rtbench/configs/field_wrap.json").write_text(json.dumps(cfg))
+    shutil.copy(ROOT / "rtbench/checks/field_2k.frames_bvh.json",
+                root / "rtbench/checks/field_wrap.frames_bvh.json")
+    (root / "rtbench/metrics/spheres_in_scene.py").write_text(
+        "def read(readings):\n    return float(readings['ranks'][0]['facts']['num_spheres'])\n")
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "field_wrap", "source": "https://example.org/field",
+                             "file": "rtbench/configs/field_wrap.json", "reduced": [],
+                             "why": "the field under an estimator of its own"})
+    bench["workloads"].append({"name": "field_wrap.frames_bvh", "config": "field_wrap",
+                               "traffic": "frames_bvh", "chips": 1, "why": "a new kind"})
+    bench["per_layer"].append({"name": "spheres_in_scene", "unit": "spheres", "better": "lower",
+                               "source": "program_counter", "layer": "BVH",
+                               "moves": "mrays_per_s", "workloads": ["field_wrap.frames_bvh"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    os.symlink(ROOT / "tracer_torch", root / "tracer_torch")
+    return root
+
+
+def test_a_scene_kind_added_as_files_alone_brings_its_estimator_and_cut(tmp_path):
+    """A new scene kind, its estimator and its cut, each a new file: the
+    copy runs its cell at the kind's own cut, correct."""
+    line = run_tiny("field_wrap.frames_bvh", 2**31 + 21, 0.5, trace_on=True,
+                    cwd=_kind_copy(tmp_path))
+    assert line["correct"], line
+    assert line["metrics"]["spheres_in_scene"]["value"] == 40, line
+
+
+def test_the_check_reads_a_kinds_own_estimator(tmp_path):
+    """The same kind with a 2% gain planted in its estimator alone: the
+    sound program's run is not correct."""
+    line = run_tiny("field_wrap.frames_bvh", 2**31 + 21, 0.5,
+                    cwd=_kind_copy(tmp_path, gain=1.02))
+    assert line["correct"] is False, line["checks"]
+    assert line["checks"]["fb_rel_p10"]["value"] > line["checks"]["fb_rel_p10"]["limit"]
+
+
+def _cut_as_it_was(cfg):
+    """tiny.py's cut of the two first kinds before the kinds owned it."""
+    cfg = dict(cfg)
+    if cfg["scene"] == "config_text":
+        text = list(cfg["text"])
+        text[2], text[-1] = "24 16 50", "5 4"
+        cfg.update(text=text, texture=dict(cfg["texture"], height=13, width=20))
+    else:
+        cfg.update(n=60, width=24, height=16, sqrt_spp=4, max_depth=5)
+    return cfg
+
+
+@pytest.mark.parametrize("cell", ONE_CARD)
+def test_a_kinds_cut_and_sums_are_the_plain_ones(cell):
+    """The kinds' own `tiny` gives the configs tiny.py gave, and without an
+    estimator of their own the check's sums are plain.render_samples' bit
+    for bit, in the program's precision and the control's."""
+    from rtbench.reference import plain
+
+    wl = tiny.workload(cell)
+    cut = tiny.tiny(wl)
+    assert cut.config == _cut_as_it_was(wl.config)
+    assert cut.check == dict(wl.check, pixels_per_frame=24 * 16)
+    kind = spec.scene_kind(cut.config["scene"])
+    assert not hasattr(kind, "render_samples")
+    cpu, seed = torch.device("cpu"), 2**31 + 8
+    inp = kind.inputs(cut.config, seed, cpu)
+    for dtype in (torch.float32, torch.bfloat16):
+        picks, got, st = check.reference_sums(cut, inp, seed, [0, 1], cpu, dtype)
+        scene, camera, _ = kind.reference(inp, cut.config, cpu, dtype)
+        w = st["width"]
+        for (n, px), sums in zip(picks, got):
+            t = torch.as_tensor(px)
+            want = plain.render_samples(scene, camera(n), w, t % w, t // w, st["sqrt_spp"] ** 2,
+                                        st["max_depth"], quirk=True, dtype=dtype).numpy()
+            assert sums.dtype == np.float32 and np.array_equal(sums, want)
+
+
 # ---- what a run may load, and where it may run ---------------------------------
 
 def _top_level(code, cwd=ROOT):
@@ -170,6 +284,24 @@ def test_a_run_loads_no_jax_and_the_reference_no_program(tmp_path):
         "for m in pkgutil.iter_modules(r.__path__)]\n"
         "print(' '.join(sorted({m.split('.')[0] for m in sys.modules})))")
     assert not ref & {"jax", "jaxlib", "flax", "tracer", "tracer_torch"}
+    # a scene kind's own estimator: the run of its cell loads no JAX, the
+    # estimator under rtbench/reference/ no program
+    copy = _kind_copy(tmp_path / "copy")
+    loaded = _top_level(
+        f"import sys, tempfile; sys.path.insert(0, '.'); tempfile.tempdir = '{tmp_path}'\n"
+        "from rtbench.tests import tiny\n"
+        "from rtbench.harness import runner, spec\n"
+        "import io\n"
+        "runner.execute(tiny.ctx('field_wrap.frames_bvh', 1, 0.3, True), out=io.StringIO())\n"
+        "assert spec.scene_kind('field_wrap').render_samples.__module__ == "
+        "'rtbench.reference.field_wrap'\n"
+        "print(' '.join(sorted({m.split('.')[0] for m in sys.modules})))", cwd=copy)
+    assert "tracer_torch" in loaded and not loaded & {"jax", "jaxlib", "flax", "tracer"}
+    ref = _top_level(
+        "import sys; sys.path.insert(0, '.')\n"
+        "import rtbench.reference.field_wrap\n"
+        "print(' '.join(sorted({m.split('.')[0] for m in sys.modules})))", cwd=copy)
+    assert "rtbench" in ref and not ref & {"jax", "jaxlib", "flax", "tracer", "tracer_torch"}
 
 
 def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):

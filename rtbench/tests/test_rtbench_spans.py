@@ -64,11 +64,30 @@ def test_kernels_go_to_the_span_of_their_launch():
 
 
 def test_span_events_leave_the_breakdown_as_it_was():
+    """The program's spans leave the device ops and the idle gaps' lengths
+    as they were, and name each gap by the span innermost over most of it
+    (the first of equals); with no span open, by the host operation."""
     plain = [e for e in EVENTS if not e["name"].startswith("tracer.")]
-    assert trace.breakdown(trace.reduce_events(EVENTS)) == trace.breakdown(
-        trace.reduce_events(plain))
+    spanned = trace.breakdown(trace.reduce_events(EVENTS))
+    bare = trace.breakdown(trace.reduce_events(plain))
+    assert spanned["device_ops"] == bare["device_ops"]
+    assert [s for _n, s in spanned["idle_gaps"]] == [s for _n, s in bare["idle_gaps"]]
+    # idle 100-130: 10 us outside, 10 in the frame, 10 in the all_reduce;
+    # 145-160: 5 in the frame, 10 in the fetch; 165-180: 5 in the fetch, 10 in the frame
+    assert [n for n, _s in spanned["idle_gaps"]] == [
+        "tracer.frame", "tracer.frame.fetch", "tracer.frame"]
+    assert [n for n, _s in bare["idle_gaps"]] == [
+        "no host operation recorded", "aten::to", "aten::to"]
     _red, got = _reduce(plain)
     assert got["spans"] == {} and set(got["idle_by_span"]) == {spans.OUTSIDE}
+
+
+def test_the_reduced_trace_carries_the_spans():
+    red, got = _reduce(EVENTS)
+    assert (red.spans, red.idle_by_span, red.span_kernels) == (
+        got["spans"], got["idle_by_span"], got["span_kernels"])
+    assert sum(red.idle_by_span.values()) == pytest.approx(red.window_s - red.busy_s)
+    assert red.spans["tracer.frame.fetch"] == [1, pytest.approx(20e-6)]
 
 
 def test_setup_spans_and_their_union():

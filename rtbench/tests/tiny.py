@@ -1,6 +1,7 @@
 """A cell cut to a CPU-sized run for the tests: the same files, the scene
-shrunk (24x16 frames, 16 spp, depth 5; a 60-sphere field), the plain
-renderer (engine "torch") on the CPU, gloo for several ranks.
+shrunk by its scene kind's `tiny` (config.txt and the field: 24x16 frames,
+16 spp, depth 5; a 60-sphere field), the plain renderer (engine "torch")
+on the CPU, gloo for several ranks.
 
     python rtbench/tests/tiny.py <workload> <seed> <seconds> <trace> [module:function ...]
 
@@ -18,14 +19,13 @@ if ROOT not in sys.path:
 
 
 def tiny(wl):
-    cfg = dict(wl.config)
-    if cfg["scene"] == "config_text":
-        text = list(cfg["text"])
-        text[2], text[-1] = "24 16 50", "5 4"
-        cfg.update(text=text, texture=dict(cfg["texture"], height=13, width=20))
-    else:
-        cfg.update(n=60, width=24, height=16, sqrt_spp=4, max_depth=5)
-    return wl._replace(config=cfg, check=dict(wl.check, pixels_per_frame=24 * 16))
+    """The cell with its scene kind's `tiny` cut of the configuration, and
+    every pixel of a 24x16 frame judged."""
+    from rtbench.harness import spec
+
+    cut = getattr(spec.scene_kind(wl.config["scene"]), "tiny", dict)
+    return wl._replace(config=cut(dict(wl.config)),
+                       check=dict(wl.check, pixels_per_frame=24 * 16))
 
 
 def workload(name):
