@@ -11,20 +11,27 @@ into its own `build/tracer_torch/`:
 
 - a ptxas worker builds megakernel.cu with the default flags and reads its
   ptxas lines (registers, stack frame and spills). The instantiations
-  whose lines differ from the parent's are printed beside the parent's,
-  and name the families that the time workers time: the brute kernels
+  whose lines differ from the parent's, or that the parent lacks, are
+  printed beside the parent's; the uncounted ones among those the parent
+  has name the families that the time workers time: the brute kernels
   (K1, K1-rec, brute K1-ref: ISECT 0) and the BVH kernels (K1-bvh,
-  K1-bvh-ref: ISECT 2);
+  K1-bvh-ref: ISECT 2). A trailing template flag that the parent's
+  trace_kernel lacks (RTIOW) is left out of the names where it is false,
+  so an instantiation keeps its parent's name;
 - check workers build megakernel.cu with `-fmad=false`, so that every
   float operation rounds as written, and render both families at three
   shapes: canonical 64x48 spp2 d5 textured, the 2000-sphere field 256x192
   spp2 d10, canonical 800x600 spp32 d50 textured. K1, K1-bvh (uncounted
   and counted, with the counters), K1-ref and K1-bvh-ref, and on the
   canonical scene K1-rec's frame, index tape and 13-field texture tape at
-  spp2 (by their sha256). Frames and tapes must be bit-equal between the
-  trees, and the counted launches' queries, hits, passes and active lanes
-  equal; their work counters (groups or leaves reached, primitive tests,
-  node tests) too, in a family whose ptxas lines did not move;
+  spp2 (by their sha256). K1 and K1-bvh also at the benchmark cells'
+  launches: one 172-spp launch of config.txt's frame 0 at 1080x720 d50
+  textured, one 16-spp launch of the field at 3840x2160 d50 from its pose.
+  Frames and tapes must be bit-equal between the trees, and the counted
+  launches' queries, hits, passes and active lanes equal; their work
+  counters (groups or leaves reached, primitive tests, node tests) too, in
+  a family whose ptxas lines did not move. Counters the parent lacks are
+  printed, not compared;
 - time workers build with the default flags and time the moved families:
   K1-bvh at the shapes of this tree's chip_smoke.py phase 13
   (`chip_smoke.bvh_times`), the brute kernels at `k1_times`' shapes, each
@@ -63,8 +70,9 @@ def ptxas_lines(log: str) -> dict:
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:  # without the anonymous namespace's per-file hash
+        if m:  # without the anonymous namespace's per-file hash, nor a false 7th flag
             name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1))
+            name = re.sub(r"(trace_kernelI(?:L[bi]\d+E){6})Lb0E(E)", r"\1\2", name)
             out[name] = []
         elif name and ("Used" in line or "spill" in line):
             out[name].append(line.strip().removeprefix("ptxas info    : "))
@@ -72,10 +80,11 @@ def ptxas_lines(log: str) -> dict:
 
 
 def family(name: str):
-    """"brute" for K1's, K1-rec's and brute K1-ref's instantiations (ISECT
-    0), "bvh" for K1-bvh's and K1-bvh-ref's (ISECT 2), else None."""
-    m = re.search(r"trace_kernelILb\dELi(\d)E", name)
-    return {"0": "brute", "2": "bvh"}.get(m.group(1)) if m else None
+    """"brute" for K1's, K1-rec's and brute K1-ref's uncounted (timed)
+    instantiations (ISECT 0), "bvh" for K1-bvh's and K1-bvh-ref's (ISECT 2),
+    else None (the counted ones, which count what a change may add)."""
+    m = re.search(r"trace_kernelILb\dELi(\d)ELb\dELb\dELb(\d)E", name)
+    return {"0": "brute", "2": "bvh"}.get(m.group(1)) if m and m.group(2) == "0" else None
 
 
 # the counters that the answers fix; the others count a family's own work
@@ -200,6 +209,18 @@ def worker(tree: str, role: str, out: str, families: str) -> int:
                                                                intersector="bvh",
                                                                rng_mode="reference")
             arrays[f"{name}|bvh counts"] = bvh
+        # the benchmark cells' launches: K1 on config.txt, K1-bvh on the field
+        cells = {"config_txt launch 1080x720 spp172 d50": (canon, cam_at(0, 1080, 720), 1080,
+                                                           720, 172, "K1"),
+                 "field_2k launch 3840x2160 spp16 d50": (
+                     field, C.build_camera_data([80.0, 0.0, 36.0], [0.0, 0.0, 3.0], 3840, 2160,
+                                                55.0, device=dev), 3840, 2160, 16, "bvh")}
+        for name, (scene, cam, w, h, spp, fam) in cells.items():
+            counts = torch.zeros(len(mk.COUNT_NAMES), dtype=torch.int64, device=dev)
+            fn, kw = (mk._render, {}) if fam == "K1" else (mk._render_bvh, {"intersector": "bvh"})
+            arrays[f"{name}|{fam}"] = mk.render_frame_kernel(scene, cam, w, h, spp, 50, **kw)
+            arrays[f"{name}|{fam} counted"] = fn(scene, cam, w, h, spp, 50, True, None, 0, counts)
+            arrays[f"{name}|{'brute' if fam == 'K1' else 'bvh'} counts"] = counts
         torch.cuda.synchronize()
         np.savez(out + ".npz", **{k: v if isinstance(v, np.ndarray) else v.cpu().numpy()
                                   for k, v in arrays.items()})
@@ -252,7 +273,7 @@ def main() -> int:
            for name, tree in trees.items()}
     moved = sorted(n for n in set(ptx["parent"]) | set(ptx["change"])
                    if ptx["parent"].get(n) != ptx["change"].get(n))
-    families = sorted({family(n) for n in moved} - {None})
+    families = sorted({family(n) for n in moved if n in ptx["parent"]} - {None})
     print(f"  ptxas: {len(moved)} instantiations differ from the parent's; timed families "
           f"{families or 'none'}", flush=True)
     for n in moved:
@@ -266,9 +287,10 @@ def main() -> int:
     for key in new.files:
         same = np.array_equal(base[key], new[key])
         extra = ""
-        if key.endswith(" counts"):
+        if key.endswith(" counts"):  # the parent's counters; the change's others printed
+            same = np.array_equal(base[key], new[key][:len(base[key])])
             c, b = (dict(zip(names, x[key].tolist())) for x in (new, base))
-            extra = f" {c}"
+            extra = f" {c}, then {new[key][len(base[key]):].tolist()}"
             if key.split("|")[1].split()[0] in families:  # the moved family's own work
                 same = all(c[n] == b[n] for n in SAME)
                 extra += (f" (parent's visits {b['visits']}, tests {b['tests']}, node tests "

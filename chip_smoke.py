@@ -13,7 +13,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and prints ptxas's registers and spills for every instantiation (K1-cl's
    and K1-bvh's four each: primitive records and nodes each in shared or
    global memory; K1-ref's brute two and BVH four, uncounted, and one
-   counted brute instantiation).
+   counted brute instantiation; K1-bvh's RTIOW eight, its records and nodes
+   each in shared or global memory, uncounted and counted).
 3. Each kernel against its plain PyTorch version, on the card, on the same
    inputs:
    - the forward megakernel (K1): smoke scene (quirk on and off), a partial
@@ -260,6 +261,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    - one main-path frame under utils.profiling.profile_trace (the trace must
      name trace_kernel; its top device operations printed), and a transient
      failure forced into the driver's first render call, which must retry.
+16. The RTIOW book's estimator: K1-bvh's RTIOW instantiation (thin lens,
+    sky, the book's materials) on the scene of the benchmark cell
+    rtiow_final.frames_bvh_auto, built by its scene kind, at the cell's
+    launch shape (a 12-row band of 1200x800, the driver's 139 spp of
+    484, depth 50) against the plain version on the same band: L1 within
+    1% and the mean within 1e-3, as one K1-bvh launch and no other; the
+    first sample of each of the frame's chunks printed by sample. Then the
+    same with megakernel.cu built with -fmad=false (a worker process, this
+    script with `--rtiow-fmad-false`), where the samples are held to
+    tests/test_torch_rtiow.py's rule: 99% within 1e-3, L1 within 1% (FMA
+    contraction diverts a few percent of this scene's samples at depth
+    50, on the radius-1000 ground sphere's roots).
 
 The line before the last is a JSON object describing the kernels (with
 `launches_d50`, each kernel's launches on phase 11's main path, and
@@ -307,11 +320,12 @@ def instantiation(line: str) -> str:
     """A ptxas 'Compiling entry' line's kernel, by name and template arguments."""
     import re
 
-    m = re.search(r"trace_kernelILb(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+    m = re.search(r"trace_kernelILb(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
     if m:
         rec, isect = m.group(1) == "1", int(m.group(2))
-        smem, nsmem, count, ref = (x == "1" for x in m.groups()[2:])
+        smem, nsmem, count, ref, rtiow = (x == "1" for x in m.groups()[2:])
         name = "K1-rec" if rec else ("K1", "K1-cl", "K1-bvh")[isect] + ("-ref" if ref else "")
+        name += " (RTIOW)" if rtiow else ""
         return (f"{name}, records in {'shared' if smem else 'global'} memory"
                 + (f", nodes in {'shared' if nsmem else 'global'} memory" if isect else "")
                 + (", counted" if count else ""))
@@ -2266,6 +2280,137 @@ def ref_phase(dev, kind, card, canon_p, cams, W, H, env):
                       max_abs_err=max(errs), ms=ms, plain_ms=p_ms, bound_ms=b[0], bound_by=b[1],
                       library_ms=None)
 
+# ---- phase 16: the RTIOW book's estimator (K1-bvh's RTIOW instantiation) ----
+
+RTIOW_ROWS = (384, 12)  # the band's first image row and its height, across the spheres
+RTIOW_TIMEOUT = 900  # seconds for the -fmad=false worker, build included
+
+
+def rtiow_compare(dev, fmad: bool):
+    """K1-bvh's RTIOW instantiation against the plain version on the
+    rtiow_final scene's band (RTIOW_ROWS of 1200x800, depth 50), with the
+    kernel as it was built: the driver's chunk of spp (139 at 484) in one
+    launch, held to L1 within 1% and the mean within TOL_MEAN, as the only
+    launch; then the first sample of each chunk alone, by sample. With
+    `fmad` (the default build) FMA contraction rounds the kernel's sphere
+    roots unlike the plain version's, and on the radius-1000 ground sphere
+    that turns a few percent of the samples down another path, so the
+    samples are printed but not held; without it (-fmad=false) every
+    operation rounds as the plain one does, and the samples are held to
+    tests/test_torch_rtiow.py's rule: 99% within 1e-3, L1 within 1%.
+    Returns (error or None, the max |diff| of each sample)."""
+    import torch
+
+    from rtbench.harness import spec
+    from tracer_torch.kernels import megakernel as mk
+    from tracer_torch.render import camera as C
+    from tracer_torch.render import driver, renderer
+
+    build = "default build" if fmad else "-fmad=false build"
+    wl = spec.workload("rtiow_final.frames_bvh_auto")
+    scene_kind = spec.scene_kind(wl.config["scene"])
+    inp = scene_kind.inputs(wl.config, 1, dev)
+    scene, params = scene_kind.program(inp, wl.config, dev, with_bvh=True)
+    w = params.width
+    spp, depth = params.render.sqrt_rays_per_pixel ** 2, params.render.max_depth
+    chunk = max(1, driver.MAX_RAYS_PER_LAUNCH // (w * params.height))
+    cam = C.camera_at(params.camera_path, 0, params.num_frames, w, params.height,
+                      params.fov_degrees, device=dev)
+    row0, rows = RTIOW_ROWS
+    band = dict(intersector="bvh", row_offset=row0)
+    i, j, base = renderer.pixel_grid(w, rows, device=dev, row_offset=row0)
+
+    def plain(samples):
+        """The plain version's radiance `[len(samples), rows, w, 3]` of each
+        sample: a one-spp render_pixels call over every (sample, pixel),
+        since wang_hash(base + s) is sample s's seed whatever the call,
+        so that the plain walk runs once over all of them."""
+        n, k = i.shape[0], len(samples)
+        s_of = torch.as_tensor(samples, device=dev).repeat_interleave(n)
+        got = renderer.render_pixels(scene, cam, i.repeat(k), j.repeat(k), base.repeat(k) + s_of,
+                                     1, depth, chunk=1 << 20, intersector="bvh")
+        return got.reshape(k, rows, w, 3)
+
+    launch_counts(reset=True)
+    got = mk.render_frame_kernel(scene, cam, w, rows, chunk, depth, sample_start=chunk, **band)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    want = plain(range(chunk, 2 * chunk)).double().sum(dim=0)
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    got = got.double()
+    l1 = float((got - want).abs().sum() / want.abs().sum())
+    rel = abs(float(got.mean() - want.mean())) / float(want.mean())
+    ok = (bool(torch.isfinite(got).all()) and float(want.mean()) > 0 and l1 < 0.01
+          and rel < TOL_MEAN)
+    print(f"  {build}, {scene.num_spheres} spheres, band of {chunk} spp (samples {chunk}.."
+          f"{2 * chunk - 1}): L1 {l1:.4g} (< 0.01), mean kernel {float(got.mean()):.9g} plain "
+          f"{float(want.mean()):.9g} rel {rel:.3g} (< {TOL_MEAN}); plain {p_s:.1f} s; "
+          f"launches {launches} -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        return f"K1-bvh's RTIOW instantiation ({build}) and the plain twin disagree on the band", []
+    if launches["megakernel_bvh"] != 1 or sum(launches.values()) != 1:
+        return f"the band's launch took {launches}, not one K1-bvh launch", []
+    errs = []
+    firsts = list(range(0, spp, chunk))
+    for s0, want in zip(firsts, plain(firsts).double()):
+        got = mk.render_frame_kernel(scene, cam, w, rows, 1, depth, sample_start=s0, **band)
+        d = (got.double() - want).abs()
+        frac = float((d.amax(dim=-1) < 1e-3).double().mean())
+        l1 = float(d.sum() / want.abs().sum())
+        ok = bool(torch.isfinite(got).all()) and frac >= TOL_FRAC and l1 < 0.01
+        errs.append(float(d.max()))
+        verdict = "printed" if fmad else ("ok" if ok else "FAIL")
+        print(f"  {build}, sample {s0}: agree {frac:.6f} (>= {TOL_FRAC}), L1 {l1:.4g} (< 0.01), "
+              f"max|diff| {float(d.max()):.6g} -> {verdict}", flush=True)
+        if not (ok or fmad):
+            return (f"K1-bvh's RTIOW instantiation ({build}) and the plain twin disagree on "
+                    f"sample {s0}"), errs
+    return None, errs
+
+
+def rtiow_worker() -> int:
+    """Phase 16's -fmad=false half (`chip_smoke.py --rtiow-fmad-false`):
+    builds megakernel.cu without FMA contraction into its own library and
+    runs rtiow_compare on it."""
+    import torch
+
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    from tracer_torch.kernels import nvcc
+
+    nvcc.SOURCE_FLAGS = {**nvcc.SOURCE_FLAGS, "megakernel": ("-fmad=false",)}
+    nvcc.build_all()
+    err, _ = rtiow_compare(torch.device("cuda", 0), fmad=False)
+    if err:
+        print(f"chip_smoke: FAIL: {err}", flush=True)
+    return 1 if err else 0
+
+
+def rtiow_phase(dev, kind, card):
+    """Phase 16: K1-bvh's RTIOW instantiation (thin lens, sky, the book's
+    materials) on the benchmark cell rtiow_final.frames_bvh_auto's scene,
+    built by its scene kind, at the cell's launch shape, against the plain
+    version on the same band (rtiow_compare): as built, then built with
+    -fmad=false in a worker process (rtiow_worker). Returns an error or
+    None."""
+    t_phase = time.perf_counter()
+    print(f"[16] the RTIOW final scene on K1-bvh's RTIOW instantiation on {kind} ({card}): "
+          f"rows {RTIOW_ROWS[0]}..{sum(RTIOW_ROWS) - 1} of 1200x800, depth 50", flush=True)
+    err, _ = rtiow_compare(dev, fmad=True)
+    if err:
+        return err
+    try:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--rtiow-fmad-false"],
+                              capture_output=True, text=True, cwd=HERE, timeout=RTIOW_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        return f"the -fmad=false worker timed out after {RTIOW_TIMEOUT} s"
+    print("\n".join(x for x in proc.stdout.splitlines() if x.startswith("  ")), flush=True)
+    if proc.returncode != 0:
+        tail = (proc.stdout + proc.stderr).strip().splitlines()[-5:]
+        return f"the -fmad=false worker exited {proc.returncode}: {' | '.join(tail)}"
+    print(f"    phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return None
 
 def main() -> int:
     import torch
@@ -2771,6 +2916,11 @@ def main() -> int:
     if err:
         return fail(err)
 
+    # ---- 16. the RTIOW book's estimator -----------------------------------------
+    err = rtiow_phase(dev, kind, card)
+    if err:
+        return fail(err)
+
     kernels = [
         dict(name="megakernel", route="cuda", source="tracer_torch/csrc/megakernel.cu",
              replaces="tracer/pallas/kernels.py:33", launches=launches, max_abs_err=max_abs_err,
@@ -2807,4 +2957,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:  # one rank of phase 14, started by the phase
         sys.exit(dist_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--rtiow-fmad-false"]:  # phase 16's -fmad=false half
+        sys.exit(rtiow_worker())
     sys.exit(main())

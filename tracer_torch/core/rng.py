@@ -70,11 +70,18 @@ def _cbrt(u: torch.Tensor) -> torch.Tensor:
     return torch.pow(u.to(torch.float64), 1.0 / 3.0).to(torch.float32)
 
 
-def random_in_unit_sphere(seed: torch.Tensor):
-    """Uniform point in the unit ball: direction times cbrt(u); 3 advances."""
+def random_ball(seed: torch.Tensor):
+    """Uniform point in the unit ball and its unit direction: (seed, the
+    direction times cbrt(u), the direction); 3 advances."""
     seed, d = random_unit_vector(seed)
     seed, u = random_float(seed)
-    return seed, d * _cbrt(u)[..., None]
+    return seed, d * _cbrt(u)[..., None], d
+
+
+def random_in_unit_sphere(seed: torch.Tensor):
+    """Uniform point in the unit ball: direction times cbrt(u); 3 advances."""
+    seed, ball, _ = random_ball(seed)
+    return seed, ball
 
 
 def random_in_hemisphere(normal: torch.Tensor, seed: torch.Tensor):

@@ -42,6 +42,13 @@ enum CameraRow {
   C_OX, C_OY, C_OZ, C_P00X, C_P00Y, C_P00Z, C_DUX, C_DUY, C_DUZ,
   C_DVX, C_DVY, C_DVZ, C_BGR, C_BGG, C_BGB, C_ROWS
 };
+// K1-bvh's RTIOW instantiation reads these rows after the camera's C_ROWS:
+// the lens basis times its radius, whether there is a lens, the sky's
+// bottom and top, whether there is a sky. Must match pack.py RTIOW_ROWS.
+enum RtiowRow {
+  R_LUX, R_LUY, R_LUZ, R_LVX, R_LVY, R_LVZ, R_LENS_ON,
+  R_SBR, R_SBG, R_SBB, R_STR, R_STG, R_STB, R_SKY_ON, R_ROWS
+};
 // Backward table and camera rows: must match pack.py BWD_ROWS and CAMV_ROWS.
 enum TableRow {
   T_CX, T_CY, T_CZ, T_RAD, T_NX, T_NY, T_NZ, T_ISSPH, T_MTYPE, T_FUZZ, T_IR,
@@ -54,7 +61,10 @@ enum CamvRow {
 };
 
 enum PlaneType { QUAD = 0, ELLIPSE = 1, TRIANGLE = 2 };
-enum MaterialType { LAMBERTIAN = 0, METAL = 1, DIELECTRIC = 2 };
+// RTIOW_*: the RTIOW book's Lambertian and metal (scene/types.py), rendered
+// by K1-bvh's RTIOW instantiation only
+enum MaterialType { LAMBERTIAN = 0, METAL = 1, DIELECTRIC = 2, RTIOW_LAMBERTIAN = 4,
+                    RTIOW_METAL = 5 };
 
 struct V3 {
   float x, y, z;

@@ -210,15 +210,37 @@
 // it: K1's FP32 work and about 5.7 hashes a lambertian bounce in place of
 // 8, with no sincosf or cbrtf, against the loop's divergence.
 //
+// The RTIOW book's estimator (RTIOW, entry mode 6; K1-bvh only, on the
+// fixed stream): Shirley's "Ray Tracing in One Weekend" (book 1, v3.2.3)
+// final scene asks for three things the reference's scenes do not, each
+// off unless the launch's tables ask for it (RtiowRow, after the camera's
+// rows). A thin lens (section 12.2): with a lens, two draws after the
+// jitter's place the ray's origin on a disk of the lens's radius (r =
+// sqrt(u1), theta = 2 pi u2 over the lens basis), and the ray still passes
+// through the jittered point of the viewport, which the host places at the
+// focus distance. A sky (section 4.2): a miss adds beta * lerp(bottom, top,
+// 0.5 (unit(d).z + 1)) in place of beta * bg. The book's two materials
+// (section 9): RTIOW_LAMBERTIAN scatters along n + the unit direction of
+// the budget's ball draw (n where the sum is near zero), RTIOW_METAL
+// reflects plus fuzz times the ball with no specular gate, killed below the
+// surface; both in the budget's draw slots, so the stream is unchanged.
+// The flag is a template parameter, as REF is, so the other instantiations
+// compile the code they compiled before it. What bounds it on the book's
+// scene: paths end by escaping to the sky after a few bounces, so lane
+// regeneration and divergence across the material branches set the pace.
+//
 // All of them run one bounce loop, trace_pixel<RECORD, ISECT, SMEM, NSMEM,
-// COUNT, REF>, and call the same sphere_t / plane_hit; only the nearest-hit
-// block's loop, the tape stores and the scatter's stream are chosen at
-// compile time.
+// COUNT, REF, RTIOW>, and call the same sphere_t / plane_hit; only the
+// nearest-hit block's loop, the tape stores and the scatter's stream are
+// chosen at compile time.
 // The counted instantiations (COUNT; the debug_iters counterpart of
 // tracer/pallas/kernels.py:62, :107-110) add up the launch's nearest-hit
 // queries, hits, leaves reached, primitive tests, warp passes, the active
-// lanes of each pass (__popc(__activemask())) and node tests (K1-cl's and
-// K1-bvh's walks); timed launches take the uncounted ones.
+// lanes of each pass (__popc(__activemask())), node tests (K1-cl's and
+// K1-bvh's walks), camera samples started, the warp passes in which some
+// lane scatters and those among them whose scattering lanes take more than
+// one material branch (__match_any_sync over the material code); timed
+// launches take the uncounted ones.
 //
 // Float semantics: IEEE division and sqrtf (no --use_fast_math); nvcc's
 // default FMA contraction is kept, so a ray on a razor-edge tie (polyhedron
@@ -233,7 +255,7 @@ namespace {
 
 constexpr float K_INFINITY = 1e32f;
 constexpr int THREADS = 128;
-constexpr int COUNTS = 7;  // COUNT's counters, see Launch::counts
+constexpr int COUNTS = 10;  // COUNT's counters, see Launch::counts
 // the nearest-hit block of trace_pixel: every primitive (K1, K1-rec), the
 // cluster tree's walk (K1-cl) or the BVH's (K1-bvh)
 enum Isect { BRUTE = 0, CLUSTERED = 1, BVH = 2 };
@@ -289,7 +311,8 @@ struct Launch {
                        // rows of a taller image keeps the image's seeds and camera rays
   // COUNT: [COUNTS] sums over the launch: nearest-hit queries, hits,
   // leaves reached (BRUTE: groups whose ball a query entered), primitives
-  // tested, warp passes, active lanes, node tests
+  // tested, warp passes, active lanes, node tests, samples started, warp
+  // passes that scatter, those with mixed material branches
   unsigned long long* counts;
 };
 
@@ -572,8 +595,9 @@ __device__ __forceinline__ V3 hemisphere_dir_ref(uint32_t& s, V3 nrm) {
 // ISECT CLUSTERED the nearest hit walks the cluster tree N, with BVH the
 // BVH N, instead of testing every primitive. With COUNT, the launch's
 // work is added to L.counts. With REF, the scatter draws the reference
-// stream (see the note at the top).
-template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF>
+// stream, with RTIOW the ray generation, the miss and the scatter take the
+// RTIOW book's lens, sky and materials (see the note at the top).
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF, bool RTIOW>
 __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& P,
                                             const Nodes<NSMEM>& N, int lin) {
   const int width = L.width, max_depth = L.max_depth, num_s = P.num_s, num_p = P.num_p;
@@ -588,6 +612,18 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
   const V3 du = ld3(L.cam, C_DUX, 1, 0);
   const V3 dv = ld3(L.cam, C_DVX, 1, 0);
   const V3 bg = ld3(L.cam, C_BGR, 1, 0);
+  // RTIOW: the lens and the sky (RtiowRow, after the camera's rows)
+  V3 lens_u = zero3(), lens_v = zero3(), sky_bot = zero3(), sky_top = zero3();
+  bool lens_on = false, sky_on = false;
+  if constexpr (RTIOW) {
+    const float* ext = L.cam + C_ROWS;
+    lens_u = ld3(ext, R_LUX, 1, 0);
+    lens_v = ld3(ext, R_LVX, 1, 0);
+    lens_on = ld(ext, R_LENS_ON, 1, 0) != 0.0f;
+    sky_bot = ld3(ext, R_SBR, 1, 0);
+    sky_top = ld3(ext, R_STR, 1, 0);
+    sky_on = ld(ext, R_SKY_ON, 1, 0) != 0.0f;
+  }
 
   // pixel center (camera.cuh:97-109) and base seed (camera.cu:25)
   const V3 pc = add(add(p00, scale(du, (float)i)), scale(dv, (float)j));
@@ -596,7 +632,7 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
                                                     : (uint32_t)j * w32 + (uint32_t)i);
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  uint32_t cnt[COUNTS] = {0, 0, 0, 0, 0, 0, 0};  // COUNT's (dead code without it)
+  uint32_t cnt[COUNTS] = {};  // COUNT's (dead code without it)
   // the lane's path: sample s at bounce `depth`, ray (o, d), throughput
   // beta, radiance fin, RNG state seed; `ended` starts the next sample
   int s = -1, depth = 0;
@@ -611,6 +647,7 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
         acc_b += fin.z;
       }
       if (++s == L.spp) break;
+      if constexpr (COUNT) ++cnt[7];
       seed = wang_hash(base + L.sample_start + (uint32_t)s);
       const float ux = rand01(seed);  // x before y
       const float uy = rand01(seed);
@@ -625,7 +662,16 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
         oy = uy - 0.5f;
       }
       o = cam_o;
-      d = sub(add(add(pc, scale(du, ox)), scale(dv, oy)), cam_o);
+      if constexpr (RTIOW) {
+        if (lens_on) {  // two draws after the jitter's: a uniform point on the lens
+          const float l1 = rand01(seed);
+          const float l2 = rand01(seed);
+          const float r = sqrtf(l1);
+          const float theta = TWO_PI_F * l2;
+          o = add(cam_o, add(scale(lens_u, r * cosf(theta)), scale(lens_v, r * sinf(theta))));
+        }
+      }
+      d = sub(add(add(pc, scale(du, ox)), scale(dv, oy)), o);
       beta = make_v3(1.0f, 1.0f, 1.0f);
       fin = zero3();
       depth = 0;
@@ -798,9 +844,17 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
     }
 
     if (widx < 0) {
-      // miss: background, the path ends (camera.cu:226-229); the tape
-      // keeps its -1
-      fin = add(fin, mul(beta, bg));
+      // miss: background (RTIOW: or the sky), the path ends (camera.cu:
+      // 226-229); the tape keeps its -1
+      V3 miss = bg;
+      if constexpr (RTIOW) {
+        if (sky_on) {
+          const float uz = d.z * (1.0f / sqrtf(fmaxf(a, 1e-30f)));
+          const float t = 0.5f * (uz + 1.0f);
+          miss = add(scale(sky_bot, 1.0f - t), scale(sky_top, t));
+        }
+      }
+      fin = add(fin, mul(beta, miss));
       ended = true;
       continue;
     }
@@ -849,6 +903,14 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
     }
     // emission before scatter (camera.cu:237-238)
     fin = add(fin, mul(beta, ld3(join, J_EMI0, n, widx)));
+    if constexpr (COUNT) {  // a warp pass that scatters; mixed: lanes of several materials
+      const unsigned sc = __activemask();
+      const unsigned same = __match_any_sync(sc, mtype);
+      if ((int)(threadIdx.x & 31) == __ffs(sc) - 1) {
+        ++cnt[8];
+        if (same != sc) ++cnt[9];
+      }
+    }
 
     if constexpr (REF) {
       // -- the reference stream's scatter (scatter.py:scatter_reference), then
@@ -900,7 +962,16 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
 
     bool ok;
     V3 new_o = p, new_d, att = albedo;
-    if (mtype == LAMBERTIAN) {  // materials.h:73-79
+    if (RTIOW && mtype == RTIOW_LAMBERTIAN) {  // n + unit vector (RTIOW section 9.4)
+      const V3 s_dir = add(nrm, ball_dir);
+      const bool s_zero = fabsf(s_dir.x) < NEAR_ZERO_EPS && fabsf(s_dir.y) < NEAR_ZERO_EPS &&
+                          fabsf(s_dir.z) < NEAR_ZERO_EPS;
+      new_d = s_zero ? nrm : s_dir;
+      ok = true;
+    } else if (RTIOW && mtype == RTIOW_METAL) {  // no specular gate (RTIOW section 9.6)
+      new_d = add(reflect(ud, nrm), scale(ball, ld(join, J_FUZZ, n, widx)));
+      ok = dot(new_d, nrm) > 0.0f;
+    } else if (mtype == LAMBERTIAN) {  // materials.h:73-79
       ok = true;
       new_d = lam_dir;
     } else if (mtype == METAL) {  // materials.h:81-95
@@ -956,11 +1027,12 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
 // ---- the kernel ----
 
 // K1 (RECORD = false, ISECT = BRUTE), K1-rec (RECORD), K1-cl (ISECT =
-// CLUSTERED), K1-bvh (ISECT = BVH) and K1-ref (REF, ISECT BRUTE or BVH).
+// CLUSTERED), K1-bvh (ISECT = BVH; RTIOW, the book's estimator) and K1-ref
+// (REF, ISECT BRUTE or BVH).
 // With SMEM the block first stages the primitive records in dynamic shared
 // memory, with NSMEM the node records (after them), in one loop; a BRUTE
 // block with SMEM stages its group records in the node records' place.
-template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF>
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF, bool RTIOW>
 __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
   extern __shared__ float4 records[];
   Prims<SMEM> P{L.sph, L.pla, L.num_s, L.num_p};
@@ -993,10 +1065,11 @@ __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
   }
   const int lin = blockIdx.x * blockDim.x + threadIdx.x;
   if (lin >= L.width * L.height) return;  // ragged last block
-  trace_pixel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF>(L, P, N, lin);
+  trace_pixel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW>(L, P, N, lin);
 }
 
-template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF = false>
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF = false,
+          bool RTIOW = false>
 int launch(const Launch& L, cudaStream_t st) {
   const int blocks = (L.width * L.height + THREADS - 1) / THREADS;
   const bool stage_nodes = NSMEM || (SMEM && ISECT == BRUTE);  // the kernel's GSMEM
@@ -1005,22 +1078,22 @@ int launch(const Launch& L, cudaStream_t st) {
                                          (stage_nodes ? NODE_F4<ISECT> * (size_t)L.num_nodes : 0));
   if (bytes > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF>,
+        cudaFuncSetAttribute(trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF><<<blocks, THREADS, bytes, st>>>(L);
+  trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW><<<blocks, THREADS, bytes, st>>>(L);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool RECORD, int ISECT, bool NSMEM>
+template <bool RECORD, int ISECT, bool NSMEM, bool RTIOW = false>
 int launch_mode(const Launch& L, bool smem, cudaStream_t st) {
   if (L.counts != nullptr) {
-    return smem ? launch<RECORD, ISECT, true, NSMEM, true>(L, st)
-                : launch<RECORD, ISECT, false, NSMEM, true>(L, st);
+    return smem ? launch<RECORD, ISECT, true, NSMEM, true, false, RTIOW>(L, st)
+                : launch<RECORD, ISECT, false, NSMEM, true, false, RTIOW>(L, st);
   }
-  return smem ? launch<RECORD, ISECT, true, NSMEM, false>(L, st)
-              : launch<RECORD, ISECT, false, NSMEM, false>(L, st);
+  return smem ? launch<RECORD, ISECT, true, NSMEM, false, false, RTIOW>(L, st)
+              : launch<RECORD, ISECT, false, NSMEM, false, false, RTIOW>(L, st);
 }
 
 // K1-ref's uncounted instantiations; its one counted instantiation (brute,
@@ -1044,12 +1117,14 @@ int launch_ref(const Launch& L, bool smem, cudaStream_t st) {
 // records as tracer_torch/kernels/pack.py:pack_bvh packs them; the tree's
 // depth at most BVH_STACK), 4 and 5 render modes 0 and 3 on the reference stream
 // (K1-ref: rng_mode="reference"; counted in mode 4 only; rr_start is
-// ignored). In the brute modes 0, 1 and 4, nodes [num_nodes, 3] float4 are
-// the scene's object groups as tracer_torch/kernels/pack.py:pack_groups
+// ignored), 6 renders mode 3 with the RTIOW book's estimator (cam holds
+// C_ROWS + R_ROWS rows: the lens and the sky after the camera's). In the
+// brute modes 0, 1 and 4, nodes [num_nodes, 3] float4 are the scene's
+// object groups as tracer_torch/kernels/pack.py:pack_groups
 // packs them (num_nodes 0: no groups, every primitive tested). sph and pla
 // are 16-byte aligned record tables (tracer_torch/kernels/pack.py);
 // shared_tables stages them in shared memory (with a brute mode's groups),
-// shared_nodes the nodes of modes 2, 3 and 5. strat_k > 0 stratifies the
+// shared_nodes the nodes of modes 2, 3, 5 and 6. strat_k > 0 stratifies the
 // jitter over a strat_k x strat_k grid (every mode). row_offset >= 0 makes the launch the
 // band of rows row_offset .. row_offset + height - 1 of a taller image (every
 // mode): out and the tapes stay band-sized, seeds and rays are the image's.
@@ -1084,6 +1159,8 @@ extern "C" int tracer_megakernel_launch(
       if (counts != nullptr) return static_cast<int>(cudaErrorInvalidValue);
       return shared_nodes != 0 ? launch_ref<BVH, true>(L, smem, st)
                                : launch_ref<BVH, false>(L, smem, st);
+    case 6: return shared_nodes != 0 ? launch_mode<false, BVH, true, true>(L, smem, st)
+                                     : launch_mode<false, BVH, false, true>(L, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

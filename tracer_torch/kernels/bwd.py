@@ -74,7 +74,13 @@ def pack_bwd_tables(scene: Scene) -> torch.Tensor:
 
 def pack_tables(scene: Scene, cam: camera_mod.CameraData):
     """(table `[TROWS, S+P]`, camera rows `[15]` in `CAMV_ROWS` order): the two
-    inputs whose cotangents carry every scene and camera gradient."""
+    inputs whose cotangents carry every scene and camera gradient. The
+    backward pass (K2 and its plain replay) knows the pinhole, the
+    background and the reference's materials only: a scene or camera with
+    any of `pack.rtiow_features` raises."""
+    unsupported = P.rtiow_features(scene, cam)
+    if unsupported:
+        raise ValueError(f"K2 (the backward pass) does not support {', '.join(unsupported)}")
     camv = torch.cat([cam.pixel00_loc, cam.pixel_delta_u, cam.pixel_delta_v, cam.origin,
                       cam.background]).to(torch.float32)
     return pack_bwd_tables(scene), camv

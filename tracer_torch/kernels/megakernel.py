@@ -51,8 +51,16 @@ the winner-index and texture tapes the backward kernel replays.
 `loop_work` launches the counted instantiation of the same kernels and
 returns the launch's work (nearest-hit queries, hits, warp passes and
 active lanes, and K1-cl's and K1-bvh's node tests, leaves reached and
-primitive tests);
-the plain query count is `tracer_torch.render.renderer.query_count`.
+primitive tests; camera samples, and the warp passes that scatter and those among them whose lanes take more than one material
+branch); the plain query count is
+`tracer_torch.render.renderer.query_count`.
+
+The RTIOW book's estimator (a camera with a thin lens, a scene with a
+sky, the material codes RTIOW_LAMBERTIAN and RTIOW_METAL; `pack.
+rtiow_features`) renders with K1-bvh's RTIOW instantiation (entry mode
+6), which `intersector="bvh"` takes on its own for such a scene or
+camera; every other kernel (K1, K1-rec, K1-cl, K1-ref, K1-bvh-ref, and
+K2 in kernels/bwd.py) raises a ValueError that names what it lacks.
 
 The brute kernels (K1, K1-rec, brute K1-ref) cull by object
 (`Scene.groups`; csrc/megakernel.cu's note, kernels/pack.py:pack_groups).
@@ -104,8 +112,14 @@ TABLE_SHARED_BYTES_MAX = 16 * 1024
 NODE_SHARED_BYTES_MAX = 16 * 1024
 BVH_STACK = 32  # K1-bvh's per-thread stack and depth guard (BVH_STACK in csrc/megakernel.cu)
 # the counted instantiation's counters (COUNTS in csrc/megakernel.cu)
-COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests")
+COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests",
+               "samples", "scatter_passes", "mixed_passes")
 MODE_RENDER, MODE_RECORD, MODE_CLUSTERED, MODE_BVH, MODE_REF, MODE_BVH_REF = 0, 1, 2, 3, 4, 5
+MODE_BVH_RTIOW = 6  # K1-bvh's RTIOW instantiation: lens, sky and the RTIOW materials
+KERNEL_NAMES = {MODE_RENDER: "K1 (brute force)", MODE_RECORD: "K1-rec (record mode)",
+                MODE_CLUSTERED: "K1-cl (cluster-culled)", MODE_BVH: "K1-bvh",
+                MODE_REF: "K1-ref (reference stream)",
+                MODE_BVH_REF: "K1-bvh-ref (reference stream)", MODE_BVH_RTIOW: "K1-bvh (RTIOW)"}
 
 
 class LoopWork(NamedTuple):
@@ -117,6 +131,9 @@ class LoopWork(NamedTuple):
     passes: int  # warp passes: loop passes, each counted once per warp
     active_lanes: int  # the active lanes of those passes, summed
     node_tests: int  # K1-cl, K1-bvh: the walks' slab tests of nodes (0 for K1, K1-rec)
+    samples: int  # camera samples started
+    scatter_passes: int  # warp passes in which some lane scatters
+    mixed_passes: int  # those whose scattering lanes take more than one material branch
 
     @property
     def lane_utilisation(self) -> float:
@@ -182,7 +199,25 @@ def _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start, 
         tex = scene.textures[0].contiguous()
     for name, t in zip(cam._fields, cam):
         _check(f"cam.{name}", t, device, (3,))
+    if cam.lens is not None:
+        _check("cam.lens", cam.lens, device, (2, 3))
+    if scene.sky is not None:
+        for name, t in zip(scene.sky._fields, scene.sky):
+            _check(f"scene.sky.{name}", t, device, (3,))
     return device, tex
+
+
+def _kernel_mode(mode, scene, cam):
+    """`mode`, or K1-bvh's RTIOW instantiation for a scene or camera that
+    asks for the RTIOW book's estimator (pack.rtiow_features), which only
+    K1-bvh on the fixed stream renders: every other kernel raises."""
+    features = pack_mod.rtiow_features(scene, cam)
+    if not features:
+        return mode
+    if mode != MODE_BVH:
+        raise ValueError(f"{KERNEL_NAMES[mode]} does not support {', '.join(features)}: only "
+                         f"K1-bvh (intersector='bvh', rng_mode='fixed') renders them")
+    return MODE_BVH_RTIOW
 
 
 def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_start,
@@ -193,7 +228,10 @@ def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_st
     brute mode's the scene's group records; the launch covers image rows
     row_offset .. row_offset + height - 1."""
     packed = pack_mod.pack_scene(scene)
-    cam_t = pack_mod.pack_camera(cam)
+    if mode == MODE_BVH_RTIOW:
+        cam_t = pack_mod.pack_camera_rtiow(cam, scene)
+    else:
+        cam_t = pack_mod.pack_camera(cam)
     th, tw = (0, 0) if tex is None else (int(tex.shape[0]), int(tex.shape[1]))
     brute = mode in (MODE_RENDER, MODE_RECORD, MODE_REF)
     if brute:
@@ -268,6 +306,7 @@ def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth
 
 def _forward(mode, scene, cam, width, height, spp, max_depth, reference_quirk, rr_start,
              sample_start, counts, strat_k, tables=None, nodes=None, row_offset=0):
+    mode = _kernel_mode(mode, scene, cam)
     device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start,
                            row_offset)
     out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
@@ -275,10 +314,7 @@ def _forward(mode, scene, cam, width, height, spp, max_depth, reference_quirk, r
                   reference_quirk, rr_start, tables=tables, nodes=nodes, strat_k=strat_k,
                   counts=counts, row_offset=row_offset)
     if err != 0:
-        name = {MODE_RENDER: "megakernel", MODE_CLUSTERED: "clustered megakernel",
-                MODE_BVH: "BVH megakernel", MODE_REF: "reference-stream megakernel",
-                MODE_BVH_REF: "reference-stream BVH megakernel"}[mode]
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{KERNEL_NAMES[mode]} launch failed: CUDA error {err}")
     return out
 
 
@@ -407,6 +443,7 @@ def _record(scene, cam, width, height, spp, max_depth, reference_quirk, rr_start
             tape_fields, counts, strat_k=0, row_offset=0):
     if tape_fields not in integrator.TAPE_FIELDS:
         raise ValueError(f"tape_fields must be one of {integrator.TAPE_FIELDS}, got {tape_fields}")
+    _kernel_mode(MODE_RECORD, scene, cam)
     device, tex = _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start,
                            row_offset)
     need = tape_bytes(width, height, spp, max_depth, tape_fields, tex is not None)

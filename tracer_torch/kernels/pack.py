@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from tracer_torch.bvh import builder as bvh_builder
-from tracer_torch.scene.types import TRIANGLE, Scene
+from tracer_torch.scene.types import RTIOW_LAMBERTIAN, TRIANGLE, Scene
 
 SPHERE_ROWS = ("cx", "cy", "cz", "radius")
 PLANE_ROWS = ("nx", "ny", "nz", "d", "bx", "by", "bz", "ptype", "ux", "uy", "uz", "pad0",
@@ -57,6 +57,11 @@ JOIN_ROWS = ("mtype", "fuzz", "ir", "abs0", "abs1", "abs2", "alb0", "alb1", "alb
              "emi0", "emi1", "emi2", "tex_id")
 CAMERA_ROWS = ("ox", "oy", "oz", "p00x", "p00y", "p00z", "dux", "duy", "duz",
                "dvx", "dvy", "dvz", "bgr", "bgg", "bgb")
+# K1-bvh's RTIOW instantiation reads these after CAMERA_ROWS: the lens basis
+# times its radius (zeros and lens_on 0 for a pinhole), then the sky (sky_on
+# 0: the background instead)
+RTIOW_ROWS = ("lux", "luy", "luz", "lvx", "lvy", "lvz", "lens_on",
+              "sbr", "sbg", "sbb", "str", "stg", "stb", "sky_on")
 
 BWD_JOIN_ROWS = ("cx", "cy", "cz", "rad", "nx", "ny", "nz", "issph", "mtype", "fuzz", "ir",
                  "abs0", "abs1", "abs2", "alb0", "alb1", "alb2", "emi0", "emi1", "emi2", "texid")
@@ -106,6 +111,34 @@ def pack_camera(cam) -> torch.Tensor:
     """The camera as one `[len(CAMERA_ROWS)]` float32 tensor on its device."""
     return torch.cat([cam.origin, cam.pixel00_loc, cam.pixel_delta_u, cam.pixel_delta_v,
                       cam.background]).to(torch.float32).contiguous()
+
+
+def pack_camera_rtiow(cam, scene: Scene) -> torch.Tensor:
+    """`[len(CAMERA_ROWS) + len(RTIOW_ROWS)]` float32: pack_camera's rows,
+    then the camera's lens and the scene's sky (RTIOW_ROWS)."""
+    dev = cam.origin.device
+    z3 = torch.zeros(3, dtype=torch.float32, device=dev)
+    on = lambda x: torch.full((1,), float(x is not None), dtype=torch.float32, device=dev)
+    lens = (z3, z3) if cam.lens is None else tuple(cam.lens)
+    sky = (z3, z3) if scene.sky is None else tuple(scene.sky)
+    return torch.cat([pack_camera(cam), *lens, on(cam.lens), *sky,
+                      on(scene.sky)]).to(torch.float32).contiguous()
+
+
+def rtiow_features(scene: Scene, cam=None) -> list:
+    """What of the RTIOW book's estimator `scene` and `cam` ask for: a thin
+    lens, a sky, the material codes RTIOW_LAMBERTIAN or RTIOW_METAL; [] for
+    a scene every kernel renders. The codes are read once per materials
+    tensor (cached), so a cached call reads nothing from the device."""
+    out = []
+    if cam is not None and cam.lens is not None:
+        out.append("a thin-lens camera")
+    if scene.sky is not None:
+        out.append("a sky")
+    mtype = scene.materials.mtype
+    if _cached((mtype,), ("rtiow",), lambda: bool((mtype >= RTIOW_LAMBERTIAN).any())):
+        out.append("the RTIOW material codes (4, 5)")
+    return out
 
 
 _CACHE = []  # (weak refs to the tensors, their versions, key, records), newest last

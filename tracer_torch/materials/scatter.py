@@ -6,9 +6,12 @@ as masked selects, on two RNG streams.
 draws, in stream order (the CUDA kernel draws the same):
   u_choice  (1)  - METAL specular-vs-diffuse gate   (materials.h:83)
   hemi      (2)  - hemisphere direction             (materials.h:74, :89)
-  ball      (3)  - in-unit-sphere fuzz offset       (materials.h:86)
+  ball      (3)  - in-unit-sphere fuzz offset       (materials.h:86); its
+                   direction is RTIOW_LAMBERTIAN's unit vector
   u_refl    (1)  - DIELECTRIC reflectance gate      (materials.h:109)
   u_rr      (1)  - DIELECTRIC Russian roulette      (materials.h:124)
+The RTIOW book's two materials (scene/types.py: RTIOW_LAMBERTIAN,
+RTIOW_METAL) take their draws from the same slots.
 
 `scatter_reference`, the reference binary's own stream (`rng_mode=
 "reference"`): rejection samplers and conditional draws, per material.
@@ -19,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from tracer_torch.core import rng, vec
-from tracer_torch.scene.types import DIELECTRIC, LAMBERTIAN, METAL
+from tracer_torch.scene.types import DIELECTRIC, LAMBERTIAN, METAL, RTIOW_LAMBERTIAN, RTIOW_METAL
 
 METAL_SPECULAR_P = 0.8  # materials.h:82 (p_metal)
 DIELECTRIC_OFFSET = 1e-4  # materials.h:127
@@ -92,7 +95,7 @@ def scatter(ray_origin, ray_dir, point, normal, front_face, mtype, fuzz, ir,
     roulette) like the reference's bool return."""
     seed, u_choice = rng.random_float(seed)
     seed, hemi = rng.random_in_hemisphere(normal, seed)
-    seed, ball = rng.random_in_unit_sphere(seed)
+    seed, ball, ball_dir = rng.random_ball(seed)
     seed, u_refl = rng.random_float(seed)
     seed, u_rr = rng.random_float(seed)
 
@@ -113,6 +116,16 @@ def scatter(ray_origin, ray_dir, point, normal, front_face, mtype, fuzz, ir,
     new_origin, new_dir, attenuation, ok = _select(mtype, point, albedo, lam_dir, metal_dir,
                                                    metal_ok, die_dir, die_origin, die_att,
                                                    u_rr <= p_rr)
+    # RTIOW_LAMBERTIAN: n + unit vector, the normal where that is near zero;
+    # RTIOW_METAL: the specular branch without its gate (the attenuation is
+    # the albedo and the origin the point, as _select gives every code but
+    # the dielectric)
+    rl_dir = normal + ball_dir
+    rl_dir = torch.where(vec.near_zero(rl_dir)[..., None], normal, rl_dir)
+    is_rl, is_rm = mtype == RTIOW_LAMBERTIAN, mtype == RTIOW_METAL
+    new_dir = torch.where(is_rl[..., None], rl_dir,
+                          torch.where(is_rm[..., None], refl_dir, new_dir))
+    ok = ok | is_rl | (is_rm & (vec.dot(refl_dir, normal) > 0.0))
     return seed, new_origin, new_dir, attenuation, ok
 
 

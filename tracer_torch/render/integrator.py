@@ -30,6 +30,7 @@ import torch
 
 from tracer_torch.bvh import traverse as bvh_traverse
 from tracer_torch.core import rng as rng_mod
+from tracer_torch.core import vec
 from tracer_torch.materials import scatter as scatter_mod
 from tracer_torch.materials import texture as texture_mod
 from tracer_torch.render import hit as hit_mod
@@ -73,6 +74,16 @@ def check_rng_mode(rng_mode: str, rr_start=None) -> str:
     return rng_mode
 
 
+def sky_radiance(sky, direction):
+    """The sky's radiance `[R, 3]` along `direction` `[R, 3]` (not normalised):
+    (1 - t) bottom + t top, t = 0.5 (unit(d).z + 1), in the CUDA kernel's
+    float forms."""
+    a = vec.length_squared(direction)
+    uz = direction[..., 2] * (1.0 / torch.sqrt(torch.clamp_min(a, 1e-30)))
+    t = (0.5 * (uz + 1.0))[..., None]
+    return sky.bottom * (1.0 - t) + sky.top * t
+
+
 def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields=None,
             clusters=None, intersector="brute", work=None, rng_mode="fixed"):
     origin, direction, beta, final, seed, alive = carry
@@ -83,8 +94,11 @@ def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields
     else:
         rec = hit_mod.hit_scene_brute(scene, origin, direction)
 
-    # miss: final += beta * background, the path dies (camera.cu:226-229)
+    # miss: final += beta * background (or the scene's sky), the path dies
+    # (camera.cu:226-229)
     miss = alive & ~rec.hit
+    if scene.sky is not None:
+        background = sky_radiance(scene.sky, direction)
     final = final + torch.where(miss[..., None], beta * background, 0.0)
     active = alive & rec.hit
 
@@ -148,7 +162,7 @@ def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_
     count (a 0-d tensor) of rays alive at its start: its nearest-hit
     queries. `rng_mode`: "fixed" or "reference" (RNG_MODES); "reference"
     refuses `rr_start` and `tape_fields`, as tracer's recording path has no
-    reference stream."""
+    reference stream. A scene's `sky` replaces `background` on a miss."""
     check_intersector(intersector, scene)
     check_rng_mode(rng_mode, rr_start)
     if rng_mode == "reference" and tape_fields is not None:

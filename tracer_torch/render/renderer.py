@@ -13,6 +13,7 @@ import torch
 
 from tracer_torch.core import rng
 from tracer_torch.kernels import cluster as cluster_mod
+from tracer_torch.kernels import pack
 from tracer_torch.render import camera as camera_mod
 from tracer_torch.render import integrator
 from tracer_torch.scene.types import Scene
@@ -52,6 +53,10 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
     `queries`, a list, receives the nearest-hit query counts of every
     bounce (see `integrator.trace`).
 
+    The RTIOW book's estimator (a ThinLensCamera, `scene.sky`, the material
+    codes RTIOW_LAMBERTIAN and RTIOW_METAL) renders on the fixed stream
+    without tapes: the reference stream and the recording path refuse it.
+
     `rng_mode`: "fixed" (the 8-draw budget) or "reference" (the reference
     binary's per-lane stream, integrator.RNG_MODES); "reference" refuses
     `rr_start`, `tape_fields` and `cluster_k` > 0 (tracer's clustered path
@@ -61,6 +66,11 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
     k = camera_mod.strat_grid(stratify, spp, strat_sqrt_spp)
     integrator.check_intersector(intersector, scene)
     integrator.check_rng_mode(rng_mode, rr_start)
+    if rng_mode == "reference" or tape_fields is not None:
+        unsupported = pack.rtiow_features(scene, cam)
+        if unsupported:
+            path = "the reference stream" if rng_mode == "reference" else "the recording renderer"
+            raise ValueError(f"{path} does not support {', '.join(unsupported)}")
     clusters = None
     if cluster_mod.check_k(cluster_k):
         if rng_mode == "reference":

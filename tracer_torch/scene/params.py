@@ -15,7 +15,11 @@ Vec3 = Tuple[float, float, float]
 
 @dataclass
 class CameraPathParams:
-    """Sinusoidal cylindrical paths for eye and look-at (scene_params.h:8-18)."""
+    """Sinusoidal cylindrical paths for eye and look-at (scene_params.h:8-18),
+    and the lens: `aperture` (the lens's diameter; 0, the default, is a
+    pinhole and draws nothing) and `focus_dist` (the distance of the plane
+    in focus, where the viewport sits; 1 by default), as the RTIOW book's
+    camera (book 1, section 12)."""
 
     rc0: float = 0.0
     zc0: float = 0.0
@@ -38,6 +42,10 @@ class CameraPathParams:
     wn: float = 0.0
     prn: float = 0.0
     pzn: float = 0.0
+
+    # not in the repr, which stays the reference's config (and tracer's)
+    aperture: float = field(default=0.0, repr=False)
+    focus_dist: float = field(default=1.0, repr=False)
 
 
 @dataclass

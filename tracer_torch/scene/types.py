@@ -23,6 +23,13 @@ LAMBERTIAN = 0
 METAL = 1
 DIELECTRIC = 2
 DIFFUSE_LIGHT = 3
+# The materials of Shirley's "Ray Tracing in One Weekend" (book 1, v3.2.3,
+# section 9), on the same 8-draw budget: RTIOW_LAMBERTIAN scatters along
+# n + the unit direction of the budget's ball draw (n where that sum is
+# near zero), RTIOW_METAL reflects plus fuzz times the ball, always (no
+# specular gate), killed below the surface.
+RTIOW_LAMBERTIAN = 4
+RTIOW_METAL = 5
 
 # Reference include/interval.h:3 (kInfinity).
 K_INFINITY = 1e32
@@ -79,13 +86,23 @@ class BVHArrays(NamedTuple):
     axis: torch.Tensor  # [N] i32
 
 
+class Sky(NamedTuple):
+    """A miss radiance that depends on the direction along the up axis z:
+    lerp(bottom, top, 0.5 (unit(d).z + 1)), as the RTIOW book's sky."""
+
+    bottom: torch.Tensor  # [3] f32, straight down
+    top: torch.Tensor  # [3] f32, straight up
+
+
 class Scene(NamedTuple):
     """The scene (analog of reference SceneData, scene.h:9-21); `bvh` is
     the primitives' BVH, or None (builders.create_scene(with_bvh=True)
     builds it). `groups` lists the scene's objects, each as the index
     ranges [s_lo, s_hi) of its spheres and [p_lo, p_hi) of its planes,
     ascending and not overlapping (builders.py notes one per polyhedron),
-    or None: the brute kernels' cull (kernels/pack.py:pack_groups)."""
+    or None: the brute kernels' cull (kernels/pack.py:pack_groups).
+    `sky`, or None, is what a miss adds in place of the camera's
+    background."""
 
     spheres: Spheres
     planes: Planes
@@ -93,6 +110,7 @@ class Scene(NamedTuple):
     textures: Optional[torch.Tensor]  # [T, Ht, Wt, 3] f32, or None
     bvh: Optional[BVHArrays] = None
     groups: Optional[Tuple[Tuple[int, int, int, int], ...]] = None
+    sky: Optional[Sky] = None
 
     @property
     def num_spheres(self) -> int:
@@ -146,6 +164,10 @@ def make_planes(ptype, base, u, v, material_idx, device) -> Planes:
         w=n / nn[..., None],
         material_idx=_i32(material_idx, device),
     )
+
+
+def make_sky(bottom, top, device) -> Sky:
+    return Sky(bottom=_f32(bottom, device, (3,)), top=_f32(top, device, (3,)))
 
 
 def make_materials(mtype, fuzz, ir, absorption, albedo, emit, tex_id, device) -> Materials:
