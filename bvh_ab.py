@@ -26,15 +26,20 @@ into its own `build/tracer_torch/`:
   canonical scene K1-rec's frame, index tape and 13-field texture tape at
   spp2 (by their sha256). K1 and K1-bvh also at the benchmark cells'
   launches: one 172-spp launch of config.txt's frame 0 at 1080x720 d50
-  textured, one 16-spp launch of the field at 3840x2160 d50 from its pose.
-  Frames and tapes must be bit-equal between the trees, and the counted
-  launches' queries, hits, passes and active lanes equal; their work
-  counters (groups or leaves reached, primitive tests, node tests) too, in
-  a family whose ptxas lines did not move. Counters the parent lacks are
-  printed, not compared;
+  textured, one 16-spp launch of the field at 3840x2160 d50 from its pose,
+  one 139-spp launch of the RTIOW final scene at 1200x800 d50 (the tree's
+  rtbench/ builds it). Frames and tapes must be bit-equal between the
+  trees, and the counted launches' queries, hits, passes and active lanes
+  equal; their work counters (groups or leaves reached, primitive tests,
+  node tests) too, in a family whose ptxas lines did not move. Where the
+  trees' BVH builders give other trees for these scenes (their arrays are
+  compared too), K1-bvh's family moved: its counted launches must keep
+  their queries, hits and samples, and its other counters are printed.
+  Counters the parent lacks are printed, not compared;
 - time workers build with the default flags and time the moved families:
   K1-bvh at the shapes of this tree's chip_smoke.py phase 13
-  (`chip_smoke.bvh_times`), the brute kernels at `k1_times`' shapes, each
+  (`chip_smoke.bvh_times`) and at the field's and the RTIOW scene's cell
+  launches, the brute kernels at `k1_times`' shapes, each
   called with the worker's own tree's `tracer_torch`. TURNS turns run
   parent, change, change, parent, parent, change, ...; each shape's line
   gives every turn's time, the ratio of the best times and the spread of
@@ -89,6 +94,10 @@ def family(name: str):
 
 # the counters that the answers fix; the others count a family's own work
 SAME = ("queries", "hits", "passes", "active_lanes")
+# those that a new tree leaves as they were (its walks are other walks)
+SAME_TREE = ("queries", "hits", "samples")
+COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests",
+               "samples", "scatter_passes", "mixed_passes")  # megakernel.COUNT_NAMES
 
 
 def k1_times(smoke, dev, canon, cams, p):
@@ -177,6 +186,16 @@ def worker(tree: str, role: str, out: str, families: str) -> int:
     field, _ = sphere_field(2000, dev)
     field = field._replace(bvh=bb.build_scene_bvh_from_scene(field))
     cams = [cam_at(k, W, H) for k in range(4)]
+    field_cam = C.build_camera_data([80.0, 0.0, 36.0], [0.0, 0.0, 3.0], 3840, 2160, 55.0,
+                                    device=dev)
+    from rtbench.harness import spec  # the tree's own
+
+    with open(os.path.join(tree, "rtbench", "configs", "rtiow_final.json")) as f:
+        rt_cfg = json.load(f)
+    rt_kind = spec.scene_kind("rtiow_final")
+    rtiow, rt_params = rt_kind.program(rt_kind.inputs(rt_cfg, 1, dev), rt_cfg, dev, True)
+    rt_cam = C.camera_at(rt_params.camera_path, 0, rt_params.num_frames, 1200, 800,
+                         rt_params.fov_degrees, device=dev)
     if role == "check":
         import hashlib
 
@@ -212,15 +231,19 @@ def worker(tree: str, role: str, out: str, families: str) -> int:
         # the benchmark cells' launches: K1 on config.txt, K1-bvh on the field
         cells = {"config_txt launch 1080x720 spp172 d50": (canon, cam_at(0, 1080, 720), 1080,
                                                            720, 172, "K1"),
-                 "field_2k launch 3840x2160 spp16 d50": (
-                     field, C.build_camera_data([80.0, 0.0, 36.0], [0.0, 0.0, 3.0], 3840, 2160,
-                                                55.0, device=dev), 3840, 2160, 16, "bvh")}
+                 "field_2k launch 3840x2160 spp16 d50": (field, field_cam, 3840, 2160, 16,
+                                                         "bvh"),
+                 "rtiow_final launch 1200x800 spp139 d50": (rtiow, rt_cam, 1200, 800, 139,
+                                                            "bvh")}
         for name, (scene, cam, w, h, spp, fam) in cells.items():
             counts = torch.zeros(len(mk.COUNT_NAMES), dtype=torch.int64, device=dev)
             fn, kw = (mk._render, {}) if fam == "K1" else (mk._render_bvh, {"intersector": "bvh"})
             arrays[f"{name}|{fam}"] = mk.render_frame_kernel(scene, cam, w, h, spp, 50, **kw)
             arrays[f"{name}|{fam} counted"] = fn(scene, cam, w, h, spp, 50, True, None, 0, counts)
             arrays[f"{name}|{'brute' if fam == 'K1' else 'bvh'} counts"] = counts
+        for name, scene in (("canonical", canon), ("field n=2000", field), ("rtiow_final", rtiow)):
+            arrays[f"{name}|tree"] = np.concatenate([a.flatten().cpu().numpy().view(np.int32)
+                                                     for a in scene.bvh])
         torch.cuda.synchronize()
         np.savez(out + ".npz", **{k: v if isinstance(v, np.ndarray) else v.cpu().numpy()
                                   for k, v in arrays.items()})
@@ -230,6 +253,14 @@ def worker(tree: str, role: str, out: str, families: str) -> int:
             res["ms"].update(k1_times(smoke, dev, canon, cams, p))
         if "bvh" in families.split(","):
             res["ms"].update(smoke.bvh_times(dev, canon, field, cams, W, H))
+            for name, (scene, cam, w, h, spp) in {
+                    "field_2k launch 3840x2160 spp16 d50": (field, field_cam, 3840, 2160, 16),
+                    "rtiow_final launch 1200x800 spp139 d50": (rtiow, rt_cam, 1200, 800, 139)
+            }.items():
+                launch = lambda: mk.render_frame_kernel(scene, cam, w, h, spp, 50,
+                                                        intersector="bvh")
+                launch()
+                res["ms"][name] = smoke.cuda_ms(launch, reps=3)
     with open(out + ".json", "w") as f:
         json.dump(res, f)
     return 0
@@ -283,18 +314,27 @@ def main() -> int:
     # frames, tapes and work, built with -fmad=false
     checks = {name: run_worker(tree, "check", f"check-{name}") for name, tree in trees.items()}
     base, new = (np.load(os.path.join(OUT, f"check-{name}.npz")) for name in trees)
-    names = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests")
+    moved_trees = [k for k in new.files if k.endswith("|tree")
+                   and not np.array_equal(base[k], new[k])]
+    if moved_trees:
+        print(f"  BVH trees that differ from the parent's: {moved_trees}", flush=True)
+        families = sorted(set(families) | {"bvh"})
     for key in new.files:
+        if key.endswith("|tree"):
+            continue
         same = np.array_equal(base[key], new[key])
         extra = ""
         if key.endswith(" counts"):  # the parent's counters; the change's others printed
             same = np.array_equal(base[key], new[key][:len(base[key])])
-            c, b = (dict(zip(names, x[key].tolist())) for x in (new, base))
+            c, b = (dict(zip(COUNT_NAMES, x[key].tolist())) for x in (new, base))
             extra = f" {c}, then {new[key][len(base[key]):].tolist()}"
-            if key.split("|")[1].split()[0] in families:  # the moved family's own work
-                same = all(c[n] == b[n] for n in SAME)
-                extra += (f" (parent's visits {b['visits']}, tests {b['tests']}, node tests "
-                          f"{b['node_tests']})")
+            fam = key.split("|")[1].split()[0]
+            if fam in families:  # the moved family's own work
+                fixed = SAME_TREE if fam == "bvh" and moved_trees else SAME
+                same = all(c[n] == b[n] for n in fixed)
+                extra += f" (parent's {b})"
+        elif not same and base[key].shape == new[key].shape and new[key].dtype.kind == "f":
+            extra = f" ({int((base[key] != new[key]).sum())} of {new[key].size} values)"
         ok &= same
         print(f"  -fmad=false change vs parent, {key}: {'equal' if same else 'DIFFER'}{extra}",
               flush=True)

@@ -1259,8 +1259,8 @@ def bvh_phase(dev, kind, card, canon_p, cams, W, H, k1_ms, env):
             f["planes.v"], f["planes.ptype"])))
     for name, boxes in sets:
         times = {}
-        for b_name, build in (("native", native.build_bvh if bb.native_available() else None),
-                              ("numpy", bb.build_bvh_numpy)):
+        for b_name, build in (("native", native.build_bvh_sah if bb.native_available() else None),
+                              ("numpy", bb.build_bvh_sah_numpy)):
             if build is None:
                 times[b_name] = "not available"
                 continue

@@ -1,8 +1,10 @@
 """The BVH path of tracer_torch against tracer's, on the CPU: the NumPy
-builder (bit-identical arrays), the native builder (built here with g++;
-held to the NumPy tree's invariants and nearest hits, since
-std::nth_element and np.argpartition may order a level otherwise), the
-stack-capacity check, the plain traversal against
+median builder (bit-identical arrays), the native median builder (built
+here with g++; held to the NumPy tree's invariants and nearest hits, since
+std::nth_element and np.argpartition may order a level otherwise), the SAH
+builders (native and NumPy arrays equal; the median tree's nearest hits;
+the giant primitive near the root; the depth guard), the stack-capacity
+check and a tree deeper than a balanced one, the plain traversal against
 tracer.bvh.traverse.hit_scene_bvh, the NaN-face ray, BVH frames and their
 gradients against tracer's XLA renderer, the BVH kernel's child-pair
 records and its walk (tests/bvh_walk.py's emulation against the plain walk
@@ -80,7 +82,9 @@ def _rays(n=512, seed=0):
             g.normal(size=(n, 3)).astype(np.float32))
 
 
-def _invariants(bmin, bmax, left, right, kind, n_s, n_p):
+def _invariants(bmin, bmax, left, right, kind, n_s, n_p, max_depth=megakernel.BVH_STACK):
+    """The structure the kernel's records rely on; no deeper than
+    `max_depth` (a median tree: tracer's balanced bound)."""
     n = left.shape[0]
     assert n == 2 * (n_s + n_p) - 1
     leaves = left < 0
@@ -91,7 +95,7 @@ def _invariants(bmin, bmax, left, right, kind, n_s, n_p):
     for node in internal:
         for ch in (left[node], right[node]):
             assert ch > node and (bmin[node] <= bmin[ch]).all() and (bmax[node] >= bmax[ch]).all()
-    assert bb.tree_depth(left, right) <= bb._stack_depth(n)
+    assert bb.tree_depth(left, right) <= max_depth
 
 
 @pytest.mark.parametrize("cfg", sorted(CONFIGS))
@@ -111,7 +115,8 @@ def test_numpy_builder_bit_identical_to_tracer(cfg):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    _invariants(*got[:5], len(buf.sphere_radius), len(buf.plane_type))
+    _invariants(*got[:5], len(buf.sphere_radius), len(buf.plane_type),
+                jax_bt._stack_depth(len(got[2])))
 
 
 @pytest.mark.skipif(shutil.which("g++") is None, reason="the native builder needs g++")
@@ -123,7 +128,7 @@ def test_native_builder_invariants_and_nearest_hits():
     boxes = bb.primitive_boxes(sp.center.numpy(), sp.radius.numpy(), pl.base.numpy(),
                                pl.u.numpy(), pl.v.numpy(), pl.ptype.numpy())
     tree = native.build_bvh(*boxes)
-    _invariants(*tree[:5], scene.num_spheres, scene.num_planes)
+    _invariants(*tree[:5], scene.num_spheres, scene.num_planes, jax_bt._stack_depth(len(tree[2])))
     np.testing.assert_array_equal(tree[0][0], bb.build_bvh_numpy(*boxes)[0][0])  # root box
     native_scene = scene._replace(bvh=T.BVHArrays(*(torch.tensor(a) for a in tree)))
     o, d = (torch.tensor(x) for x in _rays(2048, seed=3))
@@ -132,12 +137,12 @@ def test_native_builder_invariants_and_nearest_hits():
     assert int(a.hit.sum()) > 200
     assert torch.equal(a.hit, b.hit) and torch.equal(a.winner[a.hit], b.winner[b.hit])
     torch.testing.assert_close(a.t[a.hit], b.t[b.hit], rtol=0, atol=0)
-    # create_scene(with_bvh=True) takes the native builder here
+    # create_scene(with_bvh=True) takes the native SAH builder here
     params = config.read_scene_params(io.StringIO(config.default_config_text()))
     built = builders.create_scene(params, with_bvh=True, texture_loader=lambda _p: None,
                                   device="cpu")
-    for x, y in zip(built.bvh, native_scene.bvh):
-        assert torch.equal(x, y)
+    for x, y in zip(built.bvh, native.build_bvh_sah(*boxes)):
+        assert torch.equal(x, torch.tensor(y))
 
 
 def test_check_stack_capacity_fails_loudly():
@@ -173,6 +178,132 @@ def test_check_stack_capacity_fails_loudly():
 
 def _port_smoke():
     return T.scene_from_numpy(_fields(_jax_scene("smoke")), "cpu")
+
+
+def _with_tree(scene, tree):
+    return scene._replace(bvh=T.BVHArrays(*(torch.tensor(a) for a in tree)))
+
+
+def _boxes(scene):
+    sp, pl = scene.spheres, scene.planes
+    return bb.primitive_boxes(sp.center.numpy(), sp.radius.numpy(), pl.base.numpy(),
+                              pl.u.numpy(), pl.v.numpy(), pl.ptype.numpy())
+
+
+def _sphere_scene(centers, radii):
+    """Spheres alone, one Lambertian material, no BVH yet."""
+    n = len(radii)
+    return T.Scene(spheres=T.make_spheres(centers, radii, np.zeros(n, np.int32), "cpu"),
+                   planes=T.make_planes(np.zeros(0, np.int32), *np.zeros((3, 0, 3)),
+                                        np.zeros(0, np.int32), "cpu"),
+                   materials=T.make_materials([T.LAMBERTIAN], [0.0], [1.0], [[0, 0, 0]],
+                                              [[0.5, 0.5, 0.5]], [[0, 0, 0]], [-1], "cpu"),
+                   textures=None)
+
+
+def _sah_scene(name):
+    """The port's scene without its tree: the configurations, the 1000-sphere
+    field, 40 small spheres on a radius-1000 ground sphere (the RTIOW scene's
+    shape; the ground is sphere 0), or 200 spheres with one centre and one
+    radius (every split costs the same)."""
+    g = np.random.default_rng(5)
+    if name in CONFIGS:
+        return T.scene_from_numpy(jax_scene_fields(_jax_scene(name)), "cpu")
+    if name == "field1000":
+        return T.scene_from_numpy(sphere_field_fields(1000)[0], "cpu")
+    if name == "ground":
+        small = np.concatenate([g.uniform(-10, 10, (40, 2)), g.uniform(0.2, 1.0, (40, 1))], 1)
+        return _sphere_scene(np.concatenate([[[0, 0, -1000]], small]).astype(np.float32),
+                             np.concatenate([[1000.0], small[:, 2]]).astype(np.float32))
+    return _sphere_scene(np.full((200, 3), 1.5, np.float32), np.ones(200, np.float32))
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="the native builder needs g++")
+@pytest.mark.parametrize("name", ["smoke", "default", "field1000", "ground", "same_centre"])
+def test_sah_builders_give_equal_arrays_and_keep_the_invariants(name):
+    scene = _sah_scene(name)
+    boxes = _boxes(scene)
+    tree = native.build_bvh_sah(*boxes)
+    for a, b in zip(tree, bb.build_bvh_sah_numpy(*boxes)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    _invariants(*tree[:5], scene.num_spheres, scene.num_planes)
+    depth = bb.tree_depth(tree[2], tree[3])
+    if name == "same_centre":  # a chain of one-primitive splits, then the guard's medians
+        assert depth == megakernel.BVH_STACK > jax_bt._stack_depth(len(tree[2]))
+    # create_scene's and buffers_to_scene's tree (the scene kinds')
+    assert all(torch.equal(x, torch.tensor(y))
+               for x, y in zip(bb.build_scene_bvh_from_scene(scene), tree))
+    pack.pack_bvh(_with_tree(scene, tree), megakernel.BVH_STACK)  # fits the kernel's stack
+
+
+@pytest.mark.parametrize("name", ["smoke", "default", "field1000"])
+def test_sah_tree_takes_the_median_trees_nearest_hits(name):
+    """The plain traversal on the SAH tree (deeper than the median tree) and
+    on the median tree, over `_rays` and `_walk_rays` (which aims rays at
+    plane edges): hits, winners and t equal, except on rays whose nearest t
+    two primitives share exactly, where the later visited wins; such ties
+    come only from the edges, so scenes of several planes have some."""
+    scene = _sah_scene(name)
+    boxes = _boxes(scene)
+    sah = _with_tree(scene, bb.build_bvh_sah_numpy(*boxes))
+    median = _with_tree(scene, bb.build_bvh_numpy(*boxes))
+    assert bb.tree_depth(sah.bvh.left, sah.bvh.right) > bb.tree_depth(median.bvh.left,
+                                                                      median.bvh.right)
+    rays = [_rays(2048, seed=3), _walk_rays(sah, np.random.default_rng(11))[:2]]
+    o, d = (torch.tensor(np.concatenate(x)) for x in zip(*rays))
+    a, b = (traverse.hit_scene_bvh(s, o, d) for s in (sah, median))
+    assert int(a.hit.sum()) > 1000
+    t_all = hit._all_ts(scene, o, d, 1e-3, T.K_INFINITY)
+    tied = a.hit & ((t_all == t_all.min(dim=1, keepdim=True).values).sum(dim=1) > 1)
+    assert torch.equal(a.hit, b.hit)
+    same = ~a.hit | ((a.winner == b.winner) & (a.t == b.t))
+    assert bool(same[~tied].all()), int((~same & ~tied).sum())
+    assert (int(tied.sum()) > 0) == (scene.num_planes > 1) and int(tied.sum()) <= 0.01 * len(o)
+
+
+def test_sah_tree_hangs_the_giant_sphere_next_to_the_root():
+    scene = _sah_scene("ground")
+    tree = bb.build_bvh_sah_numpy(*_boxes(scene))
+    left, right, kind = tree[2], tree[3], tree[4]
+    depth = np.zeros(len(left), np.int64)
+    depth[0] = 1
+    for i in np.nonzero(left >= 0)[0]:  # preorder: parents first
+        depth[left[i]] = depth[right[i]] = depth[i] + 1
+    ground = np.nonzero((left < 0) & (kind == 0) & (right == 0))[0]
+    assert len(ground) == 1 and depth[ground[0]] <= 3
+    median = bb.build_bvh_numpy(*_boxes(scene))
+    assert bb._half_areas(tree[0], tree[1])[left >= 0].sum() < \
+        bb._half_areas(median[0], median[1])[median[2] >= 0].sum()
+
+
+def test_a_tree_deeper_than_a_balanced_one_traverses_in_full():
+    """A right spine over 24 spheres (depth 24, where tracer's balanced bound
+    for its 47 nodes is 8): the plain traversal's stack is the tree's depth,
+    so its nearest hits are brute force's."""
+    g = np.random.default_rng(9)
+    n = 24
+    scene = _sphere_scene(g.uniform(-6, 6, (n, 3)).astype(np.float32),
+                          g.uniform(0.5, 1.5, n).astype(np.float32))
+    lo, hi = _boxes(scene)[:2]
+    nodes = 2 * n - 1
+    left, right = np.full(nodes, -1, np.int32), np.zeros(nodes, np.int32)
+    kind, bmin, bmax = np.zeros(nodes, np.int32), np.zeros((nodes, 3), np.float32), np.zeros(
+        (nodes, 3), np.float32)
+    for k in range(n - 1):  # internal 2k over spheres k.., leaf 2k + 1 sphere k
+        left[2 * k], right[2 * k], kind[2 * k] = 2 * k + 1, 2 * k + 2, -1
+        bmin[2 * k], bmax[2 * k] = lo[k:].min(0), hi[k:].max(0)
+        right[2 * k + 1], bmin[2 * k + 1], bmax[2 * k + 1] = k, lo[k], hi[k]
+    right[-1], bmin[-1], bmax[-1] = n - 1, lo[-1], hi[-1]
+    spine = _with_tree(scene, (bmin, bmax, left, right, kind, np.zeros(nodes, np.int32)))
+    assert traverse.stack_depth(spine.bvh) == n > jax_bt._stack_depth(nodes)
+    o = _rays(2048, seed=4)[0]
+    aim = scene.spheres.center.numpy()[g.integers(0, n, 2048)] + g.normal(size=(2048, 3))
+    o, d = torch.tensor(o), torch.tensor((aim - o).astype(np.float32))
+    got, want = traverse.hit_scene_bvh(spine, o, d), hit.hit_scene_brute(scene, o, d)
+    assert int(got.hit.sum()) > 1000
+    assert torch.equal(got.hit, want.hit)
+    assert torch.equal(got.winner[got.hit], want.winner[want.hit])
 
 
 def test_traversal_matches_tracer_on_random_rays():
@@ -432,20 +563,22 @@ def _walk_rays(scene, g):
 
 def _walk_scene(name):
     """(tracer's scene, the port's twin on the same tree) for the walk tests;
-    the field's tree is the port's NumPy builder's (bit-identical to
-    tracer's)."""
-    if name != "field1000":
+    the field's tree is the port's NumPy median builder's (bit-identical to
+    tracer's) or, for "field1000-sah", its SAH builder's (as deep as
+    tracer's stack for it, 13)."""
+    if not name.startswith("field1000"):
         jscene = _jax_scene(name)
         return jscene, T.scene_from_numpy(_fields(jscene), "cpu")
     fields, _ = sphere_field_fields(1000)
     boxes = bb.primitive_boxes(fields["spheres.center"], fields["spheres.radius"],
                                fields["planes.base"], fields["planes.u"], fields["planes.v"],
                                fields["planes.ptype"])
-    fields.update({f"bvh.{k}": v for k, v in zip(T.BVHArrays._fields, bb.build_bvh_numpy(*boxes))})
+    build = bb.build_bvh_sah_numpy if name.endswith("-sah") else bb.build_bvh_numpy
+    fields.update({f"bvh.{k}": v for k, v in zip(T.BVHArrays._fields, build(*boxes))})
     return _jax_scene_from_fields(fields), T.scene_from_numpy(fields, "cpu")
 
 
-@pytest.mark.parametrize("name", ["smoke", "default", "field1000"])
+@pytest.mark.parametrize("name", ["smoke", "default", "field1000", "field1000-sah"])
 def test_kernel_walk_takes_the_plain_walks_decisions(name):
     """tests/bvh_walk.py's emulation of K1-bvh's child-pair walk over
     pack_bvh's records: the winner and t of tracer's traverse and of the

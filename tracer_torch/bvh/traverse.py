@@ -4,15 +4,21 @@ tracer/bvh/traverse.py; reference `hit_bvh`, include/bvh.h:19-65).
 The plain version of the BVH kernel (`csrc/megakernel.cu`,
 `trace_kernel<..., BVH, ...>`): the reference's per-thread `int
 stack[32]` becomes an `[R, D]` stack carried through one loop that runs
-while any lane has a non-empty stack. Each pass pops a node and slab-tests
-it over (T_MIN, the lane's running closest); a leaf's primitive is
-accepted with `t <= closest`, so a tie goes to the primitive visited
-later; an internal node pushes its far child, then its near child, near
-being the left one when the ray's direction along the node's split axis
-is >= 0. The slab test (geometry/aabb.py:slab_hit, bounded by each
+while any lane has a non-empty stack. D is the tree's depth, which a
+near-first walk's stack never exceeds (found once per tree and cached; a
+tree deeper than builder.BVH_STACK, K1-bvh's stack, is refused): the SAH
+trees are deeper than a balanced tree of their size. Each pass pops a
+node and slab-tests it over (T_MIN, the lane's running closest); a leaf's
+primitive is accepted with `t <= closest`, so a tie goes to the primitive
+visited later; an internal node pushes its far child, then its near
+child, near being the left one when the ray's direction along the node's
+split axis is >= 0. The slab test (geometry/aabb.py:slab_hit, bounded by each
 lane's closest) propagates NaN through its min and max (a ray whose
 origin lies on a box face with a zero direction component: 0 x inf), so
-such a box is culled, as tracer's jnp.minimum culls it.
+such a box is culled, as tracer's jnp.minimum culls it. A grazing sphere
+hit whose float32 t lies before the entry of the sphere's own box is
+culled once a hit nearer than that entry is known, so, like a tie, it
+depends on the visit order and so on the tree; brute force takes it.
 
 Differentiability: the traversal is discrete (which primitive wins), so
 it runs on detached tensors; the winner's t and record are then
@@ -24,13 +30,25 @@ from __future__ import annotations
 
 import torch
 
-from tracer_torch.bvh.builder import _stack_depth
+from tracer_torch.bvh import builder as bvh_builder
 from tracer_torch.core import T_MAX, T_MIN
 from tracer_torch.geometry import aabb as aabb_mod
 from tracer_torch.geometry import plane as plane_mod
 from tracer_torch.geometry import sphere as sphere_mod
 from tracer_torch.render import hit as hit_mod
 from tracer_torch.scene.types import K_INFINITY, Scene
+from tracer_torch.utils.tensor_cache import cached
+
+
+def stack_depth(bvh) -> int:
+    """The `[R, D]` stack's D for this tree: its depth, checked against
+    BVH_STACK (check_stack_capacity); cached per tree tensors."""
+    def make():
+        left, right = bvh.left.detach().cpu().numpy(), bvh.right.detach().cpu().numpy()
+        bvh_builder.check_stack_capacity(left, right)
+        return max(1, bvh_builder.tree_depth(left, right))
+
+    return cached((bvh.left, bvh.right), ("depth",), make)
 
 
 def traverse(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX, work=None,
@@ -51,7 +69,7 @@ def traverse(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX, work=Non
         box_min, box_max = bvh.box_min.detach(), bvh.box_max.detach()
         left_all, right_all = bvh.left.long(), bvh.right.long()
         kind_all, axis_all = bvh.kind.long(), bvh.axis.long()
-        depth = _stack_depth(left_all.shape[0])
+        depth = stack_depth(bvh)
         r, dev = origin.shape[0], origin.device
         rows = torch.arange(r, device=dev)
 

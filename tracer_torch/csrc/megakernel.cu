@@ -140,7 +140,7 @@
 //
 // BVH mode (ISECT == BVH, entry mode 3) replaces tracer/bvh/traverse.py:
 // traverse, which tracer runs in XLA (a lax.while_loop; there is no Pallas
-// kernel): the nearest hit walks the scene's median-split BVH
+// kernel): the nearest hit walks the scene's BVH, split by surface area
 // (tracer_torch/bvh/builder.py) over child-pair records (kernels/pack.py:
 // pack_bvh; the node layout of Aila and Laine, HPG 2009): the record of an
 // internal node is four float4s holding both children's boxes and, for

@@ -88,6 +88,7 @@ from typing import NamedTuple
 
 import torch
 
+from tracer_torch.bvh import builder as bvh_builder
 from tracer_torch.kernels import cluster as cluster_mod
 from tracer_torch.kernels import nvcc
 from tracer_torch.kernels import pack as pack_mod
@@ -110,7 +111,9 @@ TABLE_SHARED_BYTES_MAX = 16 * 1024
 # has the times. K1-bvh's records (64 bytes an internal node) take the same
 # rule: the canonical scene's 12.7 KB are staged, a 1000-sphere field's not.
 NODE_SHARED_BYTES_MAX = 16 * 1024
-BVH_STACK = 32  # K1-bvh's per-thread stack and depth guard (BVH_STACK in csrc/megakernel.cu)
+# K1-bvh's per-thread stack and depth guard (BVH_STACK in csrc/megakernel.cu), the
+# deepest tree the BVH builder makes
+BVH_STACK = bvh_builder.BVH_STACK
 # the counted instantiation's counters (COUNTS in csrc/megakernel.cu)
 COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests",
                "samples", "scatter_passes", "mixed_passes")

@@ -41,7 +41,6 @@ The brute kernels read the scene's objects (`Scene.groups`) as
 
 from __future__ import annotations
 
-import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -49,6 +48,7 @@ import torch
 
 from tracer_torch.bvh import builder as bvh_builder
 from tracer_torch.scene.types import RTIOW_LAMBERTIAN, TRIANGLE, Scene
+from tracer_torch.utils.tensor_cache import cached
 
 SPHERE_ROWS = ("cx", "cy", "cz", "radius")
 PLANE_ROWS = ("nx", "ny", "nz", "d", "bx", "by", "bz", "ptype", "ux", "uy", "uz", "pad0",
@@ -136,29 +136,9 @@ def rtiow_features(scene: Scene, cam=None) -> list:
     if scene.sky is not None:
         out.append("a sky")
     mtype = scene.materials.mtype
-    if _cached((mtype,), ("rtiow",), lambda: bool((mtype >= RTIOW_LAMBERTIAN).any())):
+    if cached((mtype,), ("rtiow",), lambda: bool((mtype >= RTIOW_LAMBERTIAN).any())):
         out.append("the RTIOW material codes (4, 5)")
     return out
-
-
-_CACHE = []  # (weak refs to the tensors, their versions, key, records), newest last
-_CACHE_MAX = 8
-
-
-def _cached(tensors, key, make):
-    """make(), cached while `tensors` live and are not changed in place (an
-    inference tensor has no version to key on: made anew every call)."""
-    if any(t.is_inference() for t in tensors):
-        return make()
-    versions = tuple(t._version for t in tensors)
-    for i, (refs, vers, k, rec) in enumerate(_CACHE):
-        if k == key and vers == versions and all(r() is t for r, t in zip(refs, tensors)):
-            _CACHE.append(_CACHE.pop(i))
-            return rec
-    rec = make()
-    _CACHE.append((tuple(weakref.ref(t) for t in tensors), versions, key, rec))
-    del _CACHE[:-_CACHE_MAX]
-    return rec
 
 
 def _bvh_records(bvh, num_s: int, max_depth: int) -> torch.Tensor:
@@ -167,7 +147,6 @@ def _bvh_records(bvh, num_s: int, max_depth: int) -> torch.Tensor:
     n = left.shape[0]
     if n == 0:
         raise ValueError("the scene's BVH has no nodes")
-    bvh_builder.check_stack_capacity(left, right)
     depth = bvh_builder.tree_depth(left, right)
     if depth > max_depth:
         raise ValueError(f"BVH depth {depth} exceeds the kernel's stack of {max_depth}")
@@ -199,7 +178,7 @@ def pack_bvh(scene: Scene, max_depth: int) -> torch.Tensor:
     bvh = scene.bvh
     if bvh is None:
         raise ValueError("the scene has no BVH (builders.create_scene(with_bvh=True))")
-    return _cached(tuple(bvh), ("bvh", scene.num_spheres, max_depth),
+    return cached(tuple(bvh), ("bvh", scene.num_spheres, max_depth),
                    lambda: _bvh_records(bvh, scene.num_spheres, max_depth))
 
 
@@ -304,5 +283,5 @@ def pack_groups(scene: Scene) -> torch.Tensor:
     if not groups:
         return torch.zeros((0, GROUP_F4, 4), dtype=torch.float32, device=scene.device)
     sp, pl = scene.spheres, scene.planes
-    return _cached((sp.center, sp.radius, pl.ptype, pl.base, pl.u, pl.v), ("groups", groups),
+    return cached((sp.center, sp.radius, pl.ptype, pl.base, pl.u, pl.v), ("groups", groups),
                    lambda: _group_records(scene, groups))
