@@ -296,12 +296,11 @@ import time
 
 import numpy as np
 
+from rtbench.harness.peaks import PEAK_FP32_FLOPS, roofline_s
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL_PIXEL, TOL_FRAC, TOL_MEAN = 1e-3, 0.99, 1e-3
 TOL_GRAD = 1e-4  # K2 against the plain replay, relative to each leaf's max|g|
-# the card's peaks (NVIDIA's H100 SXM data sheet, dense, at the 700 W limit)
-PEAK_FP32 = 67e12  # FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12  # bytes/s of HBM
 # FP32 operations a kernel cannot avoid, counted from the sources' formulas
 # as lower bounds: a ray-sphere test (oc, oc.d, oc.oc - r^2, disc, sqrt,
 # t_near), a ray-plane test (n.d, n.o, the root), the shading of a hit
@@ -390,10 +389,10 @@ def cuda_ms(fn, reps=1):
 
 
 def bound(ops, nbytes):
-    """(bound_ms, bound_by): the larger of ops over the FP32 peak and bytes
-    over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """(bound_ms, bound_by): rtbench/harness/peaks.py:roofline_s (the card's
+    published peaks) in milliseconds."""
+    t, by = roofline_s(ops, nbytes)
+    return t * 1e3, by
 
 
 def hit_bounces(idx):
@@ -568,9 +567,10 @@ def clustered_phase(dev, kind, card, cams, W, H, PSPP):
     print(f"    kernel {cl_ms:.3f} ms (counted instantiation {cnt_ms:.3f} ms), plain "
           f"{pcl_ms:.3f} ms; work: {queries} nearest-hit queries, {hits} hits; per query "
           f"{walk_line(work, n_c)}, brute {n_fs + n_fp} tests", flush=True)
-    print(f"    the walk's work {walk_ops:.4g} FP32 ops = {walk_ops / PEAK_FP32 * 1e3:.3f} ms at "
+    print(f"    the walk's work {walk_ops:.4g} FP32 ops = "
+          f"{walk_ops / PEAK_FP32_FLOPS * 1e3:.3f} ms at "
           f"peak; visit-every-box work {flat_ops:.4g} FP32 ops = "
-          f"{flat_ops / PEAK_FP32 * 1e3:.3f} ms; bound {cl_bound[0]:.6f} ms ({cl_bound[1]}: "
+          f"{flat_ops / PEAK_FP32_FLOPS * 1e3:.3f} ms; bound {cl_bound[0]:.6f} ms ({cl_bound[1]}: "
           f"{cl_ops:.4g} FP32 ops, {cl_bytes} bytes)", flush=True)
 
     # the main path of this phase, each frame against K1's

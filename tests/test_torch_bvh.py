@@ -56,7 +56,8 @@ from tracer_torch.scene import types as T
 sys.path.insert(0, os.path.dirname(__file__))
 from test_grad import H, W, _cam, _scene  # noqa: E402
 from test_torch_driver import TSV, _small_config  # noqa: E402
-from test_torch_scene import jax_cam_fields, jax_scene_fields, one_torch_thread  # noqa: E402,F401
+from test_torch_scene import jax_cam_fields, jax_scene_fields  # noqa: E402
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 import bvh_walk  # noqa: E402
 from torch_scenes import sphere_field_fields  # noqa: E402
 

@@ -46,7 +46,8 @@ from tracer_torch.scene import types as T
 sys.path.insert(0, os.path.dirname(__file__))
 from test_scale import _big_scene  # noqa: E402
 from test_torch_render import _both, assert_frames_agree  # noqa: E402
-from test_torch_scene import jax_scene_fields, one_torch_thread  # noqa: E402,F401
+from test_torch_scene import jax_scene_fields  # noqa: E402
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 import cluster_walk  # noqa: E402
 from torch_scenes import SKY, big_scene, sphere_field, sphere_field_fields  # noqa: E402
 from torch_scenes import tie_free_scene  # noqa: E402

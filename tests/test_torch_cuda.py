@@ -38,6 +38,7 @@ from tracer_torch.scene import builders, config
 from tracer_torch.scene import types as T
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 from torch_scenes import sphere_field  # noqa: E402
 from torch_scenes import (EXHAUSTED_SEEDS, SKY, big_scene, closed_box,  # noqa: E402
                           exhausted_lane_view, full_scene, sample_start_reaching, sky_camera,
@@ -751,7 +752,7 @@ def test_gpu_bvh_without_a_cuda_device_exits_1(dev, tmp_path):
                PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     r = subprocess.run([sys.executable, "-m", "tracer_torch.cli", "--gpu", "--bvh"],
                        input=text, capture_output=True, text=True, cwd=tmp_path, env=env,
-                       timeout=300)
+                       timeout=240)
     assert r.returncode == 1 and "needs a CUDA device" in r.stderr
 
 
@@ -910,7 +911,7 @@ def test_cli_gpu_ref_rng_retries_renders_the_kernel_frame(dev, tmp_path):
                PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     r = subprocess.run([sys.executable, "-m", "tracer_torch.cli", "--gpu", "--ref-rng",
                         "--retries", "2"], input=text, capture_output=True, text=True,
-                       cwd=tmp_path, env=env, timeout=300)
+                       cwd=tmp_path, env=env, timeout=240)
     assert r.returncode == 0, r.stderr
     from tracer_torch.io import image as image_io
     from tracer_torch.render import driver

@@ -37,7 +37,7 @@ from tracer_torch.render import renderer
 sys.path.insert(0, os.path.dirname(__file__))
 from test_grad import H, W, _cam, _scene  # noqa: E402
 from test_torch_grad import RR, _pcam, _port, _textured  # noqa: E402
-from test_torch_scene import one_torch_thread  # noqa: E402,F401
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 
 DEPTH = 4
 SPP, CHUNK = 4, 2  # the chunked path

@@ -46,8 +46,8 @@ from tracer_torch.render import driver, renderer
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_dist_worker as worker  # noqa: E402
 from test_torch_render import _smoke, assert_frames_agree  # noqa: E402
-from test_torch_scene import (jax_cam_fields, jax_scene_fields,  # noqa: E402,F401
-                              one_torch_thread, torch_scene_fields)
+from test_torch_scene import jax_cam_fields, jax_scene_fields, torch_scene_fields  # noqa: E402
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 from torch_scenes import SKY, full_scene, tie_free_scene  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,10 +88,18 @@ def _inputs():
     return out
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_ports(k):
+    """k distinct ports free when asked (each socket held until all are
+    chosen, so two groups never draw the same one). Another process may
+    still take one before its group binds it: rank 0 then fails at once."""
+    socks = [socket.socket() for _ in range(k)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
 
 
 @pytest.fixture(scope="module")
@@ -105,30 +113,37 @@ def runs(tmp_path_factory, inputs):
     base = tmp_path_factory.mktemp("dist")
     np.savez(base / "inputs.npz", **inputs)
     procs, dirs = [], {}
-    for world in WORLDS:
+    for world, port in zip(WORLDS, _free_ports(len(WORLDS))):
         dirs[world] = base / f"world{world}"
         dirs[world].mkdir()
-        addr = f"127.0.0.1:{_free_port()}"
         for rank in range(world):
             log = open(dirs[world] / f"log{rank}.txt", "w")  # a file: a full pipe would stall
             procs.append((log, subprocess.Popen(
                 [sys.executable, os.path.join(REPO, "tests", "torch_dist_worker.py"),
-                 str(base / "inputs.npz"), str(dirs[world]), addr, str(world), str(rank)],
+                 str(base / "inputs.npz"), str(dirs[world]), f"127.0.0.1:{port}", str(world),
+                 str(rank)],
                 stdout=log, stderr=subprocess.STDOUT, env=SUB_ENV)))
+    # every rank's exit, polled together: the first rank that fails (or the
+    # deadline) stops them all, so a group that cannot finish fails fast
     errors = []
-    deadline = time.monotonic() + 400
+    deadline = time.monotonic() + 240
     try:
+        while any(p.poll() is None for _, p in procs):
+            if any(p.returncode not in (0, None) for _, p in procs):
+                break
+            if time.monotonic() > deadline:
+                errors.append("ranks still running after 240 s")
+                break
+            time.sleep(0.2)
         for log, p in procs:
-            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
-            log.close()
-            if rc != 0:
-                errors.append(f"{p.args[-2:]} exited {rc}:\n"
+            if p.returncode not in (0, None):
+                errors.append(f"{p.args[-2:]} exited {p.returncode}:\n"
                               f"{open(log.name).read()[-3000:]}")
     finally:
         for log, p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+                p.wait(timeout=60)
             log.close()
     assert not errors, "\n".join(errors)
     return {world: (dirs[world], [dict(np.load(dirs[world] / f"rank{r}.npz"))
@@ -373,7 +388,8 @@ def test_initialize_is_a_no_op_for_one_process():
 def test_initialize_raises_when_the_group_does_not_come_together():
     t0 = time.perf_counter()
     with pytest.raises(Exception, match="[Tt]ime"):
-        multihost.initialize(f"127.0.0.1:{_free_port()}", 2, 0, backend="gloo", timeout=3)
+        multihost.initialize(f"127.0.0.1:{_free_ports(1)[0]}", 2, 0, backend="gloo",
+                             timeout=3)
     assert time.perf_counter() - t0 < 60
     assert not dist.is_initialized()
 
@@ -393,7 +409,7 @@ def test_dist_imports_neither_jax_nor_tracer():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tracer'))\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
-                       env=SUB_ENV, timeout=300)
+                       env=SUB_ENV, timeout=240)
     assert r.returncode == 0, r.stderr
 
 
@@ -402,7 +418,7 @@ def test_dist_smoke_on_two_cpu_ranks(tmp_path):
     sharded frame and d50 step held against one device on every rank."""
     r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                         "--nproc_per_node=2", os.path.join(REPO, "dist_smoke.py"), "--cpu"],
-                       capture_output=True, text=True, cwd=tmp_path, env=SUB_ENV, timeout=300)
+                       capture_output=True, text=True, cwd=tmp_path, env=SUB_ENV, timeout=240)
     assert r.returncode == 0, r.stderr[-3000:]
     res = json.loads(r.stdout.strip().splitlines()[-1])
     assert res["ranks"] == 2 and res["ranks_failed"] == 0

@@ -20,7 +20,7 @@ from tracer_torch.render import driver
 from tracer_torch.scene import builders, config
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_scene import one_torch_thread  # noqa: E402,F401
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # subprocesses get one torch thread too (see one_torch_thread)
@@ -45,7 +45,7 @@ def test_cli_cpu_subprocess_writes_frame_and_tsv(tmp_path):
     with open(cfg) as stdin:
         r = subprocess.run(
             [sys.executable, "-m", "tracer_torch.cli", "--cpu", "--format", "bin", "--frames", "1"],
-            stdin=stdin, capture_output=True, text=True, cwd=tmp_path, env=SUB_ENV, timeout=300,
+            stdin=stdin, capture_output=True, text=True, cwd=tmp_path, env=SUB_ENV, timeout=240,
         )
     assert r.returncode == 0, r.stderr
     lines = r.stdout.strip().splitlines()
@@ -210,5 +210,5 @@ def test_package_imports_neither_jax_nor_tracer():
         "print(len(mods))\n"
     )
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                       cwd=REPO, env=SUB_ENV, timeout=300)
+                       cwd=REPO, env=SUB_ENV, timeout=240)
     assert r.returncode == 0, r.stderr

@@ -30,7 +30,8 @@ from tracer_torch.scene import types as T
 sys.path.insert(0, os.path.dirname(__file__))
 import test_opt  # noqa: E402
 from test_torch_driver import SUB_ENV, _small_config  # noqa: E402
-from test_torch_scene import jax_cam_fields, jax_scene_fields, one_torch_thread  # noqa: E402,F401
+from test_torch_scene import jax_cam_fields, jax_scene_fields  # noqa: E402
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 
 W, H, SPP, DEPTH = test_opt.W, test_opt.H, test_opt.SPP, test_opt.DEPTH
 PATHS = ("materials.albedo", "spheres.center")
@@ -182,6 +183,6 @@ def test_cli_fit_subprocess(tmp_path):
     cfg, tgt = _cli_target(tmp_path)
     r = subprocess.run([sys.executable, "-m", "tracer_torch.cli", "--cpu", "--config", str(cfg),
                         "--fit", str(tgt), "--fit-steps", "1"],
-                       capture_output=True, text=True, cwd=tmp_path, env=SUB_ENV, timeout=300)
+                       capture_output=True, text=True, cwd=tmp_path, env=SUB_ENV, timeout=240)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().splitlines()[-1].startswith("final loss: ")

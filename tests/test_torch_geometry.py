@@ -27,7 +27,8 @@ from tracer_torch.scene import config
 from tracer_torch.scene import types as T
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_scene import one_torch_thread, jax_scene_fields  # noqa: E402,F401
+from test_torch_scene import jax_scene_fields  # noqa: E402
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

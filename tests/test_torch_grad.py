@@ -40,7 +40,8 @@ from tracer_torch.scene import types as T
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_grad import H, W, _cam, _scene  # noqa: E402
-from test_torch_scene import _cu_enum, jax_cam_fields, jax_scene_fields, one_torch_thread  # noqa: E402,F401,E501
+from test_torch_scene import _cu_enum, jax_cam_fields, jax_scene_fields  # noqa: E402
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 from torch_scenes import tie_free_scene  # noqa: E402
 
 SPP, DEPTH = 2, 4

@@ -23,6 +23,8 @@ from tracer_torch.render import camera, hit, renderer
 from tracer_torch.scene import builders, config
 from tracer_torch.scene import types as T
 
+from torch_scenes import one_torch_thread  # noqa: F401
+
 PARAMS = config.read_scene_params(io.StringIO(config.default_config_text()))
 
 

@@ -40,7 +40,8 @@ from tracer_torch.scene import types as T
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_render import _both, _jcam, _smoke, assert_frames_agree  # noqa: E402
-from test_torch_scene import one_torch_thread, torch_scene_fields  # noqa: E402,F401
+from test_torch_scene import torch_scene_fields  # noqa: E402
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 from torch_scenes import (EXHAUSTED_SEEDS, SKY, closed_sphere, exhausted_lane_view,  # noqa: E402
                           full_scene, sample_start_reaching, tie_free_scene)
 

@@ -34,7 +34,8 @@ from tracer_torch.scene import types as T
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_parity import _full_scene  # noqa: E402
-from test_torch_scene import one_torch_thread, jax_cam_fields, jax_scene_fields  # noqa: E402,F401
+from test_torch_scene import jax_cam_fields, jax_scene_fields  # noqa: E402
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 from torch_scenes import (SKY, closed_sphere, sky_camera, sky_scene,  # noqa: E402
                           sphere_field_camera, sphere_field_fields)
 

@@ -13,7 +13,7 @@ from tracer.core import rng as jax_rng
 from tracer_torch.core import rng
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_scene import one_torch_thread  # noqa: E402,F401
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 
 EDGE_SEEDS = np.array([0, 1, 61, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1], np.uint32)
 

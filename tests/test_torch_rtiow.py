@@ -26,6 +26,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), os.path.dirname(os.path.abspath(__file__))]
 
 from rtbench.harness import spec  # noqa: E402
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 from torch_scenes import SKY, full_scene  # noqa: E402
 from tracer_torch.bvh import builder as bvh_builder  # noqa: E402
 from tracer_torch.core import rng, vec  # noqa: E402

@@ -4,6 +4,7 @@ carrying a scene across, savers, and the kernel's packed tables.
 Both packages get the same inputs; JAX runs on the CPU (tests/conftest.py).
 """
 
+import ast
 import io
 import re
 from pathlib import Path
@@ -20,18 +21,12 @@ from tracer_torch.kernels import pack
 from tracer_torch.scene import builders, config
 from tracer_torch.scene import types as T
 
-CSRC = Path(__file__).resolve().parent.parent / "tracer_torch" / "csrc" / "common.cuh"
+import torch_scenes
+from torch_scenes import one_torch_thread  # noqa: F401
+from torch_scenes import within
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread per test process: the suite runs several worker
-    processes, and torch's thread pools in each would oversubscribe the
-    cores (small eager ops then spin-wait, many times slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+TESTS = Path(__file__).resolve().parent
+CSRC = TESTS.parent / "tracer_torch" / "csrc" / "common.cuh"
 
 
 def jax_scene_fields(scene) -> dict:
@@ -142,7 +137,7 @@ def test_threaded_writer_and_read_binary(tmp_path):
     fb = _framebuffer()
     w = torch_image.ThreadedWriter()
     w.submit(str(tmp_path / "f.bin"), fb, 2, fmt="bin")
-    w.close()
+    within(60, w.close)
     np.testing.assert_array_equal(torch_image.read_binary(str(tmp_path / "f.bin")),
                                   jax_image.quantize(fb, 2))
 
@@ -209,3 +204,65 @@ def test_pack_records_are_whole_float4s_holding_the_fields():
     assert torch.equal(pla[:, off["ptype"][0], off["ptype"][1]], planes.ptype.float())
     for pad in ("pad0", "pad1", "pad2"):
         assert not pla[:, off[pad][0], off[pad][1]].any()
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in TESTS.glob("test_torch_*.py")))
+def test_every_port_test_module_runs_on_one_torch_thread(name):
+    """Each port test module imports the autouse fixture `one_torch_thread`
+    from torch_scenes, which applies it to that module, and none defines
+    its own: several test processes with torch's default thread pools
+    oversubscribe the cores, and small eager ops then spin-wait."""
+    tree = ast.parse((TESTS / name).read_text())
+    imports = [n for n in tree.body if isinstance(n, ast.ImportFrom) and n.module == "torch_scenes"
+               and any(a.name == "one_torch_thread" and a.asname is None for a in n.names)]
+    defined = [n for n in ast.walk(tree)
+               if isinstance(n, ast.FunctionDef) and n.name == "one_torch_thread"]
+    assert imports, f"{name} does not import one_torch_thread from torch_scenes"
+    assert not defined, f"{name} defines its own one_torch_thread"
+
+
+def test_the_imported_fixture_applies_to_its_module():
+    assert torch.get_num_threads() == 1
+
+
+def _sphere_field_fields_as_built_before(n):
+    """torch_scenes.sphere_field_fields as it was before it took
+    rtbench/scenes/sphere_field.py:field_arrays: its own copy of the
+    generator code, frozen here."""
+    g = np.random.default_rng(3)
+    cols = int(np.ceil(np.sqrt(n * 1.25)))
+    rows = int(np.ceil(n / cols))
+    radii = g.uniform(0.3, 0.95, size=(n,)).astype(np.float32)
+    gx, gy = np.meshgrid(np.arange(cols), np.arange(rows), indexing="ij")
+    cell = np.stack([gx.ravel() * 2.0 - (cols - 1.0), gy.ravel() * 2.0 - (rows - 1.0)], -1)[:n]
+    slack = (1.0 - radii - 0.02)[:, None]
+    centers = np.zeros((n, 3), np.float32)
+    centers[:, :2] = cell + g.uniform(-1, 1, size=(n, 2)) * slack
+    centers[:, 2] = radii + 0.05 + g.uniform(0, 6, size=(n,))
+    half = float(cols + 10)
+    scene = T.Scene(
+        spheres=T.make_spheres(centers, radii, np.arange(n) % 3, "cpu"),
+        planes=T.make_planes([T.QUAD], [[-half, -half, 0]], [[2 * half, 0, 0]],
+                             [[0, 2 * half, 0]], [0], "cpu"),
+        materials=T.make_materials(
+            [T.LAMBERTIAN, T.METAL, T.DIFFUSE_LIGHT], [0, 0.2, 0], [1, 1, 1], np.zeros((3, 3)),
+            [[0.7, 0.5, 0.4], [0.8, 0.8, 0.9], [0, 0, 0]], [[0, 0, 0], [0, 0, 0], [9, 8, 7]],
+            [-1] * 3, "cpu"),
+        textures=None,
+    )
+    fields = {f"{group}.{name}": leaf.numpy()
+              for group in ("spheres", "planes", "materials")
+              for name, leaf in getattr(scene, group)._asdict().items()}
+    return fields, cols
+
+
+@pytest.mark.parametrize("n", [1, 250, 2000])
+def test_sphere_field_fields_is_the_benchmark_field_bit_for_bit(n):
+    """The test field, built from the benchmark's field_arrays, is the
+    arrays the tests' own generator code gave, dtypes and bits."""
+    got, cols = torch_scenes.sphere_field_fields(n)
+    want, want_cols = _sphere_field_fields_as_built_before(n)
+    assert cols == want_cols and got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        assert got[k].tobytes() == want[k].tobytes(), k

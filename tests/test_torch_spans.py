@@ -3,6 +3,7 @@ default and then invisible, on they nest, order and reach torch.profiler's
 trace as user annotations; and where the frame driver, the scene and BVH
 builders, the kernels' build and the row bands record them."""
 
+import datetime
 import io
 import json
 import os
@@ -23,7 +24,7 @@ from tracer_torch.utils import profiling
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_driver import _small_config  # noqa: E402
-from test_torch_scene import one_torch_thread  # noqa: E402,F401
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture
@@ -192,7 +193,7 @@ def test_row_band_spans(spans_on, tmp_path):
     """A band's render and its all_reduce, in that order, each its own span
     (one gloo rank on the CPU)."""
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
-                            world_size=1)
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
     try:
         mesh = sharding.Mesh(None, 1, 0, torch.device("cpu"))
         render = lambda scene, cam, w, rows, row_offset: torch.ones((rows, w, 3))

@@ -41,7 +41,8 @@ sys.path.insert(0, os.path.dirname(__file__))
 from test_grad import H, W, _cam, _scene  # noqa: E402
 from test_torch_driver import TSV, _small_config  # noqa: E402
 from test_torch_render import assert_frames_agree  # noqa: E402
-from test_torch_scene import jax_cam_fields, jax_scene_fields, one_torch_thread  # noqa: E402,F401
+from test_torch_scene import jax_cam_fields, jax_scene_fields  # noqa: E402
+from torch_scenes import one_torch_thread  # noqa: E402,F401
 
 # a square spp: tracer's scene_cam_grads(stratify=True) takes k = sqrt(spp); depth 2 (the
 # primary hit and one bounce) keeps the interpret-mode reference's compile short

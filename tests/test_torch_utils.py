@@ -33,7 +33,8 @@ from tracer_torch.utils import debug, profiling, resilience
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_driver import _small_config  # noqa: E402
-from test_torch_scene import one_torch_thread  # noqa: E402,F401
+from torch_scenes import one_torch_thread  # noqa: E402,F401
+from torch_scenes import within  # noqa: E402
 
 
 # ---- resilience (tracer's tests/test_utils.py:82-122 cases) --------------------
@@ -313,9 +314,13 @@ def test_native_writer_is_built_with_gpp():
 @pytest.mark.parametrize("divisor", [1, 3, 4])
 def test_native_writer_bytes_equal_the_python_savers(tmp_path, fmt, divisor):
     frames = _frames()
-    with io_native.AsyncFrameWriter() as w:
-        for k, fb in enumerate(frames):
-            w.submit(str(tmp_path / f"native_{k}"), fb, divisor, fmt=fmt)
+
+    def write():
+        with io_native.AsyncFrameWriter() as w:
+            for k, fb in enumerate(frames):
+                w.submit(str(tmp_path / f"native_{k}"), fb, divisor, fmt=fmt)
+
+    within(60, write)
     for k, fb in enumerate(frames):
         jax_image.SAVERS[fmt](str(tmp_path / f"tracer_{k}"), fb, divisor)
         image_io.SAVERS[fmt](str(tmp_path / f"python_{k}"), fb, divisor)
@@ -330,7 +335,7 @@ def tracer_writer_lib(tmp_path_factory):
     as tracer/io/native binds it (its submit takes 1 / divisor)."""
     src = os.path.join(os.path.dirname(jax_native.__file__), "frame_writer.cpp")
     so = tmp_path_factory.mktemp("tracer_writer") / "libtracer_io.so"
-    subprocess.run(["g++", *io_native.CXX_FLAGS, "-o", str(so), src], check=True)
+    subprocess.run(["g++", *io_native.CXX_FLAGS, "-o", str(so), src], check=True, timeout=240)
     lib = ctypes.CDLL(str(so))
     lib.tracer_writer_create.restype = ctypes.c_void_p
     lib.tracer_writer_submit.argtypes = [
@@ -357,11 +362,15 @@ def test_native_writer_against_tracers_native_writer(tmp_path, tracer_writer_lib
     handle = lib.tracer_writer_create()
     lib.tracer_writer_submit(handle, fb.reshape(-1), w, h, 1.0 / divisor,
                              os.fsencode(tmp_path / "tracer"), io_native.FORMATS[fmt])
-    lib.tracer_writer_wait(handle)
+    within(60, lib.tracer_writer_wait, handle)
     assert lib.tracer_writer_failures(handle, None, 0) == 0
     lib.tracer_writer_destroy(handle)
-    with io_native.AsyncFrameWriter() as writer:
-        writer.submit(str(tmp_path / "port"), fb, divisor, fmt=fmt)
+
+    def write():
+        with io_native.AsyncFrameWriter() as writer:
+            writer.submit(str(tmp_path / "port"), fb, divisor, fmt=fmt)
+
+    within(60, write)
     ours, theirs = (tmp_path / "port").read_bytes(), (tmp_path / "tracer").read_bytes()
     split = _quantize_by_reciprocal(fb, divisor) != image_io.quantize(fb, divisor)
     assert split.any() == (divisor == 3)
@@ -384,10 +393,10 @@ def test_native_writer_reports_a_failed_write(tmp_path):
     w.submit(str(tmp_path / "missing_dir" / "f.bin"), _frames(1)[0], 2)
     w.submit(str(tmp_path / "ok.bin"), _frames(1)[0], 2)
     with pytest.raises(OSError, match="1 write\\(s\\) failed .*cannot open"):
-        w.wait()
+        within(60, w.wait)
     with pytest.raises(OSError, match="cannot open"):
-        w.close()  # stops the thread and still reports
-    w.close()  # a second close does nothing
+        within(60, w.close)  # stops the thread and still reports
+    within(60, w.close)  # a second close does nothing
     assert (tmp_path / "ok.bin").exists()
 
 

@@ -1,14 +1,65 @@
 """Small scenes built with tracer_torch, shared by the port's tests and
-chip_smoke.py. Imports torch, numpy and tracer_torch only (no JAX), so the
-CUDA tests and the smoke run can use it on a machine without JAX."""
+chip_smoke.py. Imports torch, numpy, pytest, tracer_torch and the
+benchmark's field (rtbench/scenes/sphere_field.py) only, no JAX, so the
+CUDA tests and the smoke run can use it on a machine without JAX.
+
+Every tests/test_torch_*.py module imports `one_torch_thread` from here
+(tests/test_torch_scene.py checks it), so each runs on one intra-op
+thread."""
+
+import os
+import sys
+import threading
 
 import numpy as np
+import pytest
 import torch
 
 from tracer_torch.render import camera
 from tracer_torch.scene import types as T
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.append(ROOT)
+
+from rtbench.scenes.sphere_field import field_arrays  # noqa: E402
+
 SKY = (0.05, 0.07, 0.1)  # lights every pixel, so the comparisons see every path
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per test module: the suite runs several worker
+    processes, and torch's thread pools in each would oversubscribe the
+    cores (small eager ops then spin-wait, many times slower: six copies
+    of tests/test_torch_groups.py at once on 8 cores took 15-20 s each on
+    one thread, and none ended within 300 s on the default pools)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def within(seconds, fn, *args):
+    """fn(*args), waited for at most `seconds` on a daemon thread: a test's
+    wait on a writer thread that never drains fails the test, instead of
+    holding its test process to the run's time limit."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn(*args)
+        except BaseException as e:  # raised again in the caller
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        raise TimeoutError(f"{getattr(fn, '__qualname__', fn)} did not return in {seconds} s")
+    if "error" in out:
+        raise out["error"]
+    return out.get("value")
 
 
 def full_scene(device):
@@ -66,36 +117,28 @@ def tie_free_scene(device, center_z=1.0, ramp=False):
 
 
 def sphere_field_fields(n):
-    """benchmarks/prim_scaling.py:build_field(n) as host arrays keyed by
+    """rtbench/scenes/sphere_field.py:field_arrays(n, 3) (the construction
+    of benchmarks/prim_scaling.py:build_field(n)) as host arrays keyed by
     dotted field path (the input of scene_from_numpy, from which the tests
     also build the JAX twin): n non-overlapping spheres on a jittered grid,
     every third one a light, over one floor quad. At n = 2000 it is
-    bench.py's 2000-sphere scene (BASELINE config 5 scale). Returns
-    (fields, cols); cols sizes the camera."""
-    g = np.random.default_rng(3)
-    cols = int(np.ceil(np.sqrt(n * 1.25)))
-    rows = int(np.ceil(n / cols))
-    radii = g.uniform(0.3, 0.95, size=(n,)).astype(np.float32)
-    gx, gy = np.meshgrid(np.arange(cols), np.arange(rows), indexing="ij")
-    cell = np.stack([gx.ravel() * 2.0 - (cols - 1.0), gy.ravel() * 2.0 - (rows - 1.0)], -1)[:n]
-    slack = (1.0 - radii - 0.02)[:, None]
-    centers = np.zeros((n, 3), np.float32)
-    centers[:, :2] = cell + g.uniform(-1, 1, size=(n, 2)) * slack
-    centers[:, 2] = radii + 0.05 + g.uniform(0, 6, size=(n,))
-    half = float(cols + 10)
+    bench.py's 2000-sphere scene (BASELINE config 5 scale) and the field of
+    rtbench/configs/field_2k.json. Returns (fields, cols); cols sizes the
+    camera."""
+    a = field_arrays(n, 3)
     scene = T.Scene(
-        spheres=T.make_spheres(centers, radii, np.arange(n) % 3, "cpu"),
-        planes=T.make_planes([T.QUAD], [[-half, -half, 0]], [[2 * half, 0, 0]],
-                             [[0, 2 * half, 0]], [0], "cpu"),
-        materials=T.make_materials(
-            [T.LAMBERTIAN, T.METAL, T.DIFFUSE_LIGHT], [0, 0.2, 0], [1, 1, 1], np.zeros((3, 3)),
-            [[0.7, 0.5, 0.4], [0.8, 0.8, 0.9], [0, 0, 0]], [[0, 0, 0], [0, 0, 0], [9, 8, 7]],
-            [-1] * 3, "cpu"),
+        spheres=T.make_spheres(a["sphere_center"], a["sphere_radius"], a["sphere_mat"], "cpu"),
+        planes=T.make_planes(a["plane_type"], a["plane_base"], a["plane_u"], a["plane_v"],
+                             a["plane_mat"], "cpu"),
+        materials=T.make_materials(a["mat_type"], a["mat_fuzz"], a["mat_ir"],
+                                   a["mat_absorption"], a["mat_albedo"], a["mat_emit"],
+                                   a["mat_tex"], "cpu"),
         textures=None,
     )
     fields = {f"{group}.{name}": leaf.numpy()
               for group in ("spheres", "planes", "materials")
               for name, leaf in getattr(scene, group)._asdict().items()}
+    cols = int(-a["plane_base"][0][0]) - 10  # the floor reaches 10 past the grid's half-width
     return fields, cols
 
 

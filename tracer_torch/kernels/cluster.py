@@ -26,16 +26,16 @@ tables hold no materials, a material change with unchanged geometry
 cannot render with stale materials, as it can through tracer's table
 cache (keyed by geometry, holding materials).
 
-The tables are cached per k for the scene's geometry tensors themselves,
-while those live and are not changed in place (a change bumps their
-`_version`). A cached lookup reads nothing from the device, so a render
-on the card does not wait for the stream; a new scene with the same
-geometry builds its tables again, from a host copy.
+The tables are cached per k for the scene's geometry tensors themselves
+(`utils/tensor_cache.py:cached`, key `("cluster", k)`), while those live
+and are not changed in place (a change bumps their `_version`). A cached
+lookup reads nothing from the device, so a render on the card does not
+wait for the stream; a new scene with the same geometry builds its tables
+again, from a host copy.
 """
 
 from __future__ import annotations
 
-import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -43,9 +43,7 @@ import torch
 
 from tracer_torch.geometry import aabb as aabb_mod
 from tracer_torch.scene.types import Scene
-
-_CACHE = []  # (weak refs to the geometry tensors, their versions, k, tables), newest last
-_CACHE_MAX = 8
+from tracer_torch.utils.tensor_cache import cached
 
 
 class ClusterTables(NamedTuple):
@@ -141,14 +139,4 @@ def pack_clustered(scene: Scene, k: int = 16) -> ClusterTables:
     if scene.num_spheres + scene.num_planes == 0:
         raise ValueError("scene has no primitives")
     tensors = _geometry(scene)
-    if any(t.is_inference() for t in tensors):  # no version counter to key on
-        return _build(tensors, k, scene.device)
-    versions = tuple(t._version for t in tensors)
-    for i, (refs, vers, ek, tables) in enumerate(_CACHE):
-        if ek == k and vers == versions and all(r() is t for r, t in zip(refs, tensors)):
-            _CACHE.append(_CACHE.pop(i))
-            return tables
-    tables = _build(tensors, k, scene.device)
-    _CACHE.append((tuple(weakref.ref(t) for t in tensors), versions, k, tables))
-    del _CACHE[:-_CACHE_MAX]
-    return tables
+    return cached(tensors, ("cluster", k), lambda: _build(tensors, k, scene.device))
