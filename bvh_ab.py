@@ -17,7 +17,9 @@ into its own `build/tracer_torch/`:
   (K1, K1-rec, brute K1-ref: ISECT 0) and the BVH kernels (K1-bvh,
   K1-bvh-ref: ISECT 2). A trailing template flag that the parent's
   trace_kernel lacks (RTIOW) is left out of the names where it is false,
-  so an instantiation keeps its parent's name;
+  so an instantiation keeps its parent's name. The lines of the three
+  instantiations that the benchmark's cells time (`TIMED`) are printed
+  beside the parent's, moved or not;
 - check workers build megakernel.cu with `-fmad=false`, so that every
   float operation rounds as written, and render both families at three
   shapes: canonical 64x48 spp2 d5 textured, the 2000-sphere field 256x192
@@ -29,13 +31,14 @@ into its own `build/tracer_torch/`:
   textured, one 16-spp launch of the field at 3840x2160 d50 from its pose,
   one 139-spp launch of the RTIOW final scene at 1200x800 d50 (the tree's
   rtbench/ builds it). Frames and tapes must be bit-equal between the
-  trees, and the counted launches' queries, hits, passes and active lanes
-  equal; their work counters (groups or leaves reached, primitive tests,
-  node tests) too, in a family whose ptxas lines did not move. Where the
+  trees, and the counted launches' counters that the pixels' paths fix
+  equal (`SAME`: queries, hits, groups or leaves reached, primitive
+  tests, node tests, samples). The warp-level counters (passes, active
+  lanes and lane use, drained passes) depend on which lane took which
+  pixel from the launch's pool, and are printed for both trees. Where the
   trees' BVH builders give other trees for these scenes (their arrays are
   compared too), K1-bvh's family moved: its counted launches must keep
-  their queries, hits and samples, and its other counters are printed.
-  Counters the parent lacks are printed, not compared;
+  their queries, hits and samples, and its other counters are printed;
 - time workers build with the default flags and time the moved families:
   K1-bvh at the shapes of this tree's chip_smoke.py phase 13
   (`chip_smoke.bvh_times`) and at the field's and the RTIOW scene's cell
@@ -84,6 +87,25 @@ def ptxas_lines(log: str) -> dict:
     return out
 
 
+def flags(name: str):
+    """trace_kernel's seven template flags from a ptxas_lines name (a false
+    7th flag dropped there), or None for another kernel."""
+    m = re.search(r"trace_kernelI((?:L[bi]\d+E)+)E", name)
+    if not m:
+        return None
+    got = tuple(int(x) for x in re.findall(r"L[bi](\d+)E", m.group(1)))
+    return got + (0,) * (7 - len(got))
+
+
+def lanes(c: dict) -> str:
+    """The warp-level counters of one counted launch, with its lane use: the
+    lanes take their pixels from the launch's pool in the order they reach
+    it, so these move from launch to launch and are printed, not compared."""
+    use = c["active_lanes"] / (32 * c["passes"]) if c["passes"] else 0.0
+    return (f"passes {c['passes']}, active lanes {c['active_lanes']} (lane use {use:.5f}), "
+            f"drained passes {c.get('drained_passes', '-')}")
+
+
 def family(name: str):
     """"brute" for K1's, K1-rec's and brute K1-ref's uncounted (timed)
     instantiations (ISECT 0), "bvh" for K1-bvh's and K1-bvh-ref's (ISECT 2),
@@ -92,12 +114,18 @@ def family(name: str):
     return {"0": "brute", "2": "bvh"}.get(m.group(1)) if m and m.group(2) == "0" else None
 
 
-# the counters that the answers fix; the others count a family's own work
-SAME = ("queries", "hits", "passes", "active_lanes")
+# the counters that the pixels' paths fix, whatever lane renders a pixel
+SAME = ("queries", "hits", "visits", "tests", "node_tests", "samples")
 # those that a new tree leaves as they were (its walks are other walks)
 SAME_TREE = ("queries", "hits", "samples")
 COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests",
-               "samples", "scatter_passes", "mixed_passes")  # megakernel.COUNT_NAMES
+               "samples", "scatter_passes", "mixed_passes",
+               "drained_passes")  # megakernel.COUNT_NAMES
+# the instantiations the benchmark's cells time: trace_kernel's template flags
+# (RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW)
+TIMED = {"field_2k.frames_bvh": (0, 2, 0, 0, 0, 0, 0),
+         "rtiow_final.frames_bvh_auto": (0, 2, 1, 0, 0, 0, 1),
+         "config_txt.frames": (0, 0, 1, 0, 0, 0, 0)}
 
 
 def k1_times(smoke, dev, canon, cams, p):
@@ -310,6 +338,10 @@ def main() -> int:
     for n in moved:
         print(f"    {n}: {' | '.join(ptx['change'].get(n, ['-']))} (parent: "
               f"{' | '.join(ptx['parent'].get(n, ['-']))})", flush=True)
+    for cell, want in TIMED.items():  # what the benchmark's cells time, moved or not
+        for n in sorted(n for n in ptx["change"] if flags(n) == want):
+            print(f"  ptxas, timed by {cell}: change {' | '.join(ptx['change'][n])}; parent "
+                  f"{' | '.join(ptx['parent'].get(n, ['-']))}", flush=True)
     ok = True
     # frames, tapes and work, built with -fmad=false
     checks = {name: run_worker(tree, "check", f"check-{name}") for name, tree in trees.items()}
@@ -324,15 +356,13 @@ def main() -> int:
             continue
         same = np.array_equal(base[key], new[key])
         extra = ""
-        if key.endswith(" counts"):  # the parent's counters; the change's others printed
-            same = np.array_equal(base[key], new[key][:len(base[key])])
+        if key.endswith(" counts"):  # the counters the paths fix; the warp-level ones printed
             c, b = (dict(zip(COUNT_NAMES, x[key].tolist())) for x in (new, base))
-            extra = f" {c}, then {new[key][len(base[key]):].tolist()}"
             fam = key.split("|")[1].split()[0]
-            if fam in families:  # the moved family's own work
-                fixed = SAME_TREE if fam == "bvh" and moved_trees else SAME
-                same = all(c[n] == b[n] for n in fixed)
-                extra += f" (parent's {b})"
+            fixed = SAME_TREE if fam == "bvh" and moved_trees else SAME
+            same = all(c[n] == b[n] for n in fixed)
+            extra = (f" {({n: c[n] for n in fixed})}; change {lanes(c)}; parent {lanes(b)}"
+                     + ("" if same else f" (parent's {({n: b[n] for n in fixed})})"))
         elif not same and base[key].shape == new[key].shape and new[key].dtype.kind == "f":
             extra = f" ({int((base[key] != new[key]).sum())} of {new[key].size} values)"
         ok &= same

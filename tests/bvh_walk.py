@@ -1,5 +1,5 @@
 """A NumPy emulation of the BVH kernel's nearest-hit walk (`csrc/megakernel.cu`,
-the BVH block of `trace_pixel`) and of the plain stack walk it replaced
+the BVH block of `trace_pixels`) and of the plain stack walk it replaced
 (`tracer_torch/bvh/traverse.py`), for the tests: the same float32 slab test
 (unguarded 1/d, NaN cull), the same t <= best at the leaves, over a given
 matrix of primitive roots. `walk` reads the child-pair records of

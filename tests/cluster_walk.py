@@ -1,5 +1,5 @@
 """A NumPy emulation of the cluster-culled kernel's nearest-hit walk
-(`csrc/megakernel.cu`, the CLUSTERED block of `trace_pixel`), for the
+(`csrc/megakernel.cu`, the CLUSTERED block of `trace_pixels`), for the
 tests: the same float32 slab test, skip pointers, pruning margin and
 strict < in (cluster, slot) order, over a given matrix of primitive roots.
 Imports numpy only (no JAX), so the CUDA tests can use it too."""

@@ -22,6 +22,7 @@ tie-free smoke scene (tests/test_bvh.py:123); gradients within a relative
 1e-4 of each leaf's max|g|.
 """
 
+import importlib.util
 import io
 import os
 import re
@@ -633,6 +634,23 @@ def test_kernel_walk_takes_the_plain_walks_decisions(name):
 def test_bvh_stack_matches_kernel_source():
     src = (Path(megakernel.__file__).parent.parent / "csrc" / "megakernel.cu").read_text()
     assert int(re.search(r"constexpr int BVH_STACK = (\d+);", src).group(1)) == megakernel.BVH_STACK
+
+
+def test_count_names_match_kernel_source():
+    src = (Path(megakernel.__file__).parent.parent / "csrc" / "megakernel.cu").read_text()
+    counts = int(re.search(r"constexpr int COUNTS = (\d+);", src).group(1))
+    assert counts == len(megakernel.COUNT_NAMES) == len(megakernel.LoopWork._fields)
+    assert megakernel.LoopWork._fields == megakernel.COUNT_NAMES
+
+
+def test_bvh_ab_count_names_are_the_kernels():
+    """bvh_ab.py's copy (its main process imports no tree's tracer_torch)."""
+    path = Path(__file__).resolve().parents[1] / "bvh_ab.py"
+    spec = importlib.util.spec_from_file_location("bvh_ab", path)
+    bvh_ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bvh_ab)
+    assert bvh_ab.COUNT_NAMES == megakernel.COUNT_NAMES
+    assert set(bvh_ab.SAME) | set(bvh_ab.SAME_TREE) <= set(megakernel.COUNT_NAMES)
 
 
 def test_cli_bvh_stratify_renders(tmp_path, capsys):

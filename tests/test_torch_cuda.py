@@ -924,3 +924,107 @@ def test_cli_gpu_ref_rng_retries_renders_the_kernel_frame(dev, tmp_path):
                                  out=io.StringIO(), saver="bin")
     assert megakernel.LAUNCHES_REF == before + 1
     np.testing.assert_array_equal(cli_frame, image_io.quantize(fb, 2))
+
+
+# ---- the pixel pool: one wave of blocks, each lane refilled from a counter ----
+
+def _pool_case(name, dev):
+    """(scene, camera maker (w, h) -> camera, render kwargs) of K1, K1-bvh
+    and K1-bvh's RTIOW instantiation."""
+    params = config.read_scene_params(io.StringIO(config.default_config_text()))
+    if name == "K1":
+        scene = full_scene(dev)
+        return scene, lambda w, h: camera.build_camera_data(
+            [5.0, -6.0, 3.0], [0.0, 0.0, 1.0], w, h, 55.0, background=SKY, device=dev), {}
+    if name == "K1-bvh":
+        scene, _ = sphere_field(1000, dev)
+        scene = scene._replace(bvh=bvh_builder.build_scene_bvh_from_scene(scene))
+        return scene, lambda w, h: camera.camera_at(params.camera_path, 1, params.num_frames, w,
+                                                    h, params.fov_degrees, device=dev), \
+            dict(intersector="bvh")
+    from rtbench.harness import spec
+
+    kind = spec.scene_kind("rtiow_final")
+    cfg = kind.tiny(spec.load_json(spec.BENCH_DIR / "configs" / "rtiow_final.json"))
+    scene, p = kind.program(kind.inputs(cfg, 1, dev), cfg, dev, with_bvh=True)
+    return scene, lambda w, h: camera.camera_at(p.camera_path, 0, p.num_frames, w, h,
+                                                p.fov_degrees, device=dev), \
+        dict(intersector="bvh")
+
+
+def _above_any_wave(dev):
+    """(w, h): more pixels than the card holds threads at once, so the
+    lanes take pixels from the pool, and a count that is no multiple of 128."""
+    props = torch.cuda.get_device_properties(dev)
+    w = 641
+    h = props.multi_processor_count * props.max_threads_per_multi_processor // w + 2
+    return w, h + 1 - h % 2
+
+
+POOL_CASES = ["K1", "K1-bvh", "RTIOW"]
+
+
+@pytest.mark.parametrize("name", POOL_CASES)
+def test_pool_writes_every_pixel_once_and_repeats_bit_for_bit(dev, name):
+    """Above one wave and below it (37x23 = 851 pixels), with a pixel count
+    that is no multiple of 128: every pixel of a NaN-filled frame is
+    written, and two launches in a row give the same frame, so each
+    launch's counter starts from zero."""
+    scene, cam_of, kw = _pool_case(name, dev)
+    mode = megakernel.MODE_BVH if kw else megakernel.MODE_RENDER
+    for w, h in (_above_any_wave(dev), (37, 23)):
+        cam = cam_of(w, h)
+        mode_k = megakernel._kernel_mode(mode, scene, cam)
+        assert (mode_k == megakernel.MODE_BVH_RTIOW) == (name == "RTIOW")
+        _, tex = megakernel._prepare(scene, cam, w, h, 1, 6, None, 0, 0)
+        nodes = pack.pack_bvh(scene, megakernel.BVH_STACK) if kw else None
+        out = torch.full((h, w, 3), float("nan"), device=dev)
+        err = megakernel._launch(mode_k, scene, cam, tex, out, w, h, 1, 6, 0, True, None,
+                                 nodes=nodes)
+        assert err == 0
+        again = megakernel.render_frame_kernel(scene, cam, w, h, 1, 6, **kw)
+        assert torch.isfinite(out).all() and float(out.sum()) > 0
+        assert torch.equal(out, again)
+        assert torch.equal(again, megakernel.render_frame_kernel(scene, cam, w, h, 1, 6, **kw))
+
+
+@pytest.mark.parametrize("name", POOL_CASES)
+def test_pool_frame_is_its_row_bands_stacked(dev, name):
+    """A frame above one wave against its three row bands (`row_offset`),
+    bit for bit; the counted launch's counters that the paths fix (queries,
+    hits, groups or leaves, primitive and node tests, samples) are the
+    sums of its bands' counted launches, and the tail's passes are passes."""
+    scene, cam_of, kw = _pool_case(name, dev)
+    w, h = _above_any_wave(dev)
+    cam = cam_of(w, h)
+    full = megakernel.render_frame_kernel(scene, cam, w, h, 2, 6, **kw)
+    work = megakernel.loop_work(scene, cam, w, h, 2, 6, **kw)
+    bands, sums = [], dict.fromkeys(("queries", "hits", "visits", "tests", "node_tests",
+                                     "samples"), 0)
+    for rank in range(3):
+        r0, rows = sharding.row_band(h, 3, rank)
+        bands.append(megakernel.render_frame_kernel(scene, cam, w, rows, 2, 6, row_offset=r0,
+                                                    **kw))
+        part = megakernel.loop_work(scene, cam, w, rows, 2, 6, row_offset=r0, **kw)
+        for k in sums:
+            sums[k] += getattr(part, k)
+        assert 0 < part.drained_passes <= part.passes
+    assert torch.equal(torch.cat(bands), full)
+    assert {k: getattr(work, k) for k in sums} == sums
+    assert work.samples == w * h * 2 and work.queries == work.active_lanes
+    assert 0 < work.drained_passes <= work.passes
+
+
+def test_pool_record_tapes_repeat_bit_for_bit(dev):
+    """K1-rec above one wave: two launches give the same frame, index tape
+    and 13-field texture tape (each slot is indexed by its pixel, whatever
+    lane takes it)."""
+    scene = full_scene(dev)
+    w, h = _above_any_wave(dev)
+    cam = _full_cam(dev, w, h)
+    one = megakernel.render_frame_kernel_record(scene, cam, w, h, 1, 4, tape_fields=13)
+    two = megakernel.render_frame_kernel_record(scene, cam, w, h, 1, 4, tape_fields=13)
+    assert len(one) == 3 and int((one[1] >= 0).sum()) > w * h // 2
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    assert torch.equal(one[0], megakernel.render_frame_kernel(scene, cam, w, h, 1, 4))

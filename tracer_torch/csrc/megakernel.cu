@@ -14,17 +14,30 @@
 // the seeds, pixel centres and jitter are the whole image's, so bands of
 // one frame give the rows of its one launch bit for bit.
 //
-// Design: one thread per pixel and one loop per thread, each pass one
-// bounce. The thread carries its path (sample s, depth, ray, throughput,
-// radiance, seed); when the path ends (a miss, an absorb, a roulette kill
-// or max_depth) the same pass folds its radiance into the pixel sum and
-// starts sample s+1 from its own seed. This is the TPU kernel's per-lane
-// path regeneration (tracer/pallas/kernels.py:181-193, :303-312): a lane
-// whose path ends early starts its next sample at once instead of waiting
-// for the longest path of its warp, so the warp's passes are the longest
-// lane's total bounces over all its samples, not the sum over samples of
-// each sample's longest path. Samples fold in ascending s, so every
-// (pixel, sample) keeps its draws and the pixel sum the renderer's grouping.
+// Design: one loop per thread, each pass one bounce, over pixels that the
+// thread takes from a launch-wide pool. The thread carries its path
+// (sample s, depth, ray, throughput, radiance, seed); when the path ends
+// (a miss, an absorb, a roulette kill or max_depth) the same pass folds
+// its radiance into the pixel sum and starts sample s+1 from its own seed.
+// This is the TPU kernel's per-lane path regeneration (tracer/pallas/
+// kernels.py:181-193, :303-312): a lane whose path ends early starts its
+// next sample at once instead of waiting for the longest path of its warp.
+// When the pixel's last sample ends, the same pass stores the pixel's sums
+// and takes the next pixel from the pool, so a lane whose pixel is done
+// does not wait for the slowest pixel of its warp either: a warp's passes
+// are the bounces of the pixels its lanes took, spread over its 32 lanes,
+// plus the launch's tail. The grid is one wave of the blocks the card holds
+// at once for the instantiation and its shared bytes (a block for each
+// THREADS pixels of a smaller band); a thread's first pixel is blockIdx.x *
+// THREADS + threadIdx.x, and pixel gridDim.x * THREADS + c comes from the
+// launch's zeroed counter (Launch::next), which each group of lanes that
+// refill in one pass bumps with one warp-aggregated atomicAdd. A lane
+// leaves when the counter has passed the band; the passes in which a lane
+// of the warp has left are its tail (COUNT's drained_passes). Every pixel
+// is still rendered by one lane, sample 0 to spp - 1 in ascending s, and
+// its sums and tape slots are written once, so every (pixel, sample) keeps
+// its draws and the pixel sum the renderer's grouping: which lane renders
+// a pixel, and when, changes nothing in the frame or the tapes.
 //
 // The scene's spheres and planes are array-of-records float4 tables
 // (tracer_torch/kernels/pack.py, offsets in common.cuh): a sphere is one
@@ -89,10 +102,10 @@
 //
 // What bounds it on this card: FP32 ALU work, the ray-primitive tests per
 // nearest-hit query (199 on the canonical scene without the cull), each a
-// few dozen FLOPs, and the lanes a warp leaves idle: threads finish their
-// samples at different times, take different material branches and, with
-// the cull, test different numbers of primitives. Not bytes: the tables
-// are ~10 KB.
+// few dozen FLOPs, and the lanes a warp leaves idle: threads take
+// different material branches and, with the cull, test different numbers
+// of primitives, and at the launch's end the pool runs dry. Not bytes: the
+// tables are ~10 KB.
 //
 // Record mode (RECORD, entry mode 1) replaces the same TPU kernel with
 // record_idx=True (tracer/pallas/kernels.py:411-452, entry tracer/pallas/
@@ -229,7 +242,7 @@
 // scene: paths end by escaping to the sky after a few bounces, so lane
 // regeneration and divergence across the material branches set the pace.
 //
-// All of them run one bounce loop, trace_pixel<RECORD, ISECT, SMEM, NSMEM,
+// All of them run one bounce loop, trace_pixels<RECORD, ISECT, SMEM, NSMEM,
 // COUNT, REF, RTIOW>, and call the same sphere_t / plane_hit; only the
 // nearest-hit block's loop, the tape stores and the scatter's stream are
 // chosen at compile time.
@@ -239,8 +252,13 @@
 // lanes of each pass (__popc(__activemask())), node tests (K1-cl's and
 // K1-bvh's walks), camera samples started, the warp passes in which some
 // lane scatters and those among them whose scattering lanes take more than
-// one material branch (__match_any_sync over the material code); timed
-// launches take the uncounted ones.
+// one material branch (__match_any_sync over the material code), and the
+// warp passes in which some lane of the warp has found the pool empty
+// (drained: a flag a warp in shared memory); timed launches take the
+// uncounted ones. Which lane takes which pixel depends on the order in
+// which lanes reach the counter, so the warp-level counters (passes,
+// active lanes, the scattering, mixed and drained passes) vary from launch
+// to launch; the others depend on the pixels' paths alone.
 //
 // Float semantics: IEEE division and sqrtf (no --use_fast_math); nvcc's
 // default FMA contraction is kept, so a ray on a razor-edge tie (polyhedron
@@ -249,14 +267,19 @@
 // Built with -fmad=false, every instantiation runs the float operations of
 // the plain version in its order.
 
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr float K_INFINITY = 1e32f;
 constexpr int THREADS = 128;
-constexpr int COUNTS = 10;  // COUNT's counters, see Launch::counts
-// the nearest-hit block of trace_pixel: every primitive (K1, K1-rec), the
+constexpr int COUNTS = 11;  // COUNT's counters, see Launch::counts
+// the nearest-hit block of trace_pixels: every primitive (K1, K1-rec), the
 // cluster tree's walk (K1-cl) or the BVH's (K1-bvh)
 enum Isect { BRUTE = 0, CLUSTERED = 1, BVH = 2 };
 constexpr int BVH_STACK = 32;  // the BVH walk's stack (bvh.h:23); the wrapper checks the depth
@@ -312,8 +335,10 @@ struct Launch {
   // COUNT: [COUNTS] sums over the launch: nearest-hit queries, hits,
   // leaves reached (BRUTE: groups whose ball a query entered), primitives
   // tested, warp passes, active lanes, node tests, samples started, warp
-  // passes that scatter, those with mixed material branches
+  // passes that scatter, those with mixed material branches, warp passes
+  // after a lane of the warp found the pool empty
   unsigned long long* counts;
+  int* next;  // the pixel pool: zeroed; pixel gridDim.x * THREADS + c is the c-th taken
 };
 
 // The primitive records and (BRUTE) the object groups' records, in shared
@@ -543,7 +568,7 @@ __device__ __forceinline__ V3 hemisphere_dir_ref(uint32_t& s, V3 nrm) {
 }
 
 // The dielectric's scatter (materials.h:97-133) in K1's float forms, for
-// both streams: a statement list over trace_pixel's locals (it reads p, o,
+// both streams: a statement list over trace_pixels' locals (it reads p, o,
 // ud, nrm, front, join, n and widx, and sets new_d, att, new_o and ok).
 // U_REFL and U_RR are the reflectance and roulette uniforms: the fixed
 // stream passes the ones it drew; REF passes rand01(seed) for both, and the
@@ -588,27 +613,35 @@ __device__ __forceinline__ V3 hemisphere_dir_ref(uint32_t& s, V3 nrm) {
 
 // ---- the bounce loop ----
 
-// One pixel's samples: the raw radiance sum into L.out[lin], one bounce
-// per pass of one loop (see the note at the top). With RECORD, every
+// A lane's pixels, first `lin`, then those it takes from the pool: each
+// pixel's samples, the raw radiance sum into L.out[pixel], one bounce per
+// pass of one loop (see the note at the top). With RECORD, every
 // reached slot also stores its winner into the index tape and, for a
 // textured hit, its tape_f texture fields into the texture tape. With
 // ISECT CLUSTERED the nearest hit walks the cluster tree N, with BVH the
 // BVH N, instead of testing every primitive. With COUNT, the launch's
 // work is added to L.counts. With REF, the scatter draws the reference
 // stream, with RTIOW the ray generation, the miss and the scatter take the
-// RTIOW book's lens, sky and materials (see the note at the top).
+// RTIOW book's lens, sky and materials (see the note at the top). With
+// COUNT, `drained` is the warp's flag: set once a lane of it found the
+// pool empty.
 template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF, bool RTIOW>
-__device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& P,
-                                            const Nodes<NSMEM>& N, int lin) {
+__device__ __forceinline__ void trace_pixels(const Launch& L, const Prims<SMEM>& P,
+                                             const Nodes<NSMEM>& N, int lin,
+                                             volatile unsigned* drained) {
   const int width = L.width, max_depth = L.max_depth, num_s = P.num_s, num_p = P.num_p;
   const int npx = width * L.height;
-  const int i = lin % width;  // column
-  const int j = lin / width + L.row_offset;  // image row (lin counts within the band)
+  // the pool's pixels left after the grid's first ones (< 0 for a band
+  // smaller than the grid)
+  const int pool = npx - (int)gridDim.x * THREADS;
+  if (lin >= npx) {  // a ragged last block: the pool is empty too
+    if constexpr (COUNT) *drained = 1u;
+    return;
+  }
   const int n = num_s + num_p;
   const float* __restrict__ join = L.join;
 
   const V3 cam_o = ld3(L.cam, C_OX, 1, 0);
-  const V3 p00 = ld3(L.cam, C_P00X, 1, 0);
   const V3 du = ld3(L.cam, C_DUX, 1, 0);
   const V3 dv = ld3(L.cam, C_DVX, 1, 0);
   const V3 bg = ld3(L.cam, C_BGR, 1, 0);
@@ -625,11 +658,18 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
     sky_on = ld(ext, R_SKY_ON, 1, 0) != 0.0f;
   }
 
-  // pixel center (camera.cuh:97-109) and base seed (camera.cu:25)
-  const V3 pc = add(add(p00, scale(du, (float)i)), scale(dv, (float)j));
-  const uint32_t w32 = (uint32_t)width;
-  const uint32_t base = wang_hash(L.reference_quirk ? (uint32_t)i * w32 + (uint32_t)j
-                                                    : (uint32_t)j * w32 + (uint32_t)i);
+  // pixel lin's center (camera.cuh:97-109) and base seed (camera.cu:25)
+  V3 pc;
+  uint32_t base;
+  const auto at_pixel = [&]() {
+    const int i = lin % width;  // column
+    const int j = lin / width + L.row_offset;  // image row (lin counts within the band)
+    pc = add(add(ld3(L.cam, C_P00X, 1, 0), scale(du, (float)i)), scale(dv, (float)j));
+    const uint32_t w32 = (uint32_t)width;
+    base = wang_hash(L.reference_quirk ? (uint32_t)i * w32 + (uint32_t)j
+                                       : (uint32_t)j * w32 + (uint32_t)i);
+  };
+  at_pixel();
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   uint32_t cnt[COUNTS] = {};  // COUNT's (dead code without it)
@@ -646,7 +686,26 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
         acc_g += fin.y;
         acc_b += fin.z;
       }
-      if (++s == L.spp) break;
+      if (++s == L.spp) {  // the pixel's sums, then the pool's next pixel
+        float* px = L.out + (size_t)lin * 3;
+        px[0] = acc_r;
+        px[1] = acc_g;
+        px[2] = acc_b;
+        // one atomicAdd for the lanes that refill together in this pass
+        const unsigned group = __activemask();
+        const int lane = threadIdx.x & 31, leader = __ffs(group) - 1;
+        int c = 0;
+        if (lane == leader) c = atomicAdd(L.next, __popc(group));
+        c = __shfl_sync(group, c, leader) + __popc(group & ((1u << lane) - 1u));
+        if (c >= pool) {
+          if constexpr (COUNT) *drained = 1u;
+          break;
+        }
+        lin = npx - pool + c;
+        at_pixel();
+        acc_r = acc_g = acc_b = 0.0f;
+        s = 0;
+      }
       if constexpr (COUNT) ++cnt[7];
       seed = wang_hash(base + L.sample_start + (uint32_t)s);
       const float ux = rand01(seed);  // x before y
@@ -683,6 +742,7 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
       if ((int)(threadIdx.x & 31) == __ffs(active) - 1) {
         ++cnt[4];
         cnt[5] += __popc(active);
+        if (*drained) ++cnt[10];
       }
     }
 
@@ -1011,10 +1071,6 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
     }
     ended = ++depth == max_depth;
   }
-  float* px = L.out + (size_t)lin * 3;
-  px[0] = acc_r;
-  px[1] = acc_g;
-  px[2] = acc_b;
   if constexpr (COUNT) {
     for (int c = 0; c < COUNTS; ++c) {
       if (cnt[c] != 0) atomicAdd(L.counts + c, (unsigned long long)cnt[c]);
@@ -1032,6 +1088,8 @@ __device__ __forceinline__ void trace_pixel(const Launch& L, const Prims<SMEM>& 
 // With SMEM the block first stages the primitive records in dynamic shared
 // memory, with NSMEM the node records (after them), in one loop; a BRUTE
 // block with SMEM stages its group records in the node records' place.
+// The grid is one wave of resident blocks (launch), so a block stages its
+// records once for all the pixels its lanes take from the pool.
 template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF, bool RTIOW>
 __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
   extern __shared__ float4 records[];
@@ -1063,26 +1121,60 @@ __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
     if constexpr (NSMEM) N.rec = records + np4;
     if constexpr (GSMEM) P.grp = records + np4;
   }
-  const int lin = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lin >= L.width * L.height) return;  // ragged last block
-  trace_pixel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW>(L, P, N, lin);
+  volatile unsigned* drained = nullptr;  // COUNT: the warp's flag (trace_pixels)
+  if constexpr (COUNT) {
+    __shared__ unsigned warp_drained[THREADS / 32];
+    if ((threadIdx.x & 31) == 0) warp_drained[threadIdx.x >> 5] = 0u;
+    __syncwarp();
+    drained = warp_drained + (threadIdx.x >> 5);
+  }
+  trace_pixels<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW>(
+      L, P, N, blockIdx.x * THREADS + threadIdx.x, drained);
+}
+
+// One wave of `kernel`'s blocks with `bytes` of dynamic shared memory on
+// the current device: resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the SMs, queried
+// once per kernel, device and shared size.
+int wave_blocks(const void* kernel, size_t bytes, int* blocks) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t>, int> waves;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const std::lock_guard<std::mutex> hold(mu);
+  const auto key = std::make_tuple(kernel, dev, bytes);
+  auto it = waves.find(key);
+  if (it == waves.end()) {
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, bytes);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    it = waves.emplace(key, per_sm * sms).first;
+  }
+  *blocks = it->second;
+  return 0;
 }
 
 template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF = false,
           bool RTIOW = false>
 int launch(const Launch& L, cudaStream_t st) {
-  const int blocks = (L.width * L.height + THREADS - 1) / THREADS;
+  const auto kernel = trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW>;
   const bool stage_nodes = NSMEM || (SMEM && ISECT == BRUTE);  // the kernel's GSMEM
   const size_t bytes = sizeof(float4) * ((SMEM ? (size_t)L.num_s * SPHERE_F4 +
                                                      (size_t)L.num_p * PLANE_F4 : 0) +
                                          (stage_nodes ? NODE_F4<ISECT> * (size_t)L.num_nodes : 0));
   if (bytes > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW><<<blocks, THREADS, bytes, st>>>(L);
+  int wave = 0;
+  const int e = wave_blocks(reinterpret_cast<const void*>(kernel), bytes, &wave);
+  if (e != 0) return e;
+  const int blocks = std::min((L.width * L.height + THREADS - 1) / THREADS, wave);
+  kernel<<<blocks, THREADS, bytes, st>>>(L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1129,8 +1221,10 @@ int launch_ref(const Launch& L, bool smem, cudaStream_t st) {
 // band of rows row_offset .. row_offset + height - 1 of a taller image (every
 // mode): out and the tapes stay band-sized, seeds and rays are the image's.
 // counts is nullptr (the uncounted kernels) or COUNTS zeroed counters (the
-// counted ones). rr_start < 0 turns roulette off; tex == nullptr renders
-// untextured. Launches on `stream`, does not synchronise, and returns
+// counted ones). next is one zeroed int, the launch's pixel pool (every
+// mode; a launch uses it up, so each launch takes a fresh one).
+// rr_start < 0 turns roulette off; tex == nullptr renders untextured.
+// Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() so a refused launch reaches the caller.
 extern "C" int tracer_megakernel_launch(
     int mode, const float* sph, int num_s, const float* pla, int num_p, const float* join,
@@ -1138,12 +1232,14 @@ extern "C" int tracer_megakernel_launch(
     int width, int height, int spp, int max_depth, unsigned int sample_start,
     int reference_quirk, int rr_start, int* idx_tape, float* tex_tape, int tape_f,
     const float* nodes, const int* slots, int num_nodes, int k, int shared_tables,
-    int shared_nodes, int strat_k, int row_offset, unsigned long long* counts, void* stream) {
+    int shared_nodes, int strat_k, int row_offset, unsigned long long* counts, int* next,
+    void* stream) {
+  if (next == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const Launch L{reinterpret_cast<const float4*>(sph), reinterpret_cast<const float4*>(pla),
                  num_s, num_p, join, tex, th, tw, cam, out, width, height, spp, max_depth,
                  sample_start, reference_quirk, rr_start, idx_tape, tex_tape, tape_f,
                  reinterpret_cast<const float4*>(nodes), slots, num_nodes, k, strat_k, row_offset,
-                 counts};
+                 counts, next};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool smem = shared_tables != 0;
   switch (mode) {

@@ -48,11 +48,20 @@ render_frame_pallas_record), whose plain version is
 `tracer_torch.render.renderer.render_frame_record`: the same frame plus
 the winner-index and texture tapes the backward kernel replays.
 
+Every kernel launches one wave of the blocks the card holds at once for
+its instantiation and shared bytes (a block for each 128 pixels of a
+smaller band), and each lane, once its pixel's samples are done, takes
+the next pixel from a counter that `_launch` zeroes for the launch: a
+lane no longer waits for the slowest pixel of its warp. Which lane
+renders a pixel changes nothing in the frame or the tapes.
+
 `loop_work` launches the counted instantiation of the same kernels and
 returns the launch's work (nearest-hit queries, hits, warp passes and
 active lanes, and K1-cl's and K1-bvh's node tests, leaves reached and
-primitive tests; camera samples, and the warp passes that scatter and those among them whose lanes take more than one material
-branch); the plain query count is
+primitive tests; camera samples, the warp passes that scatter and those
+among them whose lanes take more than one material branch, and the warp
+passes in the launch's tail, after a lane of the warp found the pool
+empty); the plain query count is
 `tracer_torch.render.renderer.query_count`.
 
 The RTIOW book's estimator (a camera with a thin lens, a scene with a
@@ -116,7 +125,7 @@ NODE_SHARED_BYTES_MAX = 16 * 1024
 BVH_STACK = bvh_builder.BVH_STACK
 # the counted instantiation's counters (COUNTS in csrc/megakernel.cu)
 COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests",
-               "samples", "scatter_passes", "mixed_passes")
+               "samples", "scatter_passes", "mixed_passes", "drained_passes")
 MODE_RENDER, MODE_RECORD, MODE_CLUSTERED, MODE_BVH, MODE_REF, MODE_BVH_REF = 0, 1, 2, 3, 4, 5
 MODE_BVH_RTIOW = 6  # K1-bvh's RTIOW instantiation: lens, sky and the RTIOW materials
 KERNEL_NAMES = {MODE_RENDER: "K1 (brute force)", MODE_RECORD: "K1-rec (record mode)",
@@ -126,7 +135,11 @@ KERNEL_NAMES = {MODE_RENDER: "K1 (brute force)", MODE_RECORD: "K1-rec (record mo
 
 
 class LoopWork(NamedTuple):
-    """One launch's bounce-loop work, counted by the kernel."""
+    """One launch's bounce-loop work, counted by the kernel. The lanes take
+    their pixels from the launch's pool in the order they reach it, so the
+    warp-level counts (`passes`, `active_lanes`, `scatter_passes`,
+    `mixed_passes`, `drained_passes`) vary from launch to launch; the
+    others depend on the pixels' paths alone."""
     queries: int  # nearest-hit queries (one per pass of a lane)
     hits: int  # queries that hit a primitive
     visits: int  # K1-cl, K1-bvh: leaves the walks reached; brute: groups whose ball was entered
@@ -137,6 +150,7 @@ class LoopWork(NamedTuple):
     samples: int  # camera samples started
     scatter_passes: int  # warp passes in which some lane scatters
     mixed_passes: int  # those whose scattering lanes take more than one material branch
+    drained_passes: int  # warp passes after a lane of the warp found the pool empty: the tail
 
     @property
     def lane_utilisation(self) -> float:
@@ -157,7 +171,7 @@ def _fn():
     fn = build().lib.tracer_megakernel_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [i, p, i, p, i, p, p, i, i, p, p, i, i, i, i, ctypes.c_uint, i, i, p, p, i,
-                   p, p, i, i, i, i, i, i, p, p]
+                   p, p, i, i, i, i, i, i, p, p, p]
     fn.restype = i
     return fn
 
@@ -246,6 +260,7 @@ def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_st
     if tables is not None:
         nodes = tables.nodes
     stream = torch.cuda.current_stream(out.device).cuda_stream
+    nxt = torch.zeros(1, dtype=torch.int32, device=out.device)  # the lanes' pixel pool
     # the packed tensors live until the call returns, after the launch is enqueued
     return _fn()(mode, ptr(packed.sph), packed.num_s, ptr(packed.pla), packed.num_p,
                  ptr(packed.join), ptr(tex), th, tw, ptr(cam_t), ptr(out), width, height, spp,
@@ -255,7 +270,7 @@ def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_st
                  0 if nodes is None else nodes.shape[0],
                  0 if tables is None else tables.k, int(table_bytes <= TABLE_SHARED_BYTES_MAX),
                  int(nodes is not None and 4 * nodes.numel() <= NODE_SHARED_BYTES_MAX),
-                 strat_k, row_offset, ptr(counts), stream)
+                 strat_k, row_offset, ptr(counts), ptr(nxt), stream)
 
 
 def render_frame_kernel(scene, cam, width: int, height: int, spp: int, max_depth: int,
