@@ -15,9 +15,9 @@ into its own `build/tracer_torch/`:
   printed beside the parent's; the uncounted ones among those the parent
   has name the families that the time workers time: the brute kernels
   (K1, K1-rec, brute K1-ref: ISECT 0) and the BVH kernels (K1-bvh,
-  K1-bvh-ref: ISECT 2). A trailing template flag that the parent's
-  trace_kernel lacks (RTIOW) is left out of the names where it is false,
-  so an instantiation keeps its parent's name. The lines of the three
+  K1-bvh-ref: ISECT 2). Trailing template flags that the parent's
+  trace_kernel may lack (RTIOW, NEXTWEEK) are left out of the names where
+  they are false, so an instantiation keeps its parent's name. The lines of the three
   instantiations that the benchmark's cells time (`TIMED`) are printed
   beside the parent's, moved or not;
 - check workers build megakernel.cu with `-fmad=false`, so that every
@@ -30,7 +30,9 @@ into its own `build/tracer_torch/`:
   launches: one 172-spp launch of config.txt's frame 0 at 1080x720 d50
   textured, one 16-spp launch of the field at 3840x2160 d50 from its pose,
   one 139-spp launch of the RTIOW final scene at 1200x800 d50 (the tree's
-  rtbench/ builds it). Frames and tapes must be bit-equal between the
+  rtbench/ builds it). The same check runs again with the default flags
+  (FMA contraction on, as the cells run). Frames and tapes must be
+  bit-equal between the
   trees, and the counted launches' counters that the pixels' paths fix
   equal (`SAME`: queries, hits, groups or leaves reached, primitive
   tests, node tests, samples). The warp-level counters (passes, active
@@ -78,9 +80,14 @@ def ptxas_lines(log: str) -> dict:
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:  # without the anonymous namespace's per-file hash, nor a false 7th flag
+        if m:  # without the anonymous namespace's per-file hash, nor false flags past the 6th
             name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", m.group(1))
-            name = re.sub(r"(trace_kernelI(?:L[bi]\d+E){6})Lb0E(E)", r"\1\2", name)
+            while True:
+                cut = re.sub(r"(trace_kernelI(?:L[bi]\d+E){6}(?:L[bi]\d+E)*?)Lb0E(E)", r"\1\2",
+                             name)
+                if cut == name:
+                    break
+                name = cut
             out[name] = []
         elif name and ("Used" in line or "spill" in line):
             out[name].append(line.strip().removeprefix("ptxas info    : "))
@@ -88,13 +95,13 @@ def ptxas_lines(log: str) -> dict:
 
 
 def flags(name: str):
-    """trace_kernel's seven template flags from a ptxas_lines name (a false
-    7th flag dropped there), or None for another kernel."""
+    """trace_kernel's eight template flags from a ptxas_lines name (false
+    flags past the 6th dropped there), or None for another kernel."""
     m = re.search(r"trace_kernelI((?:L[bi]\d+E)+)E", name)
     if not m:
         return None
     got = tuple(int(x) for x in re.findall(r"L[bi](\d+)E", m.group(1)))
-    return got + (0,) * (7 - len(got))
+    return got + (0,) * (8 - len(got))
 
 
 def lanes(c: dict) -> str:
@@ -119,13 +126,14 @@ SAME = ("queries", "hits", "visits", "tests", "node_tests", "samples")
 # those that a new tree leaves as they were (its walks are other walks)
 SAME_TREE = ("queries", "hits", "samples")
 COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests",
-               "samples", "scatter_passes", "mixed_passes",
-               "drained_passes")  # megakernel.COUNT_NAMES
+               "samples", "scatter_passes", "mixed_passes", "drained_passes",
+               "medium_tests", "medium_scatters", "noise_evals")  # megakernel.COUNT_NAMES
 # the instantiations the benchmark's cells time: trace_kernel's template flags
-# (RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW)
-TIMED = {"field_2k.frames_bvh": (0, 2, 0, 0, 0, 0, 0),
-         "rtiow_final.frames_bvh_auto": (0, 2, 1, 0, 0, 0, 1),
-         "config_txt.frames": (0, 0, 1, 0, 0, 0, 0)}
+# (RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW, NEXTWEEK)
+TIMED = {"field_2k.frames_bvh": (0, 2, 0, 0, 0, 0, 0, 0),
+         "rtiow_final.frames_bvh_auto": (0, 2, 1, 0, 0, 0, 1, 0),
+         "config_txt.frames": (0, 0, 1, 0, 0, 0, 0, 0),
+         "nextweek_final.frames_bvh_auto": (0, 2, 0, 0, 0, 0, 1, 1)}
 
 
 def k1_times(smoke, dev, canon, cams, p):
@@ -224,7 +232,7 @@ def worker(tree: str, role: str, out: str, families: str) -> int:
     rtiow, rt_params = rt_kind.program(rt_kind.inputs(rt_cfg, 1, dev), rt_cfg, dev, True)
     rt_cam = C.camera_at(rt_params.camera_path, 0, rt_params.num_frames, 1200, 800,
                          rt_params.fov_degrees, device=dev)
-    if role == "check":
+    if role in ("check", "checkdef"):
         import hashlib
 
         import numpy as np
@@ -307,6 +315,33 @@ def run_worker(tree, role, tag, families=""):
         return json.load(f)
 
 
+def compare(base, new, build: str, moved_trees) -> bool:
+    """Print and judge one build's frames, tapes and counts, change against
+    parent: arrays bit-equal, the counted launches' path counters equal
+    (SAME, or SAME_TREE where the trees moved)."""
+    import numpy as np
+
+    ok = True
+    for key in new.files:
+        if key.endswith("|tree"):
+            continue
+        same = np.array_equal(base[key], new[key])
+        extra = ""
+        if key.endswith(" counts"):  # the counters the paths fix; the warp-level ones printed
+            c, b = (dict(zip(COUNT_NAMES, x[key].tolist())) for x in (new, base))
+            fam = key.split("|")[1].split()[0]
+            fixed = SAME_TREE if fam == "bvh" and moved_trees else SAME
+            same = all(c[n] == b[n] for n in fixed)
+            extra = (f" {({n: c[n] for n in fixed})}; change {lanes(c)}; parent {lanes(b)}"
+                     + ("" if same else f" (parent's {({n: b[n] for n in fixed})})"))
+        elif not same and base[key].shape == new[key].shape and new[key].dtype.kind == "f":
+            extra = f" ({int((base[key] != new[key]).sum())} of {new[key].size} values)"
+        ok &= same
+        print(f"  {build} change vs parent, {key}: {'equal' if same else 'DIFFER'}{extra}",
+              flush=True)
+    return ok
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
         return worker(*sys.argv[2:6])
@@ -343,31 +378,18 @@ def main() -> int:
             print(f"  ptxas, timed by {cell}: change {' | '.join(ptx['change'][n])}; parent "
                   f"{' | '.join(ptx['parent'].get(n, ['-']))}", flush=True)
     ok = True
-    # frames, tapes and work, built with -fmad=false
+    # frames, tapes and work, built with -fmad=false, then with the default flags
     checks = {name: run_worker(tree, "check", f"check-{name}") for name, tree in trees.items()}
-    base, new = (np.load(os.path.join(OUT, f"check-{name}.npz")) for name in trees)
-    moved_trees = [k for k in new.files if k.endswith("|tree")
-                   and not np.array_equal(base[k], new[k])]
-    if moved_trees:
-        print(f"  BVH trees that differ from the parent's: {moved_trees}", flush=True)
-        families = sorted(set(families) | {"bvh"})
-    for key in new.files:
-        if key.endswith("|tree"):
-            continue
-        same = np.array_equal(base[key], new[key])
-        extra = ""
-        if key.endswith(" counts"):  # the counters the paths fix; the warp-level ones printed
-            c, b = (dict(zip(COUNT_NAMES, x[key].tolist())) for x in (new, base))
-            fam = key.split("|")[1].split()[0]
-            fixed = SAME_TREE if fam == "bvh" and moved_trees else SAME
-            same = all(c[n] == b[n] for n in fixed)
-            extra = (f" {({n: c[n] for n in fixed})}; change {lanes(c)}; parent {lanes(b)}"
-                     + ("" if same else f" (parent's {({n: b[n] for n in fixed})})"))
-        elif not same and base[key].shape == new[key].shape and new[key].dtype.kind == "f":
-            extra = f" ({int((base[key] != new[key]).sum())} of {new[key].size} values)"
-        ok &= same
-        print(f"  -fmad=false change vs parent, {key}: {'equal' if same else 'DIFFER'}{extra}",
-              flush=True)
+    for name, tree in trees.items():
+        run_worker(tree, "checkdef", f"checkdef-{name}")
+    for role, build in (("check", "-fmad=false"), ("checkdef", "default build")):
+        base, new = (np.load(os.path.join(OUT, f"{role}-{name}.npz")) for name in trees)
+        moved_trees = [k for k in new.files if k.endswith("|tree")
+                       and not np.array_equal(base[k], new[k])]
+        if moved_trees:
+            print(f"  BVH trees that differ from the parent's: {moved_trees}", flush=True)
+            families = sorted(set(families) | {"bvh"})
+        ok &= compare(base, new, build, moved_trees)
     summary = {"card": card, "device": torch.cuda.get_device_name(0), "moved": moved,
                "families": families, "checks_build_s": {n: c["build_s"] for n, c in checks.items()}}
     if families:

@@ -52,14 +52,16 @@ def stack_depth(bvh) -> int:
 
 
 def traverse(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX, work=None,
-             live=None):
+             live=None, time=None):
     """Nearest-hit primitive per ray via the BVH.
 
     Returns (found `[R]` bool, is_sphere `[R]` bool, prim_idx `[R]` int64
     index within its kind, t `[R]`), from detached inputs. `work`, a list,
     receives the traversal's (node tests, leaves reached, primitive tests)
     as 0-d tensors, over the rays where `live` (`[R]` bool, default all):
-    what the counted kernel adds up."""
+    what the counted kernel adds up. `time` `[R]`: the rays' times, at
+    which a scene's moving spheres are tested (their boxes cover the
+    sweep)."""
     bvh = scene.bvh
     if bvh is None:
         raise ValueError("scene.bvh is not built (use builders.create_scene(with_bvh=True))")
@@ -100,8 +102,10 @@ def traverse(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX, work=Non
             if scene.num_spheres:
                 s_sel = leaf_hit & (kind == 0)
                 s_idx = torch.where(s_sel, right, 0)
-                t_s = sphere_mod.sphere_t_gathered(origin, direction, sph.center[s_idx],
-                                                   sph.radius[s_idx], t_min, K_INFINITY)
+                t_s = sphere_mod.sphere_t_gathered(origin, direction,
+                                                   hit_mod.sphere_centers(scene, time, s_idx),
+                                                   sph.radius[s_idx], t_min, K_INFINITY,
+                                                   perpendicular=scene.nextweek)
                 s_ok = s_sel & (t_s <= closest)
                 t_prim = torch.where(s_ok, t_s, t_prim)
             if scene.num_planes:
@@ -139,20 +143,22 @@ def traverse(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX, work=Non
 
 
 def hit_scene_bvh(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX,
-                  work=None, live=None) -> hit_mod.JoinedHit:
+                  work=None, live=None, time=None) -> hit_mod.JoinedHit:
     """Nearest hit via the BVH, the same record as `hit_scene_brute`
     (`winner` the primitive index, spheres first). The winner's t is
-    recomputed differentiably from its own fields. `work`, `live`: see
-    `traverse`."""
+    recomputed differentiably from its own fields. `work`, `live`, `time`:
+    see `traverse`."""
     found, is_sphere, prim_idx, _ = traverse(scene, origin, direction, t_min, t_max, work,
-                                             live)
+                                             live, time)
     num_s, num_p = scene.num_spheres, scene.num_planes
     t_best = torch.full(found.shape, K_INFINITY, dtype=torch.float32, device=found.device)
     if num_s:
         sp = scene.spheres
         s_idx = torch.where(is_sphere, prim_idx, 0)
-        t_s = sphere_mod.sphere_t_gathered(origin, direction, sp.center[s_idx], sp.radius[s_idx],
-                                           t_min, t_max)
+        t_s = sphere_mod.sphere_t_gathered(origin, direction,
+                                           hit_mod.sphere_centers(scene, time, s_idx),
+                                           sp.radius[s_idx], t_min, t_max,
+                                           perpendicular=scene.nextweek)
         t_best = torch.where(is_sphere, t_s, t_best)
     if num_p:
         pl = scene.planes
@@ -163,4 +169,4 @@ def hit_scene_bvh(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX,
         t_best = torch.where(is_sphere, t_best, t_p)
     t_best = torch.where(found, t_best, K_INFINITY)
     winner = torch.where(found, torch.where(is_sphere, prim_idx, num_s + prim_idx), 0)
-    return hit_mod._joined(scene, origin, direction, t_best, winner)
+    return hit_mod._joined(scene, origin, direction, t_best, winner, time)

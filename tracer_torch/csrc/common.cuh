@@ -49,6 +49,15 @@ enum RtiowRow {
   R_LUX, R_LUY, R_LUZ, R_LVX, R_LVY, R_LVZ, R_LENS_ON,
   R_SBR, R_SBG, R_SBB, R_STR, R_STG, R_STB, R_SKY_ON, R_ROWS
 };
+// K1-bvh's NEXTWEEK instantiation reads these rows after RtiowRow: whether
+// the spheres move, the media's count, whether there is a noise, its scale;
+// then the noise's NOISE_POINTS gradient vectors (x, y, z) and its three
+// permutations (as floats), the media (MediumRow each) and, with motion,
+// each sphere's displacement (x, y, z). Must match pack.py NEXTWEEK_ROWS,
+// NOISE_POINTS and MEDIUM_ROWS.
+enum NextweekRow { N_MOTION_ON, N_NUM_MEDIA, N_NOISE_ON, N_NOISE_SCALE, N_ROWS };
+enum MediumRow { M_CX, M_CY, M_CZ, M_R, M_NID, M_ALB0, M_ALB1, M_ALB2, M_ROWS };
+constexpr int NOISE_POINTS = 256;
 // Backward table and camera rows: must match pack.py BWD_ROWS and CAMV_ROWS.
 enum TableRow {
   T_CX, T_CY, T_CZ, T_RAD, T_NX, T_NY, T_NZ, T_ISSPH, T_MTYPE, T_FUZZ, T_IR,
@@ -65,6 +74,8 @@ enum PlaneType { QUAD = 0, ELLIPSE = 1, TRIANGLE = 2 };
 // by K1-bvh's RTIOW instantiation only
 enum MaterialType { LAMBERTIAN = 0, METAL = 1, DIELECTRIC = 2, RTIOW_LAMBERTIAN = 4,
                     RTIOW_METAL = 5 };
+// J_TEX_ID's book 2 marble (scene/types.py NOISE), NEXTWEEK only
+constexpr int NOISE_TEX = -2;
 
 struct V3 {
   float x, y, z;

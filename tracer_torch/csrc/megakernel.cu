@@ -242,9 +242,30 @@
 // scene: paths end by escaping to the sky after a few bounces, so lane
 // regeneration and divergence across the material branches set the pace.
 //
+// Book 2's scene (NEXTWEEK, entry mode 7; K1-bvh's RTIOW instantiation
+// with one more flag, so its lens, sky and materials stay): Shirley's "Ray
+// Tracing: The Next Week" (v3.2.3) final scene asks for four more things,
+// each off unless the launch's tables ask for it (NextweekRow and after,
+// following RtiowRow). A ray time: with moving spheres, one draw after the
+// jitter's and the lens's, carried through the path's bounces. Moving
+// spheres: the BVH leaf tests a sphere at c0 + time (c1 - c0) (its tree box
+// covers the sweep) and the winner's record takes that centre. Constant
+// media, tested after the walk: each medium takes one draw a query, in
+// table order, crossed or not; its interval is its boundary's two roots
+// clamped to [T_MIN, the nearest surface], and its free flight -ln(u) /
+// density along the ray wins where it ends inside; the nearest such point
+// wins the query, which scatters there along the budget's ball (ISOTROPIC)
+// with the medium's albedo, and is neither a hit nor a miss. The book's
+// Perlin turbulence (7 octaves, 8 gradient corners each) at a NOISE hit,
+// the marble 0.5 (1 + sin(scale z + 10 turb(p))) as the albedo's factor,
+// with the sphere UVs, in the book's y-up frame. What bounds it on the
+// book's scene: emission only from one small rectangle, so paths run long
+// through a fog that 39% of escaping rays scatter in, over a tree of 2,400
+// quads whose records stay in global memory.
+//
 // All of them run one bounce loop, trace_pixels<RECORD, ISECT, SMEM, NSMEM,
-// COUNT, REF, RTIOW>, and call the same sphere_t / plane_hit; only the
-// nearest-hit block's loop, the tape stores and the scatter's stream are
+// COUNT, REF, RTIOW, NEXTWEEK>, and call the same sphere_t / plane_hit; only
+// the nearest-hit block's loop, the tape stores and the scatter's stream are
 // chosen at compile time.
 // The counted instantiations (COUNT; the debug_iters counterpart of
 // tracer/pallas/kernels.py:62, :107-110) add up the launch's nearest-hit
@@ -258,7 +279,9 @@
 // uncounted ones. Which lane takes which pixel depends on the order in
 // which lanes reach the counter, so the warp-level counters (passes,
 // active lanes, the scattering, mixed and drained passes) vary from launch
-// to launch; the others depend on the pixels' paths alone.
+// to launch; the others depend on the pixels' paths alone. The NEXTWEEK
+// instantiations count three more: medium boundaries tested, queries won
+// by a medium, turbulence evaluations.
 //
 // Float semantics: IEEE division and sqrtf (no --use_fast_math); nvcc's
 // default FMA contraction is kept, so a ray on a razor-edge tie (polyhedron
@@ -279,6 +302,10 @@ namespace {
 constexpr float K_INFINITY = 1e32f;
 constexpr int THREADS = 128;
 constexpr int COUNTS = 11;  // COUNT's counters, see Launch::counts
+// COUNT's counters of an instantiation: NEXTWEEK adds medium_tests,
+// medium_scatters and noise_evals (kernels/megakernel.py COUNT_NAMES)
+template <bool NEXTWEEK>
+constexpr int COUNTS_OF = NEXTWEEK ? COUNTS + 3 : COUNTS;
 // the nearest-hit block of trace_pixels: every primitive (K1, K1-rec), the
 // cluster tree's walk (K1-cl) or the BVH's (K1-bvh)
 enum Isect { BRUTE = 0, CLUSTERED = 1, BVH = 2 };
@@ -336,7 +363,8 @@ struct Launch {
   // leaves reached (BRUTE: groups whose ball a query entered), primitives
   // tested, warp passes, active lanes, node tests, samples started, warp
   // passes that scatter, those with mixed material branches, warp passes
-  // after a lane of the warp found the pool empty
+  // after a lane of the warp found the pool empty; NEXTWEEK: and medium
+  // boundaries tested, queries won by a medium, turbulence evaluations
   unsigned long long* counts;
   int* next;  // the pixel pool: zeroed; pixel gridDim.x * THREADS + c is the c-th taken
 };
@@ -611,6 +639,91 @@ __device__ __forceinline__ V3 hemisphere_dir_ref(uint32_t& s, V3 nrm) {
   const float side = dot(new_d, nrm) > 0.0f ? 1.0f : -1.0f;                \
   new_o = add(p, scale(nrm, DIELECTRIC_OFFSET * side));
 
+// ---- book 2's scene (NEXTWEEK; tables after RtiowRow) ----
+
+constexpr int NW_BASE = C_ROWS + R_ROWS;            // NextweekRow
+constexpr int NW_NOISE = NW_BASE + N_ROWS;          // the gradient vectors
+constexpr int NW_PERM = NW_NOISE + 3 * NOISE_POINTS;  // perm_x, perm_y, perm_z
+constexpr int NW_MEDIA = NW_PERM + 3 * NOISE_POINTS;  // MediumRow each
+constexpr int TURB_DEPTH = 7;                       // perlin::turb's octaves
+
+// Sphere k's centre at `time`: c0 + time (c1 - c0) where the spheres move
+// (the displacements follow the media), else c0.
+__device__ __forceinline__ V3 sphere_center(const float* cam, float4 s, int k, float time) {
+  if (!(__ldg(cam + NW_BASE + N_MOTION_ON) != 0.0f)) return xyz(s);
+  const float* m = cam + NW_MEDIA + M_ROWS * (int)__ldg(cam + NW_BASE + N_NUM_MEDIA) + 3 * k;
+  return add(xyz(s), scale(make_v3(__ldg(m), __ldg(m + 1), __ldg(m + 2)), time));
+}
+
+// half_b^2 - a c in its perpendicular form a (r^2 - |l|^2), l = oc - (half_b
+// / a) d: rounded near r^2 instead of near |oc|^2, so a sphere hundreds of
+// radii away keeps its roots to float32 rounding of the hit (Ray Tracing
+// Gems, ch. 7). In float32 the direct form put hit points on the book's
+// far cluster spheres up to 5e-4 inside them, and a path that started
+// there bounced inside to max_depth.
+__device__ __forceinline__ float perpendicular_disc(V3 oc, V3 d, float a, float inv_a,
+                                                    float half_b, float r) {
+  const V3 l = sub(oc, scale(d, half_b * inv_a));
+  return a * (r * r - dot(l, l));
+}
+
+// sphere_t's root for a sphere (c, r), with the perpendicular discriminant
+__device__ __forceinline__ float sphere_root(V3 c, float r, V3 o, V3 d, float a, float inv_a) {
+  const V3 oc = sub(o, c);
+  const float half_b = dot(oc, d);
+  const float disc = perpendicular_disc(oc, d, a, inv_a, half_b, r);
+  if (!(disc >= 0.0f)) return K_INFINITY;
+  const float sq = sqrtf(disc);
+  const float t_near = (-half_b - sq) * inv_a;
+  if (t_near >= T_MIN && t_near <= T_MAX) return t_near;
+  const float t_far = (-half_b + sq) * inv_a;
+  if (t_far >= T_MIN && t_far <= T_MAX) return t_far;
+  return K_INFINITY;
+}
+
+// perlin::noise at the book-frame point p (materials/noise.py's float forms)
+__device__ __forceinline__ float perlin_noise(const float* cam, V3 p) {
+  const float* vec = cam + NW_NOISE;
+  const float* perm = cam + NW_PERM;
+  const float fx = floorf(p.x), fy = floorf(p.y), fz = floorf(p.z);
+  const float u = p.x - fx, v = p.y - fy, w = p.z - fz;
+  const int i = (int)fx, j = (int)fy, k = (int)fz;
+  const float uu = u * u * (3.0f - 2.0f * u);  // Hermite weights
+  const float vv = v * v * (3.0f - 2.0f * v);
+  const float ww = w * w * (3.0f - 2.0f * w);
+  float acc = 0.0f;
+  for (int di = 0; di < 2; ++di) {
+    const int px = (int)__ldg(perm + ((i + di) & 255));
+    const float wx = di ? uu : 1.0f - uu;
+    for (int dj = 0; dj < 2; ++dj) {
+      const int pxy = px ^ (int)__ldg(perm + NOISE_POINTS + ((j + dj) & 255));
+      const float wy = dj ? vv : 1.0f - vv;
+      for (int dk = 0; dk < 2; ++dk) {
+        const float* g = vec + 3 * (pxy ^ (int)__ldg(perm + 2 * NOISE_POINTS + ((k + dk) & 255)));
+        const float wz = dk ? ww : 1.0f - ww;
+        const float dt = __ldg(g) * (u - (float)di) + __ldg(g + 1) * (v - (float)dj) +
+                         __ldg(g + 2) * (w - (float)dk);
+        acc = acc + wx * wy * wz * dt;
+      }
+    }
+  }
+  return acc;
+}
+
+// The marble (noise_texture::value) at the port point p: 0.5 (1 + sin(scale
+// z + 10 turb(p))) with p in the book's frame, (x, y, z) -> (x, z, -y)
+__device__ __forceinline__ float marble(const float* cam, V3 p) {
+  V3 q = make_v3(p.x, p.z, -p.y);
+  const float z = q.z;
+  float acc = 0.0f, weight = 1.0f;
+  for (int oct = 0; oct < TURB_DEPTH; ++oct) {  // perlin::turb
+    acc = acc + weight * perlin_noise(cam, q);
+    weight *= 0.5f;
+    q = scale(q, 2.0f);
+  }
+  return 0.5f * (1.0f + sinf(__ldg(cam + NW_BASE + N_NOISE_SCALE) * z + 10.0f * fabsf(acc)));
+}
+
 // ---- the bounce loop ----
 
 // A lane's pixels, first `lin`, then those it takes from the pool: each
@@ -622,10 +735,12 @@ __device__ __forceinline__ V3 hemisphere_dir_ref(uint32_t& s, V3 nrm) {
 // BVH N, instead of testing every primitive. With COUNT, the launch's
 // work is added to L.counts. With REF, the scatter draws the reference
 // stream, with RTIOW the ray generation, the miss and the scatter take the
-// RTIOW book's lens, sky and materials (see the note at the top). With
-// COUNT, `drained` is the warp's flag: set once a lane of it found the
+// RTIOW book's lens, sky and materials, with NEXTWEEK (and RTIOW) also book
+// 2's ray time, moving spheres, media and marble (see the note at the top).
+// With COUNT, `drained` is the warp's flag: set once a lane of it found the
 // pool empty.
-template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF, bool RTIOW>
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF, bool RTIOW,
+          bool NEXTWEEK>
 __device__ __forceinline__ void trace_pixels(const Launch& L, const Prims<SMEM>& P,
                                              const Nodes<NSMEM>& N, int lin,
                                              volatile unsigned* drained) {
@@ -672,13 +787,14 @@ __device__ __forceinline__ void trace_pixels(const Launch& L, const Prims<SMEM>&
   at_pixel();
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  uint32_t cnt[COUNTS] = {};  // COUNT's (dead code without it)
+  uint32_t cnt[COUNTS_OF<NEXTWEEK>] = {};  // COUNT's (dead code without it)
   // the lane's path: sample s at bounce `depth`, ray (o, d), throughput
   // beta, radiance fin, RNG state seed; `ended` starts the next sample
   int s = -1, depth = 0;
   uint32_t seed = 0;
   V3 o = cam_o, d = cam_o, beta = zero3(), fin = zero3();
   bool ended = true;
+  float time = 0.0f;  // NEXTWEEK: the path's time
   for (;;) {
     if (ended) {
       if (s >= 0) {  // fold the finished sample (the renderer's grouping)
@@ -729,6 +845,9 @@ __device__ __forceinline__ void trace_pixels(const Launch& L, const Prims<SMEM>&
           const float theta = TWO_PI_F * l2;
           o = add(cam_o, add(scale(lens_u, r * cosf(theta)), scale(lens_v, r * sinf(theta))));
         }
+      }
+      if constexpr (NEXTWEEK) {  // the sample's time, after the jitter's and the lens's draws
+        if (ld(L.cam, NW_BASE + N_MOTION_ON, 1, 0) != 0.0f) time = rand01(seed);
       }
       d = sub(add(add(pc, scale(du, ox)), scale(dv, oy)), o);
       beta = make_v3(1.0f, 1.0f, 1.0f);
@@ -793,10 +912,19 @@ __device__ __forceinline__ void trace_pixels(const Launch& L, const Prims<SMEM>&
             ++cnt[3];
           }
           if (r < num_s) {
-            const float t = sphere_t(P, r, o, d, a, inv_a);
-            if (t <= best) {
-              best = t;
-              widx = r;
+            if constexpr (NEXTWEEK) {  // at the path's time
+              const float4 sr = P.sphere(r);
+              const float t = sphere_root(sphere_center(L.cam, sr, r, time), sr.w, o, d, a, inv_a);
+              if (t <= best) {
+                best = t;
+                widx = r;
+              }
+            } else {
+              const float t = sphere_t(P, r, o, d, a, inv_a);
+              if (t <= best) {
+                best = t;
+                widx = r;
+              }
             }
           } else if (plane_hit<SMEM, true>(P, r - num_s, o, d, &best, &best_alpha, &best_beta)) {
             widx = r;
@@ -903,6 +1031,61 @@ __device__ __forceinline__ void trace_pixels(const Launch& L, const Prims<SMEM>&
       }
     }
 
+    if constexpr (NEXTWEEK) {
+      // the media after the walk: one draw each, in table order, crossed or
+      // not; the nearest free flight that ends inside its interval wins
+      int mwin = -1;
+      float mt = K_INFINITY;
+      const int num_media = (int)ld(L.cam, NW_BASE + N_NUM_MEDIA, 1, 0);
+      const float len = sqrtf(a);
+      for (int m = 0; m < num_media; ++m) {
+        const float* md = L.cam + NW_MEDIA + M_ROWS * m;
+        const float u = rand01(seed);
+        if constexpr (COUNT) ++cnt[11];
+        const V3 oc = sub(o, ld3(md, M_CX, 1, 0));
+        const float r = ld(md, M_R, 1, 0);
+        const float half_b = dot(oc, d);
+        const float disc = perpendicular_disc(oc, d, a, inv_a, half_b, r);
+        if (!(disc >= 0.0f)) continue;
+        const float sq = sqrtf(disc);
+        const float t0 = fmaxf((-half_b - sq) * inv_a, T_MIN);
+        const float t1 = fminf((-half_b + sq) * inv_a, best);
+        const float flight = ld(md, M_NID, 1, 0) * logf(u);
+        if (!(t0 < t1) || flight > (t1 - t0) * len) continue;
+        const float t = t0 + flight / len;
+        if (t < mt) {
+          mt = t;
+          mwin = m;
+        }
+      }
+      if (mwin >= 0) {
+        // ISOTROPIC: along the budget's ball draw, with the medium's
+        // albedo; every other slot of the budget drawn and left
+        if constexpr (COUNT) ++cnt[12];
+        o = add(o, scale(d, mt));
+        rand01(seed);  // u_choice
+        rand01(seed);  // the hemisphere's two
+        rand01(seed);
+        const V3 ball_dir = rand_unit_vector(seed);
+        d = scale(ball_dir, cbrtf(rand01(seed)));
+        rand01(seed);  // u_refl, u_rr
+        rand01(seed);
+        beta = mul(beta, ld3(L.cam + NW_MEDIA + M_ROWS * mwin, M_ALB0, 1, 0));
+        if (L.rr_start >= 0) {  // the roulette below
+          const float u_t = rand01(seed);
+          const float pr = fminf(fmaxf(fmaxf(beta.x, fmaxf(beta.y, beta.z)), RR_MIN_P), 1.0f);
+          if (depth >= L.rr_start) {
+            if (u_t >= pr) {
+              ended = true;
+              continue;
+            }
+            beta = scale(beta, 1.0f / pr);
+          }
+        }
+        ended = ++depth == max_depth;
+        continue;
+      }
+    }
     if (widx < 0) {
       // miss: background (RTIOW: or the sky), the path ends (camera.cu:
       // 226-229); the tape keeps its -1
@@ -936,6 +1119,14 @@ __device__ __forceinline__ void trace_pixels(const Launch& L, const Prims<SMEM>&
       const float phi = atan2f(-outward.z, outward.x) + PI_F;
       tu = phi / TWO_PI_F;
       tv = theta / PI_F;
+      if constexpr (NEXTWEEK) {  // the moved centre; book 2's UVs in its y-up frame
+        outward = sub(p, sphere_center(L.cam, sw, widx, time));
+        outward = make_v3(outward.x / r, outward.y / r, outward.z / r);
+        const float theta_b = acosf(fminf(fmaxf(-outward.z, -1.0f), 1.0f));
+        const float phi_b = atan2f(outward.y, outward.x) + PI_F;
+        tu = phi_b / TWO_PI_F;
+        tv = theta_b / PI_F;
+      }
     } else {
       outward = xyz(P.plane(widx - num_s, 0));
       tu = best_alpha;
@@ -959,6 +1150,13 @@ __device__ __forceinline__ void trace_pixels(const Launch& L, const Prims<SMEM>&
       } else {
         albedo = mul(albedo, sample_bilinear<false>(L.tex, L.th, L.tw, tu, tv, nullptr, nullptr,
                                                     nullptr));
+      }
+    }
+    if constexpr (NEXTWEEK) {  // the marble in place of a texture
+      if ((int)ld(join, J_TEX_ID, n, widx) == NOISE_TEX &&
+          ld(L.cam, NW_BASE + N_NOISE_ON, 1, 0) != 0.0f) {
+        if constexpr (COUNT) ++cnt[13];
+        albedo = scale(albedo, marble(L.cam, p));
       }
     }
     // emission before scatter (camera.cu:237-238)
@@ -1072,7 +1270,7 @@ __device__ __forceinline__ void trace_pixels(const Launch& L, const Prims<SMEM>&
     ended = ++depth == max_depth;
   }
   if constexpr (COUNT) {
-    for (int c = 0; c < COUNTS; ++c) {
+    for (int c = 0; c < COUNTS_OF<NEXTWEEK>; ++c) {
       if (cnt[c] != 0) atomicAdd(L.counts + c, (unsigned long long)cnt[c]);
     }
   }
@@ -1083,14 +1281,15 @@ __device__ __forceinline__ void trace_pixels(const Launch& L, const Prims<SMEM>&
 // ---- the kernel ----
 
 // K1 (RECORD = false, ISECT = BRUTE), K1-rec (RECORD), K1-cl (ISECT =
-// CLUSTERED), K1-bvh (ISECT = BVH; RTIOW, the book's estimator) and K1-ref
-// (REF, ISECT BRUTE or BVH).
+// CLUSTERED), K1-bvh (ISECT = BVH; RTIOW, the book's estimator; NEXTWEEK,
+// book 2's scene) and K1-ref (REF, ISECT BRUTE or BVH).
 // With SMEM the block first stages the primitive records in dynamic shared
 // memory, with NSMEM the node records (after them), in one loop; a BRUTE
 // block with SMEM stages its group records in the node records' place.
 // The grid is one wave of resident blocks (launch), so a block stages its
 // records once for all the pixels its lanes take from the pool.
-template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF, bool RTIOW>
+template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF, bool RTIOW,
+          bool NEXTWEEK>
 __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
   extern __shared__ float4 records[];
   Prims<SMEM> P{L.sph, L.pla, L.num_s, L.num_p};
@@ -1128,7 +1327,7 @@ __global__ void __launch_bounds__(THREADS) trace_kernel(const Launch L) {
     __syncwarp();
     drained = warp_drained + (threadIdx.x >> 5);
   }
-  trace_pixels<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW>(
+  trace_pixels<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW, NEXTWEEK>(
       L, P, N, blockIdx.x * THREADS + threadIdx.x, drained);
 }
 
@@ -1158,9 +1357,9 @@ int wave_blocks(const void* kernel, size_t bytes, int* blocks) {
 }
 
 template <bool RECORD, int ISECT, bool SMEM, bool NSMEM, bool COUNT, bool REF = false,
-          bool RTIOW = false>
+          bool RTIOW = false, bool NEXTWEEK = false>
 int launch(const Launch& L, cudaStream_t st) {
-  const auto kernel = trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW>;
+  const auto kernel = trace_kernel<RECORD, ISECT, SMEM, NSMEM, COUNT, REF, RTIOW, NEXTWEEK>;
   const bool stage_nodes = NSMEM || (SMEM && ISECT == BRUTE);  // the kernel's GSMEM
   const size_t bytes = sizeof(float4) * ((SMEM ? (size_t)L.num_s * SPHERE_F4 +
                                                      (size_t)L.num_p * PLANE_F4 : 0) +
@@ -1178,14 +1377,14 @@ int launch(const Launch& L, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool RECORD, int ISECT, bool NSMEM, bool RTIOW = false>
+template <bool RECORD, int ISECT, bool NSMEM, bool RTIOW = false, bool NEXTWEEK = false>
 int launch_mode(const Launch& L, bool smem, cudaStream_t st) {
   if (L.counts != nullptr) {
-    return smem ? launch<RECORD, ISECT, true, NSMEM, true, false, RTIOW>(L, st)
-                : launch<RECORD, ISECT, false, NSMEM, true, false, RTIOW>(L, st);
+    return smem ? launch<RECORD, ISECT, true, NSMEM, true, false, RTIOW, NEXTWEEK>(L, st)
+                : launch<RECORD, ISECT, false, NSMEM, true, false, RTIOW, NEXTWEEK>(L, st);
   }
-  return smem ? launch<RECORD, ISECT, true, NSMEM, false, false, RTIOW>(L, st)
-              : launch<RECORD, ISECT, false, NSMEM, false, false, RTIOW>(L, st);
+  return smem ? launch<RECORD, ISECT, true, NSMEM, false, false, RTIOW, NEXTWEEK>(L, st)
+              : launch<RECORD, ISECT, false, NSMEM, false, false, RTIOW, NEXTWEEK>(L, st);
 }
 
 // K1-ref's uncounted instantiations; its one counted instantiation (brute,
@@ -1210,13 +1409,16 @@ int launch_ref(const Launch& L, bool smem, cudaStream_t st) {
 // depth at most BVH_STACK), 4 and 5 render modes 0 and 3 on the reference stream
 // (K1-ref: rng_mode="reference"; counted in mode 4 only; rr_start is
 // ignored), 6 renders mode 3 with the RTIOW book's estimator (cam holds
-// C_ROWS + R_ROWS rows: the lens and the sky after the camera's). In the
+// C_ROWS + R_ROWS rows: the lens and the sky after the camera's), 7 renders
+// mode 6 with book 2's scene (cam holds book 2's rows and tables after
+// those: kernels/pack.py:pack_camera_nextweek; counts holds COUNTS + 3
+// counters). In the
 // brute modes 0, 1 and 4, nodes [num_nodes, 3] float4 are the scene's
 // object groups as tracer_torch/kernels/pack.py:pack_groups
 // packs them (num_nodes 0: no groups, every primitive tested). sph and pla
 // are 16-byte aligned record tables (tracer_torch/kernels/pack.py);
 // shared_tables stages them in shared memory (with a brute mode's groups),
-// shared_nodes the nodes of modes 2, 3, 5 and 6. strat_k > 0 stratifies the
+// shared_nodes the nodes of modes 2, 3, 5, 6 and 7. strat_k > 0 stratifies the
 // jitter over a strat_k x strat_k grid (every mode). row_offset >= 0 makes the launch the
 // band of rows row_offset .. row_offset + height - 1 of a taller image (every
 // mode): out and the tapes stay band-sized, seeds and rays are the image's.
@@ -1257,6 +1459,8 @@ extern "C" int tracer_megakernel_launch(
                                : launch_ref<BVH, false>(L, smem, st);
     case 6: return shared_nodes != 0 ? launch_mode<false, BVH, true, true>(L, smem, st)
                                      : launch_mode<false, BVH, false, true>(L, smem, st);
+    case 7: return shared_nodes != 0 ? launch_mode<false, BVH, true, true, true>(L, smem, st)
+                                     : launch_mode<false, BVH, false, true, true>(L, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

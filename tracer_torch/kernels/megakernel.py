@@ -68,8 +68,12 @@ The RTIOW book's estimator (a camera with a thin lens, a scene with a
 sky, the material codes RTIOW_LAMBERTIAN and RTIOW_METAL; `pack.
 rtiow_features`) renders with K1-bvh's RTIOW instantiation (entry mode
 6), which `intersector="bvh"` takes on its own for such a scene or
-camera; every other kernel (K1, K1-rec, K1-cl, K1-ref, K1-bvh-ref, and
-K2 in kernels/bwd.py) raises a ValueError that names what it lacks.
+camera. A scene with book 2's fields (moving spheres, media, the noise
+texture; `pack.nextweek_features`) renders with K1-bvh's NEXTWEEK
+instantiation (entry mode 7, which keeps the RTIOW book's lens, sky and
+materials), which `intersector="bvh"` takes on its own for it. Every
+other kernel (K1, K1-rec, K1-cl, K1-ref, K1-bvh-ref, and K2 in
+kernels/bwd.py) raises a ValueError that names what it lacks.
 
 The brute kernels (K1, K1-rec, brute K1-ref) cull by object
 (`Scene.groups`; csrc/megakernel.cu's note, kernels/pack.py:pack_groups).
@@ -124,14 +128,18 @@ NODE_SHARED_BYTES_MAX = 16 * 1024
 # deepest tree the BVH builder makes
 BVH_STACK = bvh_builder.BVH_STACK
 # the counted instantiation's counters (COUNTS in csrc/megakernel.cu)
+# (the last three, book 2's, are counted by the NEXTWEEK instantiation only)
 COUNT_NAMES = ("queries", "hits", "visits", "tests", "passes", "active_lanes", "node_tests",
-               "samples", "scatter_passes", "mixed_passes", "drained_passes")
+               "samples", "scatter_passes", "mixed_passes", "drained_passes",
+               "medium_tests", "medium_scatters", "noise_evals")
 MODE_RENDER, MODE_RECORD, MODE_CLUSTERED, MODE_BVH, MODE_REF, MODE_BVH_REF = 0, 1, 2, 3, 4, 5
 MODE_BVH_RTIOW = 6  # K1-bvh's RTIOW instantiation: lens, sky and the RTIOW materials
+MODE_BVH_NEXTWEEK = 7  # K1-bvh's NEXTWEEK instantiation: RTIOW's, motion, media, noise
 KERNEL_NAMES = {MODE_RENDER: "K1 (brute force)", MODE_RECORD: "K1-rec (record mode)",
                 MODE_CLUSTERED: "K1-cl (cluster-culled)", MODE_BVH: "K1-bvh",
                 MODE_REF: "K1-ref (reference stream)",
-                MODE_BVH_REF: "K1-bvh-ref (reference stream)", MODE_BVH_RTIOW: "K1-bvh (RTIOW)"}
+                MODE_BVH_REF: "K1-bvh-ref (reference stream)", MODE_BVH_RTIOW: "K1-bvh (RTIOW)",
+                MODE_BVH_NEXTWEEK: "K1-bvh (NEXTWEEK)"}
 
 
 class LoopWork(NamedTuple):
@@ -151,6 +159,9 @@ class LoopWork(NamedTuple):
     scatter_passes: int  # warp passes in which some lane scatters
     mixed_passes: int  # those whose scattering lanes take more than one material branch
     drained_passes: int  # warp passes after a lane of the warp found the pool empty: the tail
+    medium_tests: int  # NEXTWEEK: medium boundaries tested (the media times the queries)
+    medium_scatters: int  # NEXTWEEK: queries won by a medium's free flight
+    noise_evals: int  # NEXTWEEK: turbulence (marble) evaluations
 
     @property
     def lane_utilisation(self) -> float:
@@ -221,20 +232,31 @@ def _prepare(scene, cam, width, height, spp, max_depth, rr_start, sample_start, 
     if scene.sky is not None:
         for name, t in zip(scene.sky._fields, scene.sky):
             _check(f"scene.sky.{name}", t, device, (3,))
+    if scene.motion is not None:
+        _check("scene.motion", scene.motion, device, (scene.num_spheres, 3))
+    if scene.media is not None:
+        for name, t in zip(scene.media._fields, scene.media):
+            _check(f"scene.media.{name}", t, device)
+    if scene.noise is not None:
+        _check("scene.noise.vectors", scene.noise.vectors, device, (pack_mod.NOISE_POINTS, 3))
+        if tuple(scene.noise.perm.shape) != (3, pack_mod.NOISE_POINTS):
+            raise ValueError(f"scene.noise.perm must be [3, {pack_mod.NOISE_POINTS}]")
     return device, tex
 
 
 def _kernel_mode(mode, scene, cam):
     """`mode`, or K1-bvh's RTIOW instantiation for a scene or camera that
-    asks for the RTIOW book's estimator (pack.rtiow_features), which only
-    K1-bvh on the fixed stream renders: every other kernel raises."""
-    features = pack_mod.rtiow_features(scene, cam)
+    asks for the RTIOW book's estimator (pack.rtiow_features), or its
+    NEXTWEEK instantiation for a scene with book 2's fields (pack.
+    nextweek_features), which only K1-bvh on the fixed stream renders:
+    every other kernel raises."""
+    features = pack_mod.book_features(scene, cam)
     if not features:
         return mode
     if mode != MODE_BVH:
         raise ValueError(f"{KERNEL_NAMES[mode]} does not support {', '.join(features)}: only "
                          f"K1-bvh (intersector='bvh', rng_mode='fixed') renders them")
-    return MODE_BVH_RTIOW
+    return MODE_BVH_NEXTWEEK if scene.nextweek else MODE_BVH_RTIOW
 
 
 def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_start,
@@ -245,7 +267,9 @@ def _launch(mode, scene, cam, tex, out, width, height, spp, max_depth, sample_st
     brute mode's the scene's group records; the launch covers image rows
     row_offset .. row_offset + height - 1."""
     packed = pack_mod.pack_scene(scene)
-    if mode == MODE_BVH_RTIOW:
+    if mode == MODE_BVH_NEXTWEEK:
+        cam_t = pack_mod.pack_camera_nextweek(cam, scene)
+    elif mode == MODE_BVH_RTIOW:
         cam_t = pack_mod.pack_camera_rtiow(cam, scene)
     else:
         cam_t = pack_mod.pack_camera(cam)

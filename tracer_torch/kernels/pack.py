@@ -37,6 +37,11 @@ children of a node from one record.
 
 The brute kernels read the scene's objects (`Scene.groups`) as
 `pack_groups`' records.
+
+K1-bvh's book instantiations read the camera table with more rows after
+the camera's: the RTIOW book's lens and sky (`pack_camera_rtiow`), and
+after them book 2's switches, noise, media and motion
+(`pack_camera_nextweek`).
 """
 
 from __future__ import annotations
@@ -62,6 +67,12 @@ CAMERA_ROWS = ("ox", "oy", "oz", "p00x", "p00y", "p00z", "dux", "duy", "duz",
 # 0: the background instead)
 RTIOW_ROWS = ("lux", "luy", "luz", "lvx", "lvy", "lvz", "lens_on",
               "sbr", "sbg", "sbb", "str", "stg", "stb", "sky_on")
+# K1-bvh's NEXTWEEK instantiation reads these after RTIOW_ROWS
+# (pack_camera_nextweek): book 2's switches, then the noise's tables, the
+# media (MEDIUM_ROWS each) and the spheres' motion
+NEXTWEEK_ROWS = ("motion_on", "num_media", "noise_on", "noise_scale")
+NOISE_POINTS = 256  # the Perlin noise's gradient vectors, and each permutation's length
+MEDIUM_ROWS = ("cx", "cy", "cz", "radius", "nid", "alb0", "alb1", "alb2")
 
 BWD_JOIN_ROWS = ("cx", "cy", "cz", "rad", "nx", "ny", "nz", "issph", "mtype", "fuzz", "ir",
                  "abs0", "abs1", "abs2", "alb0", "alb1", "alb2", "emi0", "emi1", "emi2", "texid")
@@ -139,6 +150,46 @@ def rtiow_features(scene: Scene, cam=None) -> list:
     if cached((mtype,), ("rtiow",), lambda: bool((mtype >= RTIOW_LAMBERTIAN).any())):
         out.append("the RTIOW material codes (4, 5)")
     return out
+
+
+def nextweek_features(scene: Scene) -> list:
+    """What of book 2's fields (scene/types.py) `scene` has: moving spheres,
+    media, the noise texture; [] for a scene without them."""
+    return [name for name, x in (("moving spheres", scene.motion),
+                                 ("participating media", scene.media),
+                                 ("a noise texture", scene.noise)) if x is not None]
+
+
+def book_features(scene: Scene, cam=None) -> list:
+    """rtiow_features and nextweek_features together: what K1-bvh's book
+    instantiations alone render."""
+    return rtiow_features(scene, cam) + nextweek_features(scene)
+
+
+def pack_camera_nextweek(cam, scene: Scene) -> torch.Tensor:
+    """`pack_camera_rtiow`'s rows, then book 2's (NEXTWEEK_ROWS: whether
+    the spheres move, the media's count, whether there is a noise, its
+    scale), the noise's 256 gradient vectors (x, y, z each) and its three
+    permutations (as float32, exact), each medium's MEDIUM_ROWS, and with
+    motion each sphere's displacement (x, y, z): float32 on the camera's
+    device, as K1-bvh's NEXTWEEK instantiation reads them."""
+    dev = cam.origin.device
+    f = lambda *x: torch.tensor(x, dtype=torch.float32, device=dev)
+    media, noise = scene.media, scene.noise
+    n_media = 0 if media is None else int(media.radius.shape[0])
+    parts = [pack_camera_rtiow(cam, scene),
+             f(float(scene.motion is not None), float(n_media), float(noise is not None),
+               0.0 if noise is None else noise.scale)]
+    if noise is None:
+        parts.append(torch.zeros(2 * NOISE_POINTS * 3, dtype=torch.float32, device=dev))
+    else:
+        parts += [noise.vectors.reshape(-1), noise.perm.reshape(-1)]
+    if media is not None:
+        parts.append(_records(*media.center.unbind(1), media.radius, media.neg_inv_density,
+                              *media.albedo.unbind(1)).reshape(-1))
+    if scene.motion is not None:
+        parts.append(scene.motion.reshape(-1))
+    return torch.cat([p.to(torch.float32) for p in parts]).contiguous()
 
 
 def _bvh_records(bvh, num_s: int, max_depth: int) -> torch.Tensor:

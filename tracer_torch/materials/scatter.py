@@ -11,7 +11,8 @@ draws, in stream order (the CUDA kernel draws the same):
   u_refl    (1)  - DIELECTRIC reflectance gate      (materials.h:109)
   u_rr      (1)  - DIELECTRIC Russian roulette      (materials.h:124)
 The RTIOW book's two materials (scene/types.py: RTIOW_LAMBERTIAN,
-RTIOW_METAL) take their draws from the same slots.
+RTIOW_METAL) take their draws from the same slots, and so does book 2's
+ISOTROPIC phase function: the ball draw is its direction.
 
 `scatter_reference`, the reference binary's own stream (`rng_mode=
 "reference"`): rejection samplers and conditional draws, per material.
@@ -22,7 +23,8 @@ from __future__ import annotations
 import torch
 
 from tracer_torch.core import rng, vec
-from tracer_torch.scene.types import DIELECTRIC, LAMBERTIAN, METAL, RTIOW_LAMBERTIAN, RTIOW_METAL
+from tracer_torch.scene.types import (DIELECTRIC, ISOTROPIC, LAMBERTIAN, METAL, RTIOW_LAMBERTIAN,
+                                     RTIOW_METAL)
 
 METAL_SPECULAR_P = 0.8  # materials.h:82 (p_metal)
 DIELECTRIC_OFFSET = 1e-4  # materials.h:127
@@ -126,7 +128,10 @@ def scatter(ray_origin, ray_dir, point, normal, front_face, mtype, fuzz, ir,
     new_dir = torch.where(is_rl[..., None], rl_dir,
                           torch.where(is_rm[..., None], refl_dir, new_dir))
     ok = ok | is_rl | (is_rm & (vec.dot(refl_dir, normal) > 0.0))
-    return seed, new_origin, new_dir, attenuation, ok
+    # ISOTROPIC (book 2, section 9.2): along the ball draw, from the point
+    is_iso = mtype == ISOTROPIC
+    new_dir = torch.where(is_iso[..., None], ball, new_dir)
+    return seed, new_origin, new_dir, attenuation, ok | is_iso
 
 
 def scatter_reference(ray_origin, ray_dir, point, normal, front_face, mtype, fuzz, ir,

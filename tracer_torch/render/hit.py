@@ -47,23 +47,37 @@ class JoinedHit(NamedTuple):
     winner: torch.Tensor  # [R] i64 argmin over [spheres; planes] (meaningless on a miss)
 
 
-def _all_ts(scene: Scene, origin, direction, t_min, t_max):
+def sphere_centers(scene: Scene, time=None, idx=None):
+    """The spheres' centres (`idx`: those of spheres `idx` `[R]`, one a
+    ray), each moved to its ray's `time` `[R]` where the scene has motion:
+    c0 + time (c1 - c0); `[S, 3]`, `[R, S, 3]` or `[R, 3]`."""
+    c = scene.spheres.center if idx is None else scene.spheres.center[idx]
+    if scene.motion is None or time is None:
+        return c
+    if idx is None:
+        return c[None] + time[:, None, None] * scene.motion[None]
+    return c + time[:, None] * scene.motion[idx]
+
+
+def _all_ts(scene: Scene, origin, direction, t_min, t_max, time=None):
     """The dense `[R, S+P]` valid-hit parameter matrix, spheres first."""
     num_s, num_p = scene.num_spheres, scene.num_planes
     if num_s + num_p == 0:
         raise ValueError("scene has no primitives")
     ts = []
     if num_s:
-        ts.append(sphere_mod.sphere_ts(origin, direction, scene.spheres.center,
-                                       scene.spheres.radius, t_min, t_max))
+        ts.append(sphere_mod.sphere_ts(origin, direction, sphere_centers(scene, time),
+                                       scene.spheres.radius, t_min, t_max,
+                                       perpendicular=scene.nextweek))
     if num_p:
         ts.append(plane_mod.plane_ts(origin, direction, scene.planes, t_min, t_max))
     return torch.cat(ts, dim=1)
 
 
-def _joined(scene: Scene, origin, direction, t_best, winner) -> JoinedHit:
+def _joined(scene: Scene, origin, direction, t_best, winner, time=None) -> JoinedHit:
     """The winner's record recomputed from its gathered fields, joined with
-    its material; `winner` is the primitive index, spheres first."""
+    its material; `winner` is the primitive index, spheres first; a moving
+    sphere at the ray's `time`, a book 2 scene's sphere UVs the book's."""
     num_s, num_p = scene.num_spheres, scene.num_planes
     hit = t_best < K_INFINITY
     # records of missing rays are computed at a harmless t and masked later
@@ -75,7 +89,9 @@ def _joined(scene: Scene, origin, direction, t_best, winner) -> JoinedHit:
     fields = []
     if num_s:
         sp = scene.spheres
-        rec = sphere_mod.sphere_record(origin, direction, t_calc, sp.center[s_idx], sp.radius[s_idx])
+        rec = sphere_mod.sphere_record(origin, direction, t_calc,
+                                       sphere_centers(scene, time, s_idx), sp.radius[s_idx],
+                                       book_uv=scene.nextweek)
         fields.append(rec + (sp.material_idx[s_idx],))
     if num_p:
         pl = scene.planes
@@ -99,10 +115,12 @@ def _joined(scene: Scene, origin, direction, t_best, winner) -> JoinedHit:
     )
 
 
-def hit_scene_brute(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX) -> JoinedHit:
-    """Nearest hit over all spheres and planes; origin/direction `[R, 3]`."""
-    t_best, winner = torch.min(_all_ts(scene, origin, direction, t_min, t_max), dim=1)
-    return _joined(scene, origin, direction, t_best, winner)  # first minimum: lowest index
+def hit_scene_brute(scene: Scene, origin, direction, t_min=T_MIN, t_max=T_MAX,
+                    time=None) -> JoinedHit:
+    """Nearest hit over all spheres and planes; origin/direction `[R, 3]`,
+    `time` `[R]` the rays' times (for a scene with motion)."""
+    t_best, winner = torch.min(_all_ts(scene, origin, direction, t_min, t_max, time), dim=1)
+    return _joined(scene, origin, direction, t_best, winner, time)  # first minimum: lowest index
 
 
 def cluster_visibility(tables, origin, direction):

@@ -12,6 +12,14 @@ intersector stands for both of tracer's (hit.py and hit_fast.py);
 kernels share, or "reference", the reference binary's own per-lane
 stream (materials/scatter.py:scatter_reference).
 
+A scene with book 2's fields (scene/types.py: `motion`, `media`,
+`noise`) takes them here: each ray carries its time, at which the moving
+spheres are tested; after each nearest-hit query every medium takes one
+draw, in table order, for its free flight (`medium_scatter`), and a
+medium whose flight ends first wins the query with the ISOTROPIC phase
+function; a NOISE material takes the marble (materials/noise.py) as its
+albedo's factor.
+
 The loop stops as soon as every ray of the batch has terminated (the
 JAX package's `early_exit`), which changes no value: dead rays keep
 their state.
@@ -29,12 +37,15 @@ from __future__ import annotations
 import torch
 
 from tracer_torch.bvh import traverse as bvh_traverse
+from tracer_torch.core import T_MIN
 from tracer_torch.core import rng as rng_mod
 from tracer_torch.core import vec
+from tracer_torch.geometry import sphere as sphere_mod
+from tracer_torch.materials import noise as noise_mod
 from tracer_torch.materials import scatter as scatter_mod
 from tracer_torch.materials import texture as texture_mod
 from tracer_torch.render import hit as hit_mod
-from tracer_torch.scene.types import Scene
+from tracer_torch.scene.types import ISOTROPIC, K_INFINITY, NOISE, Scene
 
 RR_MIN_P = 0.05  # Russian-roulette survival floor (== the kernel's RR_MIN_P)
 INTERSECTORS = ("fast", "brute", "bvh")
@@ -84,15 +95,71 @@ def sky_radiance(sky, direction):
     return sky.bottom * (1.0 - t) + sky.top * t
 
 
+def medium_scatter(media, origin, direction, t_surface, seed):
+    """The media's free flights after a nearest-hit query whose nearest
+    surface lies at `t_surface` `[R]` (K_INFINITY for none): one draw a
+    medium, in table order, whether or not the ray crosses it. A medium's
+    interval is its boundary's two roots (the discriminant's perpendicular
+    form, geometry/sphere.py:discriminant) clamped to [T_MIN, t_surface]
+    (book 2's constant_medium::hit); its free flight -ln(u) / density,
+    along the ray, wins where it ends inside that interval, at t = t0 +
+    flight / |d|; the nearest such point wins, the lower index on a tie,
+    in the CUDA kernel's float forms. Returns (seed, medium `[R]` int64,
+    -1 for none, t `[R]`)."""
+    a = vec.length_squared(direction)
+    inv_a = 1.0 / a
+    length = torch.sqrt(a)
+    best_t = torch.full_like(a, K_INFINITY)
+    best_m = torch.full(a.shape, -1, dtype=torch.int64, device=a.device)
+    for m in range(media.radius.shape[0]):
+        seed, u = rng_mod.random_float(seed)
+        oc = origin - media.center[m]
+        half_b = vec.dot(oc, direction)
+        disc = sphere_mod.discriminant(oc, direction, a, half_b, media.radius[m], True)
+        ok = disc >= 0.0
+        sq = torch.sqrt(torch.where(ok, disc, 1.0))
+        t0 = torch.clamp_min((-half_b - sq) * inv_a, T_MIN)
+        t1 = torch.minimum((-half_b + sq) * inv_a, t_surface)
+        flight = media.neg_inv_density[m] * torch.log(u)
+        ok = ok & (t0 < t1) & ~(flight > (t1 - t0) * length)
+        t = t0 + flight / length
+        take = ok & (t < best_t)
+        best_t = torch.where(take, t, best_t)
+        best_m = torch.where(take, m, best_m)
+    return seed, best_m, best_t
+
+
+def _medium_record(media, rec, origin, direction, m_win, m_t):
+    """`rec` with the queries won by a medium replaced by its scatter: the
+    point at t, ISOTROPIC, the medium's albedo, no emission, no texture."""
+    won = m_win >= 0
+    w3 = won[..., None]
+    m = torch.clamp_min(m_win, 0)
+    point = origin + m_t[..., None] * direction
+    zero = torch.zeros_like(rec.emit)
+    return rec._replace(
+        hit=rec.hit | won, t=torch.where(won, m_t, rec.t), point=torch.where(w3, point, rec.point),
+        mtype=torch.where(won, ISOTROPIC, rec.mtype),
+        albedo=torch.where(w3, media.albedo[m], rec.albedo), emit=torch.where(w3, zero, rec.emit),
+        tex_id=torch.where(won, -1, rec.tex_id))
+
+
 def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields=None,
-            clusters=None, intersector="brute", work=None, rng_mode="fixed"):
+            clusters=None, intersector="brute", work=None, rng_mode="fixed", time=None,
+            events=None):
     origin, direction, beta, final, seed, alive = carry
+    at = {} if time is None else {"time": time}  # a scene with motion: the rays' times
     if clusters is not None:
         rec = hit_mod.hit_scene_clustered(scene, clusters, origin, direction)
     elif intersector == "bvh":
-        rec = bvh_traverse.hit_scene_bvh(scene, origin, direction, work=work, live=alive)
+        rec = bvh_traverse.hit_scene_bvh(scene, origin, direction, work=work, live=alive, **at)
     else:
-        rec = hit_mod.hit_scene_brute(scene, origin, direction)
+        rec = hit_mod.hit_scene_brute(scene, origin, direction, **at)
+    won = None
+    if scene.media is not None:  # the media's draws, before the miss or hit is handled
+        seed, m_win, m_t = medium_scatter(scene.media, origin, direction, rec.t, seed)
+        rec = _medium_record(scene.media, rec, origin, direction, m_win, m_t)
+        won = m_win >= 0
 
     # miss: final += beta * background (or the scene's sky), the path dies
     # (camera.cu:226-229)
@@ -116,6 +183,17 @@ def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields
             took = active & (rec.tex_id >= 0)
             tex_slot = torch.where(took[..., None], vals, neutral)
         albedo = torch.where((rec.tex_id >= 0)[..., None], albedo * tex_rgb, albedo)
+
+    marbled = None
+    if scene.noise is not None:  # the marble (NOISE) in place of a texture
+        marbled = active & (rec.tex_id == NOISE)
+        albedo = torch.where(marbled[..., None],
+                             albedo * noise_mod.marble(scene.noise, rec.point)[..., None], albedo)
+    if events is not None:  # the counted kernel's medium_tests, medium_scatters, noise_evals
+        n_media = 0 if scene.media is None else scene.media.radius.shape[0]
+        z = torch.zeros((), dtype=torch.int64, device=alive.device)
+        events.append((alive.sum() * n_media, z if won is None else (alive & won).sum(),
+                       z if marbled is None else marbled.sum()))
 
     # emission before scatter (camera.cu:237-238)
     final = final + torch.where(active[..., None], beta * rec.emit, 0.0)
@@ -148,7 +226,7 @@ def _bounce(scene: Scene, background, carry, rr_start=None, depth=0, tape_fields
 
 def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_start=None,
           tape_fields=None, clusters=None, queries=None, intersector: str = "brute",
-          work=None, rng_mode: str = "fixed"):
+          work=None, rng_mode: str = "fixed", time=None, events=None):
     """Radiance `[R, 3]` for a batch of rays; `seed` is `[R]` int64 holding
     uint32, already advanced past ray generation. `clusters` (the scene's
     kernels.cluster.ClusterTables, or None) selects the cluster-culled
@@ -162,7 +240,13 @@ def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_
     count (a 0-d tensor) of rays alive at its start: its nearest-hit
     queries. `rng_mode`: "fixed" or "reference" (RNG_MODES); "reference"
     refuses `rr_start` and `tape_fields`, as tracer's recording path has no
-    reference stream. A scene's `sky` replaces `background` on a miss."""
+    reference stream. A scene's `sky` replaces `background` on a miss.
+    `time` `[R]`: the rays' times, carried through their bounces, for a
+    scene with motion. `events`, a list, receives per bounce executed the
+    (medium boundaries tested, queries won by a medium, marble
+    evaluations) of the rays alive at its start, as 0-d tensors: what the
+    counted kernel adds up as medium_tests, medium_scatters and
+    noise_evals."""
     check_intersector(intersector, scene)
     check_rng_mode(rng_mode, rr_start)
     if rng_mode == "reference" and tape_fields is not None:
@@ -176,7 +260,7 @@ def trace(scene: Scene, background, origin, direction, seed, max_depth: int, rr_
         if queries is not None:
             queries.append(carry[-1].sum())
         kw = dict(rr_start=rr_start, depth=depth, clusters=clusters, intersector=intersector,
-                  work=work, rng_mode=rng_mode)
+                  work=work, rng_mode=rng_mode, time=time, events=events)
         if tape_fields is None:
             carry = _bounce(scene, background, carry, **kw)
         else:

@@ -26,7 +26,7 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
                   sample_start: int = 0, rr_start=None, tape_fields=None,
                   cluster_k: int = 0, queries=None, stratify: bool = False,
                   strat_sqrt_spp: int = 0, intersector: str = "brute", work=None,
-                  rng_mode: str = "fixed"):
+                  rng_mode: str = "fixed", events=None):
     """Raw sample sums `[N, 3]` for a flat list of pixels.
 
     i_flat/j_flat: `[N]` pixel column/row; base_seed: `[N]` per-pixel seed
@@ -57,6 +57,12 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
     codes RTIOW_LAMBERTIAN and RTIOW_METAL) renders on the fixed stream
     without tapes: the reference stream and the recording path refuse it.
 
+    Book 2's fields (scene/types.py) render there too, brute force or BVH:
+    with motion each camera sample takes one more draw, its time, after the
+    jitter's (and the lens's), and carries it through its bounces; media
+    and the marble as integrator.trace. The cluster-culled nearest hit
+    refuses them. `events` as in integrator.trace.
+
     `rng_mode`: "fixed" (the 8-draw budget) or "reference" (the reference
     binary's per-lane stream, integrator.RNG_MODES); "reference" refuses
     `rr_start`, `tape_fields` and `cluster_k` > 0 (tracer's clustered path
@@ -67,10 +73,13 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
     integrator.check_intersector(intersector, scene)
     integrator.check_rng_mode(rng_mode, rr_start)
     if rng_mode == "reference" or tape_fields is not None:
-        unsupported = pack.rtiow_features(scene, cam)
+        unsupported = pack.book_features(scene, cam)
         if unsupported:
             path = "the reference stream" if rng_mode == "reference" else "the recording renderer"
             raise ValueError(f"{path} does not support {', '.join(unsupported)}")
+    if cluster_mod.check_k(cluster_k) and scene.nextweek:
+        raise ValueError(f"the cluster-culled nearest hit does not support "
+                         f"{', '.join(pack.nextweek_features(scene))}")
     clusters = None
     if cluster_mod.check_k(cluster_k):
         if rng_mode == "reference":
@@ -103,10 +112,13 @@ def render_pixels(scene: Scene, cam: camera_mod.CameraData, i_flat, j_flat, base
             seed, origin, direction = camera_mod.get_rays(cam, i, j, seed,
                                                           sample_index=sample_start + s,
                                                           sqrt_spp=k)
+            time = None
+            if scene.motion is not None:  # the sample's time, after the jitter and the lens
+                seed, time = rng.random_float(seed)
             res = integrator.trace(scene, cam.background, origin, direction, seed, max_depth,
                                    rr_start=rr_start, tape_fields=tape_fields,
                                    clusters=clusters, queries=queries, intersector=intersector,
-                                   work=work, rng_mode=rng_mode)
+                                   work=work, rng_mode=rng_mode, time=time, events=events)
             for d, (w, t) in enumerate(res[2] if idx is not None else ()):
                 idx[s, d, c0:c1] = w
                 if tex is not None:

@@ -71,11 +71,27 @@ class SceneBuffers:
 
     # one (s_lo, s_hi, p_lo, p_hi) per polyhedron: its sphere and plane index ranges
     groups: List = field(default_factory=list)
+    # sphere k's displacement over the shutter (Scene.motion), for k in the dict
+    sphere_motion: dict = field(default_factory=dict)
 
-    def add_sphere(self, center, radius, mat_idx):
+    def add_sphere(self, center, radius, mat_idx, motion=None):
+        """A sphere; with `motion`, one that moves from `center` to `center +
+        motion` over the shutter [0, 1) (book 2's moving sphere)."""
+        if motion is not None:
+            self.sphere_motion[len(self.sphere_radius)] = np.asarray(motion, np.float32)
         self.sphere_center.append(np.asarray(center, np.float32))
         self.sphere_radius.append(float(radius))
         self.sphere_mat.append(int(mat_idx))
+
+    def motion_array(self):
+        """`[S, 3]` float32 displacements (0 for a sphere at rest), or None
+        where no sphere moves."""
+        if not self.sphere_motion:
+            return None
+        out = np.zeros((len(self.sphere_radius), 3), np.float32)
+        for k, m in self.sphere_motion.items():
+            out[k] = m
+        return out
 
     def add_plane(self, ptype, base, u, v, mat_idx):
         self.plane_type.append(int(ptype))
@@ -94,6 +110,18 @@ class SceneBuffers:
         self.mat_emit.append(np.asarray(emit, np.float32))
         self.mat_tex.append(int(tex_id))
         return len(self.mat_type) - 1
+
+
+def add_box(buf: SceneBuffers, lo, hi, mat_idx):
+    """The axis-aligned box [lo, hi] as six QUAD planes (book 2's `box`, its
+    six aa_rects): the faces at z lo and hi, y lo and hi, x lo and hi."""
+    (x0, y0, z0), (x1, y1, z1) = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    dx, dy, dz = (np.array(v, np.float32) for v in ((x1 - x0, 0, 0), (0, y1 - y0, 0),
+                                                    (0, 0, z1 - z0)))
+    for base, u, v in (((x0, y0, z0), dx, dy), ((x0, y0, z1), dx, dy),
+                       ((x0, y0, z0), dx, dz), ((x0, y1, z0), dx, dz),
+                       ((x0, y0, z0), dy, dz), ((x1, y0, z0), dy, dz)):
+        buf.add_plane(T.QUAD, np.asarray(base, np.float32), u, v, mat_idx)
 
 
 def _add_border_edge(buf: SceneBuffers, center, start, end, r, border_mat,
@@ -311,8 +339,10 @@ def buffers_to_scene(buf: SceneBuffers, device, textures: Optional[np.ndarray] =
         if textures is not None:
             with profiling.span("tracer.scene.texture"):
                 tex = torch.tensor(np.asarray(textures, np.float32), device=device)
+        motion = buf.motion_array()
         return T.Scene(spheres=spheres, planes=planes, materials=materials, textures=tex,
-                       bvh=bvh, groups=tuple(buf.groups) or None)
+                       bvh=bvh, groups=tuple(buf.groups) or None,
+                       motion=None if motion is None else torch.tensor(motion, device=device))
 
 
 def create_scene(params: SceneParams, with_bvh: bool = False,

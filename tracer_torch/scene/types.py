@@ -30,6 +30,16 @@ DIFFUSE_LIGHT = 3
 # specular gate), killed below the surface.
 RTIOW_LAMBERTIAN = 4
 RTIOW_METAL = 5
+# The phase function of the constant media of Shirley's "Ray Tracing: The
+# Next Week" (book 2, v3.2.3, section 9): a medium's scatter leaves along
+# the 8-draw budget's ball draw, attenuated by the medium's albedo. Media
+# are not primitives (Scene.media); a query won by a medium takes this code.
+ISOTROPIC = 6
+
+# Texture ids (Materials.tex_id): -1 untextured, >= 0 a layer of
+# Scene.textures, NOISE the book 2 marble (Scene.noise), 0.5 (1 + sin(scale
+# z + 10 turb(p))) in the book's frame, times the material's albedo.
+NOISE = -2
 
 # Reference include/interval.h:3 (kInfinity).
 K_INFINITY = 1e32
@@ -94,6 +104,29 @@ class Sky(NamedTuple):
     top: torch.Tensor  # [3] f32, straight up
 
 
+class Media(NamedTuple):
+    """Constant media (book 2, section 9), in the order their free flights
+    are drawn: each a boundary sphere (center, radius) filled with a medium
+    of density rho, held as -1 / rho, and albedo. A ray scatters in a
+    medium where its free flight, -ln(u) / rho along the ray, ends inside
+    the boundary and before the nearest surface; a boundary that is also a
+    surface is a sphere of the scene too."""
+
+    center: torch.Tensor  # [M, 3] f32
+    radius: torch.Tensor  # [M] f32
+    neg_inv_density: torch.Tensor  # [M] f32, -1 / density
+    albedo: torch.Tensor  # [M, 3] f32
+
+
+class Noise(NamedTuple):
+    """The book 2 Perlin noise (section 5): 256 unit gradient vectors and
+    three permutations of 0 .. 255, and the marble's scale (NOISE)."""
+
+    vectors: torch.Tensor  # [256, 3] f32
+    perm: torch.Tensor  # [3, 256] i32: perm_x, perm_y, perm_z
+    scale: float
+
+
 class Scene(NamedTuple):
     """The scene (analog of reference SceneData, scene.h:9-21); `bvh` is
     the primitives' BVH, or None (builders.create_scene(with_bvh=True)
@@ -102,7 +135,12 @@ class Scene(NamedTuple):
     ascending and not overlapping (builders.py notes one per polyhedron),
     or None: the brute kernels' cull (kernels/pack.py:pack_groups).
     `sky`, or None, is what a miss adds in place of the camera's
-    background."""
+    background. The fields of "Ray Tracing: The Next Week" (book 2), each
+    None by default: `motion`, each sphere's displacement c1 - c0 over the
+    shutter [0, 1) (`[S, 3]`; a ray's time moves the sphere to c0 + time
+    (c1 - c0)); `media` (Media); `noise` (Noise). A scene with any of them
+    is in the book's convention: its sphere UVs and its noise are taken in
+    the book's y-up frame, (x, y, z) -> (x, z, -y) from the port's."""
 
     spheres: Spheres
     planes: Planes
@@ -111,6 +149,15 @@ class Scene(NamedTuple):
     bvh: Optional[BVHArrays] = None
     groups: Optional[Tuple[Tuple[int, int, int, int], ...]] = None
     sky: Optional[Sky] = None
+    motion: Optional[torch.Tensor] = None
+    media: Optional[Media] = None
+    noise: Optional[Noise] = None
+
+    @property
+    def nextweek(self) -> bool:
+        """Whether the scene has any of book 2's fields (motion, media,
+        noise)."""
+        return self.motion is not None or self.media is not None or self.noise is not None
 
     @property
     def num_spheres(self) -> int:
@@ -168,6 +215,20 @@ def make_planes(ptype, base, u, v, material_idx, device) -> Planes:
 
 def make_sky(bottom, top, device) -> Sky:
     return Sky(bottom=_f32(bottom, device, (3,)), top=_f32(top, device, (3,)))
+
+
+def make_media(center, radius, density, albedo, device) -> Media:
+    """Media from their boundaries, densities and albedos."""
+    density = np.asarray(density, np.float64).reshape(-1)
+    return Media(center=_f32(center, device, (-1, 3)), radius=_f32(radius, device, (-1,)),
+                 neg_inv_density=_f32(-1.0 / density, device, (-1,)),
+                 albedo=_f32(albedo, device, (-1, 3)))
+
+
+def make_noise(vectors, perm, scale, device) -> Noise:
+    return Noise(vectors=_f32(vectors, device, (256, 3)),
+                 perm=torch.as_tensor(np.asarray(perm, np.int32), device=device).reshape(3, 256),
+                 scale=float(scale))
 
 
 def make_materials(mtype, fuzz, ir, absorption, albedo, emit, tex_id, device) -> Materials:
