@@ -926,6 +926,38 @@ def test_cli_gpu_ref_rng_retries_renders_the_kernel_frame(dev, tmp_path):
     np.testing.assert_array_equal(cli_frame, image_io.quantize(fb, 2))
 
 
+def test_driver_overlap_writes_the_serial_frames(dev, tmp_path):
+    """render_animation one frame deep on the card (frame n's copy and hand-
+    off while frame n+1 renders) writes the files and returns the array of
+    the serial order (retries=1: each frame waited for before the next), bit
+    for bit, over 3 frames of K1-bvh in 4 chunks each; each TSV `ms` is the
+    frame's own event time, above 0."""
+    from tracer_torch.render import driver
+
+    params = config.read_scene_params(io.StringIO(config.smoke_config_text()))
+    params.width, params.height, params.num_frames = 64, 48, 3
+    params.render.sqrt_rays_per_pixel = 4
+    scene = builders.create_scene(params, with_bvh=True, texture_loader=lambda _p: None,
+                                  device=dev)
+    got = {}
+    for retries in (0, 1):
+        folder = tmp_path / f"r{retries}"
+        folder.mkdir()
+        params.output_path = str(folder / "out_%d.bin")
+        out, before = io.StringIO(), driver.FRAMES_AHEAD
+        fb = driver.render_animation(scene, params, engine="cuda", saver="bin", out=out,
+                                     intersector="bvh", spp_chunk=4, retries=retries)
+        lines = [x.split("\t") for x in out.getvalue().splitlines()]
+        assert [x[0] for x in lines] == ["0", "1", "2"]
+        assert all(float(x[1]) > 0 for x in lines)
+        got[retries] = (fb, driver.FRAMES_AHEAD - before,
+                        [(folder / f"out_{n}.bin").read_bytes() for n in range(3)])
+    (fb, ahead, files), (fb_s, ahead_s, files_s) = got[0], got[1]
+    assert (ahead, ahead_s) == (2, 0)
+    np.testing.assert_array_equal(fb, fb_s)
+    assert files == files_s and fb.any()
+
+
 # ---- the pixel pool: one wave of blocks, each lane refilled from a counter ----
 
 def _pool_case(name, dev):

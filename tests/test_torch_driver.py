@@ -16,7 +16,7 @@ from tracer import cli as jax_cli
 from tracer_torch import cli
 from tracer_torch.io import image as image_io
 from tracer_torch.kernels import megakernel
-from tracer_torch.render import driver
+from tracer_torch.render import driver, renderer
 from tracer_torch.scene import builders, config
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -189,6 +189,91 @@ def test_render_animation_saver_divisor(tmp_path):
                             saver_spp_quirk=False)
     img = image_io.read_binary(str(tmp_path / "out_0.bin"))
     np.testing.assert_array_equal(img, image_io.quantize(fb, 4))
+
+
+def _logged_animation(tmp_path, monkeypatch, retries, frames):
+    """render_animation over `frames` into tmp_path / f"r{retries}", with
+    every pull of the iterator and every submit to the writer logged in
+    order: (return value, TSV lines, log, frames written ahead)."""
+    scene, params = _scene_and_params(tmp_path, frames=3)
+    params.width, params.height = 16, 12
+    folder = tmp_path / f"r{retries}"
+    folder.mkdir()
+    params.output_path = str(folder / "out_%d.bin")
+    log = []
+    real = driver.frame_writer
+
+    def logged_writer(saver):
+        w = real(saver)
+        submit = w.submit
+        w.submit = lambda path, *a, **kw: log.append(("write", path)) or submit(path, *a, **kw)
+        return w
+
+    def pulls():
+        for n in frames:
+            log.append(("pull", n))
+            yield n
+
+    out, before = io.StringIO(), driver.FRAMES_AHEAD
+    with monkeypatch.context() as m:
+        m.setattr(driver, "frame_writer", logged_writer)
+        fb = driver.render_animation(scene, params, engine="torch", out=out, frames=pulls(),
+                                     retries=retries)
+    return fb, out.getvalue().splitlines(), log, driver.FRAMES_AHEAD - before
+
+
+def test_render_animation_is_one_frame_deep_and_writes_what_the_serial_loop_writes(
+        tmp_path, monkeypatch):
+    """The loop pulls frame k only after frame k-2 is written; every pulled
+    frame is printed in pull order and written, byte for byte as the serial
+    order (retries=1, which finishes each frame before the next) writes it;
+    FRAMES_AHEAD counts the frames finished behind a later frame's launches."""
+    frames = [2, 0, 1]
+    fb, lines, log, ahead = _logged_animation(tmp_path, monkeypatch, 0, frames)
+    fb_s, lines_s, log_s, ahead_s = _logged_animation(tmp_path, monkeypatch, 1, frames)
+    assert (ahead, ahead_s) == (len(frames) - 1, 0)
+    for events, depth in ((log, 1), (log_s, 0)):
+        assert [n for what, n in events if what == "pull"] == frames
+        assert [os.path.basename(p) for what, p in events if what == "write"] == [
+            f"out_{n}.bin" for n in frames]
+        for at, (what, _n) in enumerate(events):
+            if what == "pull":
+                pulled = sum(w == "pull" for w, _ in events[:at])
+                written = sum(w == "write" for w, _ in events[:at])
+                assert pulled - written <= depth
+    for got in (lines, lines_s):
+        assert [TSV.match(x).group(1) for x in got] == [str(n) for n in frames]
+        assert all(float(TSV.match(x).group(2)) > 0 for x in got)
+    np.testing.assert_array_equal(fb, fb_s)
+    for n in frames:
+        assert (tmp_path / "r0" / f"out_{n}.bin").read_bytes() == \
+            (tmp_path / "r1" / f"out_{n}.bin").read_bytes()
+
+
+def test_render_animation_writes_the_frame_before_a_failed_one(tmp_path, monkeypatch):
+    """A frame whose launches fail ends the loop with that error; the frame
+    enqueued before it is still printed and written, as the serial loop
+    wrote it."""
+    scene, params = _scene_and_params(tmp_path, frames=2)
+    params.width, params.height = 16, 12
+    want = driver.render_animation(scene, params, engine="torch", out=io.StringIO(), frames=[0])
+    want_file = (tmp_path / "out_0.bin").read_bytes()
+    (tmp_path / "out_0.bin").unlink()
+    real, calls = renderer.render_frame, []
+
+    def fails_on_frame_1(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise ValueError("frame 1 refused")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(renderer, "render_frame", fails_on_frame_1)
+    out = io.StringIO()
+    with pytest.raises(ValueError, match="frame 1 refused"):
+        driver.render_animation(scene, params, engine="torch", out=out)
+    assert [TSV.match(x).group(1) for x in out.getvalue().splitlines()] == ["0"]
+    assert (tmp_path / "out_0.bin").read_bytes() == want_file
+    assert not (tmp_path / "out_1.bin").exists() and want.any()
 
 
 def test_kernel_build_needs_nvcc():

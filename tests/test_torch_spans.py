@@ -121,24 +121,27 @@ def test_span_ends_when_its_block_raises(spans_on):
 
 
 def test_frame_loop_spans(spans_on, tmp_path):
-    """One `tracer.frame` a frame, each holding its camera, synchronize,
-    fetch and submit in that order; the writer's open before the first
-    frame and its drain after the last."""
+    """One `tracer.frame` a frame, each holding its camera and then the
+    previous frame's synchronize, fetch and submit in that order (the loop
+    is one frame deep); the last frame's three after the last
+    `tracer.frame`; the writer's open before the first frame and its drain
+    after the last frame's submit."""
     run = _frame_run(tmp_path, frames=3)
     profiling.take_spans()  # the scene's
     run()
     spans = profiling.take_spans()
     frames = [s for s in spans if s[0] == "tracer.frame"]
     assert len(frames) == 3
-    phases = ["tracer.frame.camera", "tracer.frame.sync", "tracer.frame.fetch",
-              "tracer.frame.submit"]
-    for f in frames:
+    handoff = ["tracer.frame.sync", "tracer.frame.fetch", "tracer.frame.submit"]
+    for k, f in enumerate(frames):
         inner = [s for s in spans if s[0].startswith("tracer.frame.") and _inside(s, f)]
-        assert [s[0] for s in inner] == phases
+        assert [s[0] for s in inner] == ["tracer.frame.camera"] + (handoff if k else [])
     opened = [s for s in spans if s[0] == "tracer.writer.open"]
     drained = [s for s in spans if s[0] == "tracer.writer.drain"]
     assert len(opened) == 1 and len(drained) == 1
-    assert opened[0][2] <= frames[0][1] and frames[-1][2] <= drained[0][1]
+    closing = [s for s in spans if frames[-1][2] <= s[1] and s[2] <= drained[0][1]]
+    assert [s[0] for s in closing] == handoff
+    assert opened[0][2] <= frames[0][1] and closing[-1][2] <= drained[0][1]
     assert len(spans) == 2 + 5 * 3
 
 
